@@ -1,0 +1,105 @@
+"""Matmul against 2-bit (ternary) / 1-bit (binary) packed weights, ported
+from `repro/kernels/packed_matmul.py`.
+
+Two kernels, each with its plain PyTorch version beside it:
+
+  * `packed_gemv`   — the multiply-free decode-shape GEMV (x has at most 8
+                      rows): codes become plus/minus masks and each output
+                      column is sum(select(plus, x)) - sum(select(minus, x)).
+                      Kernel: csrc/packed_gemv.cu.
+  * `packed_matmul` — the prefill GEMM: codes decode to -1/0/+1 fp32 and
+                      meet x in an exact fp32 product.
+                      Kernel: csrc/packed_matmul.cu.
+
+A wrapper launches its kernel for CUDA tensors and runs the plain version
+for CPU tensors (kernels/dispatch.py).  Codes are int32 bit-views of the
+packed words; the kernels read them as uint32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantize import decode_codes, pack_group
+from repro_torch.kernels import build, dispatch
+
+MODES = {"ternary": 0, "binary": 1}
+
+
+def code_masks(packed: torch.Tensor, *, mode: str):
+    """Packed words (K/G, N) -> (plus, minus) boolean masks (K, N).
+    Ternary: plus where the code is 0b01, minus where it is 0b11.  Binary:
+    plus where the bit is 1, minus where it is 0 (so a zero pad word
+    decodes to minus; pad activations are zero, so it adds nothing)."""
+    codes = decode_codes(packed, mode)
+    if mode == "ternary":
+        return codes == 1, codes == 3
+    plus = codes == 1
+    return plus, ~plus
+
+
+def packed_gemv_plain(x: torch.Tensor, codes: torch.Tensor, *,
+                      mode: str) -> torch.Tensor:
+    """Plain version of `packed_gemv`: select and sum, no weight multiply."""
+    x = x.float()
+    plus, minus = code_masks(codes, mode=mode)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    rows = [(torch.where(plus, xb[:, None], zero)
+             - torch.where(minus, xb[:, None], zero)).sum(dim=0) for xb in x]
+    return torch.stack(rows)
+
+
+def packed_matmul_plain(x: torch.Tensor, codes: torch.Tensor, *,
+                        mode: str) -> torch.Tensor:
+    """Plain version of `packed_matmul`: decode to -1/0/+1 fp32, then an
+    fp32 matmul."""
+    c = decode_codes(codes, mode)
+    if mode == "ternary":
+        w = (c == 1).float() - (c == 3).float()
+    else:
+        w = c.float() * 2.0 - 1.0
+    return x.float() @ w
+
+
+def _checked(name: str, x: torch.Tensor, codes: torch.Tensor, mode: str):
+    group = pack_group(mode)
+    M, K = x.shape
+    if codes.dim() != 2 or codes.shape[0] * group != K:
+        raise ValueError(f"{name}: packed K mismatch: codes {tuple(codes.shape)}"
+                         f" x {group} != K={K}")
+    if dispatch.on_card(name, x, codes):
+        dispatch.check(name, x, torch.float32, (M, K))
+        dispatch.check(name, codes, torch.int32, tuple(codes.shape))
+        return True
+    return False
+
+
+def packed_gemv(x: torch.Tensor, codes: torch.Tensor, *,
+                mode: str) -> torch.Tensor:
+    """x (bp <= 8, K) fp32, codes (K/G, N) int32 -> (bp, N) fp32, unscaled."""
+    if x.shape[0] > 8:
+        raise ValueError(f"packed_gemv takes at most 8 rows, got {x.shape[0]}")
+    if not _checked("packed_gemv", x, codes, mode):
+        dispatch.count_plain("packed_gemv")
+        return packed_gemv_plain(x, codes, mode=mode)
+    bp, K = x.shape
+    N = codes.shape[1]
+    out = torch.empty((bp, N), dtype=torch.float32, device=x.device)
+    build.launch("packed_gemv", x.device, x.data_ptr(), codes.data_ptr(),
+                 out.data_ptr(), bp, K, N, MODES[mode])
+    dispatch.count_launch("packed_gemv")
+    return out
+
+
+def packed_matmul(x: torch.Tensor, codes: torch.Tensor, *,
+                  mode: str) -> torch.Tensor:
+    """x (M, K) fp32, codes (K/G, N) int32 -> (M, N) fp32, unscaled."""
+    if not _checked("packed_matmul", x, codes, mode):
+        dispatch.count_plain("packed_matmul")
+        return packed_matmul_plain(x, codes, mode=mode)
+    M, K = x.shape
+    N = codes.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    build.launch("packed_matmul", x.device, x.data_ptr(), codes.data_ptr(),
+                 out.data_ptr(), M, K, N, MODES[mode])
+    dispatch.count_launch("packed_matmul")
+    return out

@@ -1,0 +1,216 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA card and skips without one.  They import
+neither JAX nor the JAX package, so they run where only PyTorch is
+installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(`--noconftest` because tests/conftest.py configures JAX.)  The CPU tests
+(tests/test_torch_*.py) hold the plain versions against the JAX package;
+these hold the kernels against the plain versions at shapes the main path
+does not reach: every GEMV row count, ragged column counts, batches that
+take several row passes of the fused tick, three layers, a head wider than
+the main path's (vocab 7300), and non-finite logits.
+
+Tolerances: the packed products are exact (weights are -1/0/+1), so the
+GEMV and GEMM differ from the exact sum only by fp32 summation error, which
+grows with the sum of the magnitudes added, not with the result: both the
+kernel and the plain version are held to the fp64 product within
+1e-5 * (|x| @ |w|), about 5 * sqrt(K) * eps32 at K ~ 1000.  The fused tick
+adds libm sigmoid/tanh and fused multiply-adds: 1e-5 absolute on h and c,
+1e-4 on logits.  Dead rows are compared bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bnlstm as BL
+from repro_torch.core.qtensor import QTensor
+from repro_torch.core.quantize import QuantSpec
+from repro_torch.core.recurrent_bn import BNState
+from repro_torch.kernels import decode_step as DK
+from repro_torch.kernels import dispatch
+from repro_torch.kernels import ops as OPS
+from repro_torch.kernels import packed_matmul as PK
+from repro_torch.serve.recurrent import RNNRuntime
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    dispatch.strict_fp32()
+    dispatch.reset_counts()
+    return torch.device("cuda")
+
+
+def _codes(rng, kw, n):
+    words = rng.integers(0, 2**32, (kw, n), dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(words.view(np.int32).copy())
+
+
+def _assert_summation_close(got, want, x, codes, mode):
+    """Kernel and plain version against the exact (fp64) product, within
+    1e-5 of the summed magnitudes (see the module docstring)."""
+    w = PK.packed_matmul_plain(torch.eye(x.shape[1], device=x.device), codes,
+                               mode=mode).double()
+    exact = x.double() @ w
+    tol = 1e-5 * (x.double().abs() @ w.abs())
+    for out in (got, want):
+        assert ((out.double() - exact).abs() <= tol).all(), \
+            (out.double() - exact).abs().max().item()
+
+
+@pytest.mark.parametrize("bp", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("mode,group", [("ternary", 16), ("binary", 32)])
+@pytest.mark.parametrize("K,N", [(1024, 4000), (2080, 100), (32, 33)])
+def test_packed_gemv_matches_plain(card, mode, group, bp, K, N):
+    rng = np.random.default_rng(bp * N)
+    x = torch.from_numpy(rng.normal(size=(bp, K)).astype(np.float32)).to(card)
+    codes = _codes(rng, K // group, N).to(card)
+    got = PK.packed_gemv(x, codes, mode=mode)
+    want = PK.packed_gemv_plain(x, codes, mode=mode)
+    torch.cuda.synchronize()
+    _assert_summation_close(got, want, x, codes, mode)
+    assert dispatch.LAUNCHES["packed_gemv"] == 1
+
+
+@pytest.mark.parametrize("M", [9, 16, 70, 130])
+@pytest.mark.parametrize("mode,group", [("ternary", 16), ("binary", 32)])
+@pytest.mark.parametrize("K,N", [(1024, 4000), (96, 65)])
+def test_packed_matmul_matches_plain(card, mode, group, M, K, N):
+    rng = np.random.default_rng(M * N)
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(card)
+    codes = _codes(rng, K // group, N).to(card)
+    got = PK.packed_matmul(x, codes, mode=mode)
+    want = PK.packed_matmul_plain(x, codes, mode=mode)
+    torch.cuda.synchronize()
+    _assert_summation_close(got, want, x, codes, mode)
+    assert dispatch.LAUNCHES["packed_matmul"] == 1
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    codes = torch.zeros((4, 64), dtype=torch.int32, device=card)
+    x = torch.zeros((2, 64), device=card)
+    with pytest.raises(TypeError):
+        PK.packed_gemv(x.double(), codes, mode="ternary")
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.packed_gemv(torch.zeros((64, 2), device=card).T, codes,
+                       mode="ternary")
+    with pytest.raises(ValueError, match="at most 8 rows"):
+        PK.packed_gemv(torch.zeros((9, 64), device=card), codes, mode="ternary")
+    with pytest.raises(ValueError, match="mixed devices"):
+        PK.packed_matmul(x.cpu(), codes, mode="ternary")
+    assert not dispatch.LAUNCHES and not dispatch.PLAIN_CALLS
+
+
+def _tick(card, cell, mode, hidden, layers, vocab, seed=0):
+    cfg = BL.RNNConfig(vocab=vocab, d_hidden=hidden, n_layers=layers,
+                       cell=cell, quant=QuantSpec(mode=mode, norm="batch"))
+    g = torch.Generator().manual_seed(seed)
+    var = BL.rnn_lm_init(g, cfg, device=card)
+    var["state"]["layers"] = [
+        {k: BNState(s.mean + 0.1 * torch.randn(s.mean.shape, generator=g).to(card),
+                    s.var * (1 + 0.5 * torch.rand(s.var.shape, generator=g).to(card)),
+                    s.count) for k, s in st.items()}
+        for st in var["state"]["layers"]]
+    var["params"]["head"]["bs"] = 0.1 * torch.randn(vocab, generator=g).to(card)
+    qv = {"params": BL.export_packed_rnn(var["params"], cfg),
+          "state": var["state"]}
+    return cfg, qv, g
+
+
+@pytest.mark.parametrize("B", [1, 8, 13])
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("mode", ["ternary", "binary"])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_fused_tick_matches_plain(card, cell, mode, layers, B):
+    """Ragged H (136: neither a 128 tile nor a binary pack group), three
+    layers (x-side GEMVs in the launch), B = 13 (two row passes), dead
+    rows holding NaN and inf."""
+    cfg, qv, g = _tick(card, cell, mode, hidden=136, layers=layers, vocab=50)
+    tick = BL.rnn_decode_tables(qv, cfg)[0]["tick"]
+    h = torch.tanh(torch.randn(layers, B, 136, generator=g)).to(card)
+    c = torch.randn(layers, B, 136, generator=g).to(card)
+    live = torch.rand(B, generator=g).to(card) > 0.3
+    live[0] = True
+    dead = (~live).nonzero()[:, 0].tolist()
+    for r in dead:
+        h[:, r] = float("nan")
+        c[:, r] = float("inf")
+    tok = torch.randint(0, 50, (B,), generator=g).to(card)
+    args = OPS.tick_operands(tok, h, c, tick, live)
+    got = DK.fused_tick(*args, cell=cell, mode=mode)
+    want = DK.fused_tick_plain(*args, cell=cell, mode=mode)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["fused_tick"] == 1
+    alive = live.nonzero()[:, 0]
+    torch.testing.assert_close(got[0][:, alive], want[0][:, alive],
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[1][:, alive], want[1][:, alive],
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2][alive], want[2][alive], rtol=0, atol=1e-4)
+    for r in dead:
+        for out, inp in ((got[0], args[1]), (got[1], args[2])):
+            assert torch.equal(out[:, r].view(torch.int32),
+                               inp[:, r].view(torch.int32))
+    # greedy is the argmax of the kernel's own logits
+    torch.testing.assert_close(got[3][alive], DK.greedy_argmax(got[2][alive]))
+    # pad lanes stay exactly zero across layers
+    assert not got[0][..., 136:].any() and not got[1][..., 136:].any()
+
+
+def test_fused_tick_greedy_nan_row_gets_vp(card):
+    """A row whose logits hold a NaN matches no column in the JAX kernel's
+    max/== pair and gets Vp; the CUDA reduction follows it."""
+    cfg, qv, g = _tick(card, "lstm", "ternary", hidden=128, layers=1, vocab=50)
+    tick = dict(BL.rnn_decode_tables(qv, cfg)[0]["tick"])
+    tick["bs"] = tick["bs"].clone()
+    tick["bs"][0, 7] = float("nan")
+    h = torch.zeros(1, 2, 128, device=card)
+    args = OPS.tick_operands(torch.tensor([1, 2], device=card), h, h.clone(),
+                             tick, None)
+    got = DK.fused_tick(*args, cell="lstm", mode="ternary")
+    want = DK.fused_tick_plain(*args, cell="lstm", mode="ternary")
+    assert got[3][:2].tolist() == want[3][:2].tolist() == [128, 128]
+
+
+@pytest.mark.parametrize("B", [3, 16])
+def test_runtime_on_the_card_matches_the_cpu(card, B):
+    """Prefill, then decode with a wide head (vocab 7300: 58 times as many
+    padded head columns as hidden ones) and the main path's (vocab 50),
+    both in the launch: the card's kernels against the CPU's plain
+    versions, same weights."""
+    for vocab in (50, 7300):
+        cfg, qv, g = _tick(card, "lstm", "binary", hidden=96, layers=2,
+                           vocab=vocab)
+        cpu_v = {"params": qv["params"], "state": qv["state"]}
+        rt_card = RNNRuntime(cfg, qv, device="cuda")
+        rt_cpu = RNNRuntime(cfg, cpu_v, device="cpu")
+        prompt = torch.randint(0, vocab, (B, 6), generator=g)
+        lc, sc = rt_card.prefill(prompt.to(card), rt_card.init_state(B))
+        lp, sp = rt_cpu.prefill(prompt, rt_cpu.init_state(B))
+        torch.testing.assert_close(lc.cpu(), lp, rtol=0, atol=1e-4)
+        for i in range(4):
+            tok = torch.randint(0, vocab, (B,), generator=g)
+            lc, sc = rt_card.decode_step(tok.to(card), sc)
+            lp, sp = rt_cpu.decode_step(tok, sp)
+            torch.testing.assert_close(lc.cpu(), lp, rtol=0, atol=1e-4)
+            torch.testing.assert_close(sc.h.cpu(), sp.h, rtol=0, atol=1e-5)
+    prefill = "packed_gemv" if B <= 8 else "packed_matmul"
+    assert dispatch.LAUNCHES["fused_tick"] == 8
+    assert dispatch.LAUNCHES[prefill] >= 12
+
+
+def test_gate_codes_stay_word_equal_on_the_card(card):
+    w = torch.rand(136, 4 * 136, generator=torch.Generator().manual_seed(3))
+    w = (w - 0.5) * 0.2
+    for mode in ("ternary", "binary"):
+        on_card = QTensor.from_master(w.to(card), mode)
+        on_cpu = QTensor.from_master(w, mode)
+        assert torch.equal(on_card.codes.cpu(), on_cpu.codes)
+        assert torch.equal(OPS.prepare_gate_codes(on_card, 4).cpu(),
+                           OPS.prepare_gate_codes(on_cpu, 4))
