@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's BN-LSTM serving path on one NVIDIA card.
+"""Drive the PyTorch port's BN-LSTM serving and training paths on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero before the last line:
   1. card     — nvidia-smi name and power limit, torch and CUDA versions;
-  2. build    — compile the three CUDA kernels from `src/repro_torch/csrc`
+  2. build    — compile the four CUDA kernels from `src/repro_torch/csrc`
                 (one nvcc each, all at once) and print the ptxas report;
                 then the SASS of `packed_gemv` must hold no float multiply;
   3. kernels  — at the main path's shapes, hold each kernel against its
@@ -25,7 +26,20 @@ Phases, in order; any failure exits non-zero before the last line:
                 unfused plain path on the card within 1e-5 of their size;
   5. profile  — where a prefill's and a decode step's time goes at B = 4
                 and 16 (torch.profiler: device busy time, idle share);
-  6. result   — the kernels JSON line, the card line, and
+  6. training — rnn-paper at full width through `repro_torch.launch.train`
+                (batch 32, seq 100, 20 steps, eval and checkpoint every 10,
+                synthetic corpus), with the launch counters zeroed just
+                before and read just after: the loss must be finite and
+                fall; two 3-step runs from one seed and a resume from the
+                step-10 checkpoint must end bit-equal to their twins; the
+                quantize_pack kernel, fed layer 0's wh, noise and alpha of
+                step 10, must give the packed form of that step's own
+                dense sample; the packed export's eval loss must match the
+                fp masters' deterministic eval within 1e-5 (the GEMM at
+                M = 32 each timestep), and the export must serve through
+                drive_session (fused tick, GEMV prefill); every kernel must
+                have launched.  Then one train step under torch.profiler;
+  7. result   — the kernels JSON line, the card line, and
                 {"ok": true, "device": {...}} last.
 
 It needs one card and no network; the build goes to `build/kernels/`.
@@ -65,9 +79,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_profile(fn, reps: int = 1):
+def device_profile(fn, reps: int = 1, skip: str | None = None):
     """Run `fn` `reps` times under torch.profiler.  Returns (device us by
-    kernel name, host wall seconds of the whole run, synchronized)."""
+    kernel name, host wall seconds of the whole run, synchronized); kernels
+    whose name holds `skip` are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -81,20 +96,37 @@ def device_profile(fn, reps: int = 1):
         wall = time.perf_counter() - t0
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not (skip and skip in e.name):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     return by_name, wall
 
 
-def time_call(fn, reps: int) -> dict:
+class L2Flush:
+    """Evicts the 50 MB L2 before a call: rewrites a 256 MB buffer with a
+    kernel (`bitwise_not`) that the timed functions never launch, so its
+    time can be left out by name."""
+    name = "bitwise_not"
+
+    def __init__(self):
+        import torch
+        self.buf = torch.zeros(64 << 20, dtype=torch.int32, device="cuda")
+
+    def __call__(self):
+        self.buf.bitwise_not_()
+
+
+def time_call(fn, reps: int, flush: L2Flush | None = None) -> dict:
     """Per call of `fn`: `ms`, the device time of the kernels it launches
     (torch.profiler over `reps` calls), and `wall_ms`, the median time
-    between two CUDA events around one call, launch overhead included."""
+    between two CUDA events around one call, launch overhead included.
+    With `flush`, every call finds the L2 cold."""
     import torch
     fn()
     torch.cuda.synchronize()
     walls = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -103,7 +135,11 @@ def time_call(fn, reps: int) -> dict:
         b.synchronize()
         walls.append(a.elapsed_time(b))
     walls.sort()
-    by_name, _ = device_profile(fn, reps)
+    if flush is not None:
+        run = lambda: (flush(), fn())
+        by_name, _ = device_profile(run, reps, skip=flush.name)
+    else:
+        by_name, _ = device_profile(fn, reps)
     dev_us = sum(by_name.values())
     if dev_us <= 0:
         fail("torch.profiler recorded no device time")
@@ -112,12 +148,12 @@ def time_call(fn, reps: int) -> dict:
 
 def timed_row(name: str, shape: str, err: float, kernel, plain, library,
               bound_ms: float, bound_by: str, reps: int = 200,
-              plain_reps: int = 10) -> dict:
+              plain_reps: int = 10, flush: L2Flush | None = None) -> dict:
     """One kernels-table row: the kernel, its plain version and the
     library call (or None), each timed by `time_call`."""
-    k = time_call(kernel, reps)
-    p = time_call(plain, plain_reps)
-    lib = time_call(library, reps) if library is not None else None
+    k = time_call(kernel, reps, flush)
+    p = time_call(plain, plain_reps, flush)
+    lib = time_call(library, reps, flush) if library is not None else None
     return dict(name=name, shape=shape, max_abs_err=err, ms=k["ms"],
                 wall_ms=k["wall_ms"], plain_ms=p["ms"],
                 plain_wall_ms=p["wall_ms"], bound_ms=bound_ms,
@@ -340,6 +376,7 @@ def kernels_phase(report: dict) -> list:
                     None, b_ms, b_by))
             print(f"  fused_tick {cell}/{mode}: L=1,2 match plain; dead rows "
                   f"bit-exact; greedy == argmax", flush=True)
+    rows += quantize_pack_rows(g)
     report["kernel_rows"] = rows
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
     print("  kernel         shape                                        err       "
@@ -351,6 +388,44 @@ def kernels_phase(report: dict) -> list:
               f"({us(r['plain_wall_ms'])})  {us(r['library_ms'])} "
               f"({us(r['library_wall_ms'])})  {r['bound_ms'] * 1e3:.2f} "
               f"({r['bound_by']})", flush=True)
+    return rows
+
+
+def quantize_pack_rows(g) -> list:
+    """quantize_pack at the training path's shapes, rnn-paper's wh (1000,
+    4000) and wx (50, 4000) padded to the pack group with w = 0 and
+    u = 1.0, ternary and binary: the codes must equal the plain version's
+    word for word.  Timed with a cold L2 (the 33 MB of w and u would
+    otherwise sit in the 50 MB L2 between launches)."""
+    import torch
+    from repro_torch.core.quantize import glorot_alpha, pack_group
+    from repro_torch.kernels import packed_matmul as PK
+
+    flush = L2Flush()
+    rows = []
+    for mode in ("ternary", "binary"):
+        for k in (1000, 50):
+            alpha = glorot_alpha(k, 4000)
+            kp = -(-k // pack_group(mode)) * pack_group(mode)
+            w = torch.zeros(kp, 4000)
+            w[:k] = (torch.rand(k, 4000, generator=g) * 2 - 1) * alpha
+            u = torch.ones(kp, 4000)
+            u[:k] = torch.rand(k, 4000, generator=g)
+            w, u = w.cuda(), u.cuda()
+            got = PK.quantize_pack(w, u, alpha, mode=mode)
+            want = PK.quantize_pack_plain(w, u, alpha, mode=mode)
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                fail(f"quantize_pack {mode} ({kp}, 4000): {bad} words differ "
+                     f"from the plain version")
+            b_ms, b_by = bound(nbytes(w, u, got), 6 * w.numel() / FP32_FLOP_S)
+            rows.append(timed_row(
+                "quantize_pack", f"{mode} w,u ({kp}, 4000) -> {tuple(got.shape)}",
+                0.0, lambda: PK.quantize_pack(w, u, alpha, mode=mode),
+                lambda: PK.quantize_pack_plain(w, u, alpha, mode=mode),
+                None, b_ms, b_by, flush=flush))
+    print("  quantize_pack: ternary/binary at (1008|1024, 4000) and (64, 4000) "
+          "word-equal to plain", flush=True)
     return rows
 
 
@@ -490,6 +565,204 @@ def profile_phase(report: dict, rt) -> None:
     report["profile"] = out
 
 
+TRAIN_ARGS = ["--arch", "rnn-paper", "--batch", "32", "--seq", "100",
+              "--eval-every", "10", "--ckpt-every", "10", "--log-every", "1",
+              "--device", "cuda"]
+
+
+def run_train(argv: list) -> tuple:
+    """`repro_torch.launch.train.main(argv)`, its output echoed: (final
+    TrainState, {step: (loss, host ms)} from its log lines)."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as launch_train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = launch_train.main(argv)
+    out = buf.getvalue()
+    print("".join(f"    | {l}\n" for l in out.splitlines()), end="", flush=True)
+    steps = {int(m.group(1)): (float(m.group(2)), float(m.group(3)))
+             for m in re.finditer(r"^step\s+(\d+) loss (\S+) .* (\d+) ms$",
+                                  out, re.M)}
+    return state, steps
+
+
+def bit_equal(a, b) -> bool:
+    """Every leaf of two trees equal bit for bit (NaNs included)."""
+    import torch
+    from repro_torch.core.qtensor import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8),
+                        y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def training_phase(report: dict, argv: list = TRAIN_ARGS) -> dict:
+    """The training slice, at full width with the default `argv`; returns
+    the launch counts of its counted run."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import bnlstm as BL
+    from repro_torch.core.quantize import glorot_alpha, pack_ternary
+    from repro_torch.data.loader import to_device
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.launch import train as launch_train
+    from repro_torch.serve.recurrent import RNNRuntime, drive_session
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import train_step as TS
+
+    args = launch_train.build_argparser().parse_args(argv)
+    dev = torch.device(args.device)
+    corpus = launch_train.rnn_corpus(args)
+    cfg = launch_train.rnn_cfg(args, corpus)
+    if not args.reduced and (cfg.d_hidden, cfg.cell, cfg.quant.mode) != (
+            1000, "lstm", "ternary"):
+        fail(f"rnn-paper is not the full-width ternary BN-LSTM: {cfg}")
+    out = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        dispatch.reset_counts()   # ---- the counted training run starts here
+        t0 = time.perf_counter()
+        state, steps = run_train(argv + [
+            "--steps", "20", "--ckpt-dir", str(root / "a")])
+        out["train_20_steps_s"] = time.perf_counter() - t0
+        losses = {k: v[0] for k, v in steps.items()}
+        step_ms = sorted(v[1] for k, v in steps.items() if k)  # step 0 warms up
+        if sorted(losses) != list(range(20)):
+            fail(f"training logged steps {sorted(losses)}")
+        if not all(map(lambda v: v == v and abs(v) < 1e9, losses.values())):
+            fail(f"non-finite training loss: {losses}")
+        if not losses[19] < losses[0]:
+            fail(f"training loss did not fall: step 0 {losses[0]}, "
+                 f"step 19 {losses[19]}")
+        out["loss_step0"], out["loss_step19"] = losses[0], losses[19]
+        out["step_ms_median"] = step_ms[len(step_ms) // 2]
+        out["step_ms_range"] = (step_ms[0], step_ms[-1])
+        print(f"  20 steps: loss {losses[0]:.4f} -> {losses[19]:.4f} in "
+              f"{out['train_20_steps_s']:.1f} s; host wall a step (steps "
+              f"1-19, as the launcher logs it) median {out['step_ms_median']:.0f}"
+              f" ms, range {step_ms[0]:.0f}-{step_ms[-1]:.0f} ms, "
+              f"{args.batch * args.seq / out['step_ms_median'] * 1e3:.0f} tok/s",
+              flush=True)
+
+        # two runs of the first 3 steps from one seed: bit-equal
+        three = [run_train(argv + ["--steps", "3", "--ckpt-dir",
+                                         str(root / f"three{i}")])[0]
+                 for i in range(2)]
+        if not bit_equal(three[0].params, three[1].params):
+            fail("two 3-step runs from one seed differ")
+        # resume from the step-10 checkpoint: the same final state
+        (root / "c").mkdir()
+        shutil.copytree(root / "a" / "step_00000010",
+                        root / "c" / "step_00000010")
+        shutil.copy(root / "a" / "val_curve.jsonl", root / "c")
+        resumed, _ = run_train(argv + [
+            "--steps", "20", "--ckpt-dir", str(root / "c"), "--resume", "auto"])
+        if not bit_equal(resumed, state):
+            fail("the run resumed from step 10 differs from the "
+                 "uninterrupted one")
+        print("  3-step reruns bit-equal; resume from step 10 == "
+              "uninterrupted run, bit for bit", flush=True)
+
+        # quantize_pack on step 10's own wh, noise and alpha
+        st10 = CK.restore(state, root / "a", 10)
+        step_fn = TS.make_rnn_train_step(cfg, launch_train.opt_config(args))
+        batch = to_device(corpus.batch("train", 10, args.batch, args.seq), dev)
+        _, m10 = step_fn(st10, batch, 1.0)
+        noise = TS.step_noise(st10)
+        with torch.no_grad():
+            again, _ = BL.lm_loss({"params": st10.params,
+                                   "state": st10.bn_state},
+                                  batch["tokens"], batch["targets"], cfg,
+                                  training=True, noise=noise)
+            q = BL._quantized_weights(st10.params, cfg, training=True,
+                                      noise=noise)[0][1]
+        if not torch.equal(again, m10["loss"]):
+            fail(f"step 10's noise does not reproduce its loss: "
+                 f"{again.item()} vs {m10['loss'].item()}")
+        wh, uh = st10.params["layers"][0]["wh"], noise[0][1]
+        alpha = glorot_alpha(*wh.shape)
+        pad = 16 * -(-wh.shape[0] // 16) - wh.shape[0]
+        codes = OPS.quantize_pack(F.pad(wh, (0, 0, 0, pad)),
+                                  F.pad(uh, (0, 0, 0, pad), value=1.0), alpha,
+                                  mode="ternary")
+        dense = pack_ternary(F.pad(q / alpha, (0, 0, 0, pad)))
+        if not torch.equal(codes, dense):
+            fail(f"quantize_pack of step 10's wh: "
+                 f"{int((codes != dense).sum())} words differ from the packed "
+                 f"dense sample")
+        nz = float((q != 0).float().mean())
+        print(f"  quantize_pack(step 10 wh {tuple(wh.shape)} padded to "
+              f"{tuple(codes.shape[:1])}x16): codes == pack(dense sample / "
+              f"alpha), {nz:.3f} of the sample nonzero", flush=True)
+
+        # the packed export: eval against the fp masters, then serve it
+        served = BL.serving_variables(state.params, state.bn_state, cfg)
+        vb = to_device(corpus.batch("valid", 0, args.batch, args.seq), dev)
+        with torch.no_grad():
+            fp_loss, _ = BL.lm_loss({"params": state.params,
+                                     "state": state.bn_state},
+                                    vb["tokens"], vb["targets"], cfg,
+                                    training=False)
+            pk_loss, _ = BL.lm_loss(served, vb["tokens"], vb["targets"], cfg,
+                                    training=False)
+        diff = abs(pk_loss.item() - fp_loss.item())
+        if not diff <= 1e-5:
+            fail(f"packed eval loss {pk_loss.item()} vs fp {fp_loss.item()}")
+        out.update(fp_eval_loss=fp_loss.item(), packed_eval_loss=pk_loss.item(),
+                   packed_vs_fp_loss=diff)
+        print(f"  packed export eval loss {pk_loss.item():.6f} vs fp masters "
+              f"{fp_loss.item():.6f} (diff {diff:.2e}, limit 1e-5)", flush=True)
+        rt = RNNRuntime(cfg, served, device=dev)
+        prompt = to_device(corpus.batch("valid", 1, 4, 16), dev)["tokens"]
+        toks, m = drive_session(rt, prompt, cfg.vocab, gen=16, temperature=0.0)
+        if not torch.isfinite(m["last_logits"]).all() or toks.shape != (4, 16):
+            fail(f"serving the trained export: tokens {toks.shape}")
+        print(f"  served the export at B = 4: decode "
+              f"{m['decode_tok_s']:.0f} tok/s, ids[0,:8] "
+              f"{toks[0, :8].tolist()}", flush=True)
+        launches = dict(dispatch.LAUNCHES)
+        plain = dict(dispatch.PLAIN_CALLS)
+        # ---- the counted training run ends here
+        if plain:
+            fail(f"plain versions ran on the training path: {plain}")
+        for k in ("packed_gemv", "packed_matmul", "fused_tick", "quantize_pack"):
+            if not launches.get(k):
+                fail(f"kernel {k} was never launched on the training path")
+        print(f"  training-path launches {launches}", flush=True)
+        out["launches"] = launches
+
+        # one train step under the profiler
+        box = [state]
+
+        def one_step():
+            box[0], _ = step_fn(box[0], batch, 1.0)
+
+        one_step()
+        by_name, wall = device_profile(one_step, 2)
+        busy = sum(by_name.values()) / 2
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        prof = {"wall_us": wall / 2 * 1e6, "device_busy_us": busy,
+                "idle_share": 1.0 - busy / (wall / 2 * 1e6),
+                "tok_s": args.batch * args.seq / (wall / 2),
+                "top": [(k[:60], v / 2) for k, v in top]}
+        out["profile_step"] = prof
+        print(f"  train step (B = {args.batch}, T = {args.seq}, profiled): wall "
+              f"{prof['wall_us']:.0f} us  device busy {busy:.0f} us  idle "
+              f"{prof['idle_share']:.3f}  {prof['tok_s']:.0f} tok/s  top "
+              + ", ".join(f"{k} {v:.0f}" for k, v in prof["top"]), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["training"] = out
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -529,17 +802,23 @@ def main() -> int:
     # 3. kernels against their plain versions
     rows = kernels_phase(report)
 
-    # 4. the main path, then where its time goes
+    # 4. the serving path, then where its time goes
     launches, rt = main_path_phase(report)
     profile_phase(report, rt)
 
-    # 6. result
+    # 6. the training path
+    print("training:", flush=True)
+    launches["quantize_pack"] = training_phase(report)["quantize_pack"]
+
+    # 7. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
                                  "src/repro/kernels/packed_matmul.py:155"),
                "fused_tick": ("src/repro_torch/csrc/fused_tick.cu",
-                              "src/repro/kernels/decode_step.py:114")}
+                              "src/repro/kernels/decode_step.py:114"),
+               "quantize_pack": ("src/repro_torch/csrc/quantize_pack.cu",
+                                 "src/repro/kernels/packed_matmul.py:213")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = next(r for r in rows if r["name"] == name)  # the main path's shape

@@ -1,5 +1,15 @@
-"""BN-LSTM / BN-GRU with learned recurrent binary/ternary weights — the
-serving half of `repro/core/bnlstm.py`.
+"""BN-LSTM / BN-GRU with learned recurrent binary/ternary weights, ported
+from `repro/core/bnlstm.py` (paper Algorithm 1, Eq. 7).
+
+Training (`rnn_lm_apply(training=True)`, `lm_loss`, `clip_masters`):
+the fp32 masters are sampled once per forward pass into binary/ternary
+weights, with the straight-through gradient, from uniform noise that is
+either drawn from an explicit `torch.Generator` (`draw_noise`) or injected
+by the caller as one `(ux, uh)` pair per layer; every matmul is
+batch-normalized per timestep with gate-BN additive terms fixed at 0.  The
+layer-0 token gather runs as a one-hot matmul, so its backward is a matmul
+as well: the same on every run, where an indexed scatter-add into the
+weight's gradient may use atomics on the card.
 
 The trained masters export once into packed `QTensor`s (`export_packed_rnn`)
 and serving runs against frozen BN statistics.  At inference every BN is a
@@ -13,8 +23,8 @@ statistics into those affines once per session, and, for a packed tree,
 stacks the whole-tick artifact that `rnn_decode_step` feeds one launch of
 the fused kernel per tick.
 
-The training forward (`rnn_lm_apply`, `lm_loss`) and the engine's chunked
-prefill / verify / speculative commit are not ported yet.
+The engine's chunked prefill / verify / speculative commit are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -26,7 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import quantize as Q
 from repro_torch.core.qtensor import export_packed, is_qtensor, tree_to
-from repro_torch.core.recurrent_bn import BNParams, BNState, bn_init
+from repro_torch.core.recurrent_bn import BNParams, BNState, bn_apply, bn_init
 from repro_torch.kernels import decode_step as DK
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import ops as OPS
@@ -107,10 +117,32 @@ def serving_variables(params: dict, bn_state: dict, cfg: RNNConfig) -> dict:
     return {"params": export_packed_rnn(params, cfg), "state": bn_state}
 
 
-def _quantized_weights(params, cfg: RNNConfig) -> list:
-    """The serving (`training=False`) weights per layer: packed QTensors
-    pass through; fp masters quantize deterministically (or stay fp when
-    the spec quantizes nothing)."""
+def draw_noise(params: dict, gen: torch.Generator) -> list:
+    """Uniform [0, 1) noise for one training forward: `(ux, uh)` per layer,
+    in that order, shaped like the layer's `wx` and `wh` and drawn on
+    their device from `gen` (a generator of that device)."""
+    return [tuple(torch.rand(lp[k].shape, generator=gen, dtype=lp[k].dtype,
+                             device=lp[k].device) for k in ("wx", "wh"))
+            for lp in params["layers"]]
+
+
+def _quantized_weights(params, cfg: RNNConfig, *, training: bool = False,
+                       gen: Optional[torch.Generator] = None,
+                       noise: Optional[list] = None) -> list:
+    """The weights of one forward pass, per layer `(qx, qh)`.
+
+    Packed QTensors pass through.  In training, binary/ternary masters are
+    sampled with the straight-through gradient from `noise` (one `(ux, uh)`
+    per layer), drawn from `gen` when not given; other modes go through
+    `Q.apply_quant`.  At inference, binary/ternary masters quantize
+    deterministically."""
+    stochastic = (cfg.quant.stochastic and training
+                  and cfg.quant.mode in ("binary", "ternary"))
+    if stochastic and noise is None:
+        if gen is None:
+            raise ValueError("stochastic quantization needs noise in training "
+                             "mode: pass `noise` or a generator `gen`")
+        noise = draw_noise(params, gen)
     out = []
     for l, lp in enumerate(params["layers"]):
         wx, wh = lp["wx"], lp["wh"]
@@ -121,16 +153,126 @@ def _quantized_weights(params, cfg: RNNConfig) -> list:
             raise ValueError(
                 f"layer {l}: mixed packed/fp weights (wx packed={is_qtensor(wx)}, "
                 f"wh packed={is_qtensor(wh)}); export both or neither")
-        mode = cfg.quant.mode
-        if mode in ("binary", "ternary"):
-            wx = Q.quantize(wx, mode, Q.glorot_alpha(*wx.shape),
-                            stochastic=False, with_ste=False)
-            wh = Q.quantize(wh, mode, Q.glorot_alpha(*wh.shape),
-                            stochastic=False, with_ste=False)
-        elif mode != "none":
-            raise ValueError(f"serving supports binary|ternary|none, got {mode!r}")
-        out.append((wx, wh))
+        ax, ah = Q.glorot_alpha(*wx.shape), Q.glorot_alpha(*wh.shape)
+        ux, uh = noise[l] if stochastic else (None, None)
+        if cfg.quant.mode in ("binary", "ternary") and not stochastic:
+            qx = Q.quantize(wx, cfg.quant.mode, ax, stochastic=False)
+            qh = Q.quantize(wh, cfg.quant.mode, ah, stochastic=False)
+        else:
+            qx = Q.apply_quant(wx, cfg.quant, ax, ux)
+            qh = Q.apply_quant(wh, cfg.quant, ah, uh)
+        out.append((qx, qh))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the training forward (Algorithm 1): cells, the time loop, the loss
+# ---------------------------------------------------------------------------
+
+
+def _lstm_step(h, c, ax, ah, b, bn_c_p, bn_c_s, cfg: RNNConfig, training):
+    f, i, o, g = torch.chunk(ax + ah + b, 4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    if cfg.cell_norm:
+        cn, bn_c_s = bn_apply(c, bn_c_p, bn_c_s, training=training,
+                              eps=cfg.eps, momentum=cfg.momentum)
+    else:
+        cn = c
+    return torch.sigmoid(o) * torch.tanh(cn), c, bn_c_s
+
+
+def _gru_step(h, ax, ah, b, H: int):
+    """ax, ah (B, 3H) batch-normalized preacts; b (3H,)."""
+    r = torch.sigmoid(ax[..., :H] + ah[..., :H] + b[:H])
+    z = torch.sigmoid(ax[..., H:2 * H] + ah[..., H:2 * H] + b[H:2 * H])
+    g = torch.tanh(ax[..., 2 * H:] + r * ah[..., 2 * H:] + b[2 * H:])
+    return (1.0 - z) * h + z * g
+
+
+def _embed(rows: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """rows[tokens] as one_hot(tokens) @ rows: the same values (a sum of one
+    row and zeros is exact), with a matmul for a backward."""
+    return F.one_hot(tokens.long(), rows.shape[0]).to(rows.dtype) @ rows
+
+
+def rnn_lm_apply(variables: dict, tokens: torch.Tensor, cfg: RNNConfig, *,
+                 training: bool, gen: Optional[torch.Generator] = None,
+                 noise: Optional[list] = None, return_state: bool = False,
+                 features_only: bool = False):
+    """tokens (B, T) int.  Returns logits (B, T, vocab) and, with
+    `return_state`, the updated BN running statistics.  `features_only`
+    returns the top layer's hidden states (B, T, H) instead of logits.
+    Training samples the weights from `noise` or `gen` (see
+    `_quantized_weights`)."""
+    params, state = variables["params"], variables["state"]
+    B, T = tokens.shape
+    H = cfg.d_hidden
+    qw = _quantized_weights(params, cfg, training=training, gen=gen,
+                            noise=noise)
+    bn = dict(training=training, eps=cfg.eps, momentum=cfg.momentum)
+    x_seq = tokens
+    new_state = {"layers": []}
+    for l in range(cfg.n_layers):
+        lp, ls = params["layers"][l], state["layers"][l]
+        qx, qh = qw[l]
+        if l == 0:
+            rows = qx.dequantize(cfg.dtype) if is_qtensor(qx) else qx
+            x_proj = _embed(rows, x_seq)                     # (B, T, gH)
+        else:
+            x_proj = OPS.qmatmul(x_seq, qx)
+        h = torch.zeros((B, H), dtype=cfg.dtype, device=tokens.device)
+        c = torch.zeros_like(h)
+        s_x, s_h, s_c = ls["bn_x"], ls["bn_h"], ls["bn_c"]
+        hs = []
+        for t in range(T):
+            axn, s_x = bn_apply(x_proj[:, t], lp["bn_x"], s_x,
+                                trainable_gamma=False, **bn)
+            ahn, s_h = bn_apply(OPS.qmatmul(h, qh), lp["bn_h"], s_h,
+                                trainable_gamma=False, **bn)
+            if cfg.cell == "lstm":
+                h, c, s_c = _lstm_step(h, c, axn, ahn, lp["b"], lp["bn_c"],
+                                       s_c, cfg, training)
+            else:
+                h = _gru_step(h, axn, ahn, lp["b"], H)
+            hs.append(h)
+        x_seq = torch.stack(hs, dim=1)                      # (B, T, H)
+        new_state["layers"].append({"bn_x": s_x, "bn_h": s_h, "bn_c": s_c})
+
+    if features_only:
+        out = x_seq
+    else:
+        out = x_seq @ params["head"]["ws"] + params["head"]["bs"]
+    if return_state:
+        return out, new_state
+    return out
+
+
+def lm_loss(variables: dict, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: RNNConfig, *, training: bool,
+            gen: Optional[torch.Generator] = None,
+            noise: Optional[list] = None):
+    """Mean next-token cross entropy (nats) and the new BN state.
+    BPC = loss / ln(2)."""
+    logits, new_state = rnn_lm_apply(variables, tokens, cfg,
+                                     training=training, gen=gen, noise=noise,
+                                     return_state=True)
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    return nll.mean(), new_state
+
+
+def clip_masters(params: dict, cfg: RNNConfig) -> dict:
+    """Post-update clip of every `wx`/`wh` master to [-alpha, alpha], alpha
+    from the matrix's own shape.  No-op for unquantized configs."""
+    if not cfg.quant.enabled:
+        return params
+    layers = []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        for k in ("wx", "wh"):
+            lp[k] = Q.clip_master(lp[k], Q.glorot_alpha(*lp[k].shape))
+        layers.append(lp)
+    return {**params, "layers": layers}
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,7 @@ class QTensor:
         group = Q.pack_group(mode)
         alpha = float(alpha) if alpha is not None else Q.leaf_alpha(w.shape)
         *lead, K, N = w.shape
-        wn = torch.clamp(w.float() / alpha, -1.0, 1.0)
+        wn = torch.clamp(Q.divide(w.float(), alpha), -1.0, 1.0)
         qv = (torch.round(wn) if mode == "ternary"
               else torch.where(wn >= 0, 1.0, -1.0))
         pad = (-K) % group
@@ -101,34 +101,59 @@ def analytic_nbytes(shape, mode: str) -> int:
     return int(math.prod(lead)) * math.ceil(K / group) * N * 4
 
 
-def _map_tree(f, tree, path=()):
-    """Map `f(path, leaf)` over nested dicts/lists; NamedTuples and
-    QTensors are leaves."""
+def tree_map_with_path(f, tree, *rest, path: tuple = ()):
+    """Map `f(path, leaf, *leaves of rest)` over nested dicts, lists,
+    tuples and NamedTuples of one structure; a path is a tuple of key
+    strings (NamedTuple field names, list indices), and None stays None
+    (an empty node, as in a JAX pytree)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
-        return {k: _map_tree(f, v, path + (str(k),)) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_tree(f, v, path + (str(i),)) for i, v in enumerate(tree)]
-    return f(path, tree)
+        return {k: tree_map_with_path(f, v, *(r[k] for r in rest),
+                                      path=path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        names = getattr(tree, "_fields", None) or range(len(tree))
+        items = [tree_map_with_path(f, v, *(r[i] for r in rest),
+                                    path=path + (str(n),))
+                 for i, (n, v) in enumerate(zip(names, tree))]
+        if isinstance(tree, list):
+            return items
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return f(path, tree, *rest)
+
+
+def tree_map(f, tree, *rest):
+    """`tree_map_with_path` without the path: `f(leaf, *leaves of rest)`."""
+    return tree_map_with_path(lambda _, *leaves: f(*leaves), tree, *rest)
+
+
+def tree_paths(tree, prefix: tuple = ()) -> list:
+    """[(path, leaf)] in the JAX package's flatten order: dict keys sorted,
+    NamedTuple fields and list items in order, None holding no leaf.  A
+    path is a tuple of key strings (NamedTuple field names, list
+    indices)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        names = getattr(tree, "_fields", None) or range(len(tree))
+        return [pl for name, v in zip(names, tree)
+                for pl in tree_paths(v, prefix + (str(name),))]
+    return [(prefix, tree)]
 
 
 def tree_leaves(tree) -> list:
-    """Tensors and QTensors of a nested dict/list/NamedTuple tree."""
-    if isinstance(tree, dict):
-        return [l for v in tree.values() for l in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [l for v in tree for l in tree_leaves(v)]
-    return [tree]
+    """Tensors and QTensors of a nested dict/list/NamedTuple tree, in the
+    JAX package's flatten order."""
+    return [leaf for _, leaf in tree_paths(tree)]
 
 
 def tree_to(tree, device):
     """Move every tensor of a nested dict/list/NamedTuple tree to `device`."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    if isinstance(tree, tuple):
-        return type(tree)(*(tree_to(v, device) for v in tree))
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def export_packed(params: Any, spec: Q.QuantSpec, *,
@@ -150,7 +175,7 @@ def export_packed(params: Any, spec: Q.QuantSpec, *,
             return leaf
         return QTensor.from_master(leaf, spec.mode, Q.leaf_alpha(leaf.shape))
 
-    return _map_tree(f, params)
+    return tree_map_with_path(f, params)
 
 
 def tree_nbytes(tree: Any) -> tuple[int, int]:

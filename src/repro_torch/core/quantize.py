@@ -4,8 +4,14 @@ the quantization core, ported from `repro/core/quantize.py`.
 Implements the paper's Eqs. (1), (4), (5), (6): master weights normalized by
 a fixed Glorot scale alpha, stochastic binary/ternary sampling from an
 explicit uniform-noise operand `u`, the straight-through estimator, the
-deterministic inference variants, and the 1-bit/2-bit packing the serving
-kernels read.
+deterministic inference variants, the post-update master clip, the
+literature baselines the paper compares against (BinaryConnect, TWN, TTQ,
+DoReFa), and the 1-bit/2-bit packing the serving kernels read.
+
+`w / alpha` divides by alpha as a float32 tensor on w's device: PyTorch
+turns a CUDA tensor divided by a Python number into a multiply by its
+reciprocal, which can round differently, and the quantize-pack kernel and
+the JAX package both divide.
 
 Codes are carried as int32 tensors holding the bit pattern of the JAX
 package's uint32 words (PyTorch on the CPU has no shifts on uint32).  Decode
@@ -74,8 +80,13 @@ def ste(master: torch.Tensor, quantized: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def divide(w: torch.Tensor, alpha) -> torch.Tensor:
+    """w / alpha rounded as one IEEE division, on every device."""
+    return w / torch.as_tensor(alpha, dtype=w.dtype, device=w.device)
+
+
 def _normalize(w: torch.Tensor, alpha) -> torch.Tensor:
-    return torch.clamp(w / alpha, -1.0, 1.0)
+    return torch.clamp(divide(w, alpha), -1.0, 1.0)
 
 
 def binarize_stochastic(w: torch.Tensor, u: torch.Tensor, alpha) -> torch.Tensor:
@@ -121,6 +132,56 @@ def quantize(w: torch.Tensor, mode: str, alpha, u: Optional[torch.Tensor] = None
     return ste(w, q) if with_ste else q
 
 
+def clip_master(w: torch.Tensor, alpha) -> torch.Tensor:
+    """Keep master weights inside [-alpha, alpha] after an optimizer step,
+    so the Bernoulli probabilities stay in [0, 1]."""
+    return torch.clamp(w, -alpha, alpha)
+
+
+# ---------------------------------------------------------------------------
+# Literature baselines the paper compares against (Tables 1-4)
+# ---------------------------------------------------------------------------
+
+
+def binaryconnect(w: torch.Tensor) -> torch.Tensor:
+    """BinaryConnect, deterministic: E|w| * sign(w), sign(0) = +1."""
+    alpha = w.abs().mean()
+    one = torch.ones((), dtype=w.dtype, device=w.device)
+    return ste(w, alpha * torch.where(w >= 0, one, -one))
+
+
+def twn(w: torch.Tensor) -> torch.Tensor:
+    """Ternary Weight Networks: threshold 0.7 * E|w|, scale E[|w| : |w| >
+    threshold]."""
+    delta = 0.7 * w.abs().mean()
+    mask = (w.abs() > delta).to(w.dtype)
+    alpha = (w.abs() * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ste(w, alpha * mask * torch.sign(w))
+
+
+def ttq(w: torch.Tensor, alpha_pos: torch.Tensor,
+        alpha_neg: torch.Tensor) -> torch.Tensor:
+    """Trained Ternary Quantization: learned scales for the positive and
+    negative supports, threshold 0.05 * max|w|.  The master gets the STE
+    gradient; the scales get their real gradients through q."""
+    delta = 0.05 * w.abs().max()
+    pos = (w > delta).to(w.dtype)
+    neg = (w < -delta).to(w.dtype)
+    q = alpha_pos * pos - alpha_neg * neg
+    return ste(w, q) + (q - q.detach())
+
+
+def dorefa(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """DoReFa-Net weight quantization to `bits` bits."""
+    if bits == 1:
+        return binaryconnect(w)
+    t = torch.tanh(w)
+    wn = t / (2.0 * t.abs().max()) + 0.5
+    n = float(2 ** bits - 1)
+    q = 2.0 * (torch.round(wn * n) / n) - 1.0
+    return ste(w, q * w.abs().max())
+
+
 # ---------------------------------------------------------------------------
 # Bit packing.  Ternary: 2-bit codes {0b00: 0, 0b01: +1, 0b11: -1}, 16 a word.
 # Binary: 1-bit codes {0: -1, 1: +1}, 32 a word.  Packed along the leading
@@ -128,7 +189,7 @@ def quantize(w: torch.Tensor, mode: str, alpha, u: Optional[torch.Tensor] = None
 # ---------------------------------------------------------------------------
 
 
-def _or_pack(codes: torch.Tensor, group: int, bits: int) -> torch.Tensor:
+def or_pack(codes: torch.Tensor, group: int, bits: int) -> torch.Tensor:
     k, n = codes.shape
     codes = codes.reshape(k // group, group, n)
     out = torch.zeros((k // group, n), dtype=torch.int32, device=codes.device)
@@ -144,7 +205,7 @@ def pack_ternary(q: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"K={k} not a multiple of {TERNARY_GROUP}")
     one = torch.ones((), dtype=torch.int32, device=q.device)
     codes = torch.where(q > 0, one, torch.where(q < 0, 3 * one, 0 * one))
-    return _or_pack(codes, TERNARY_GROUP, 2)
+    return or_pack(codes, TERNARY_GROUP, 2)
 
 
 def pack_binary(q: torch.Tensor) -> torch.Tensor:
@@ -152,7 +213,7 @@ def pack_binary(q: torch.Tensor) -> torch.Tensor:
     k, _ = q.shape
     if k % BINARY_GROUP:
         raise ValueError(f"K={k} not a multiple of {BINARY_GROUP}")
-    return _or_pack((q > 0).to(torch.int32), BINARY_GROUP, 1)
+    return or_pack((q > 0).to(torch.int32), BINARY_GROUP, 1)
 
 
 def decode_codes(packed: torch.Tensor, mode: str) -> torch.Tensor:
@@ -230,7 +291,7 @@ class QuantPolicy:
 class QuantSpec:
     """How the paper's technique is applied to a model's matmuls."""
 
-    mode: str = "none"  # none | binary | ternary
+    mode: str = "none"  # none | binary | ternary | binaryconnect | twn | dorefa2..4
     stochastic: bool = True
     norm: str = "batch"
     quantize_embeddings: bool = False
@@ -243,9 +304,28 @@ class QuantSpec:
 
     @property
     def weight_bits(self) -> float:
-        return {"binary": 1, "ternary": 2}.get(self.mode, 32)
+        return {"binary": 1, "binaryconnect": 1, "ternary": 2, "twn": 2,
+                "dorefa2": 2, "dorefa3": 3, "dorefa4": 4}.get(self.mode, 32)
 
     def policy(self) -> QuantPolicy:
         extra = ("embed", "head") if self.quantize_embeddings else ()
         return QuantPolicy(include=tuple(self.include),
                            exclude=tuple(self.exclude), extra=extra)
+
+
+def apply_quant(w: torch.Tensor, spec: QuantSpec, alpha,
+                u: Optional[torch.Tensor]) -> torch.Tensor:
+    """Send a weight matrix through the configured quantizer (training
+    path)."""
+    m = spec.mode
+    if m == "none":
+        return w
+    if m in ("binary", "ternary"):
+        return quantize(w, m, alpha, u, stochastic=spec.stochastic)
+    if m == "binaryconnect":
+        return binaryconnect(w)
+    if m == "twn":
+        return twn(w)
+    if m.startswith("dorefa"):
+        return dorefa(w, int(m[len("dorefa"):]))
+    raise ValueError(f"unknown quant mode {m!r}")

@@ -1,4 +1,4 @@
-// The packed weight codes, as the port's kernels decode them.
+// The packed weight codes, as the port's kernels write and read them.
 //
 // A 32-bit word packs G codes along the contraction axis, code j in bits
 // [b*j, b*j + b): ternary (b = 2, G = 16) has 0b01 -> +1, 0b11 -> -1 and any
@@ -6,6 +6,7 @@
 // pad word decodes to -1 and adds nothing only because callers zero-pad the
 // activations.  (src/repro/core/quantize.py packs them; the port carries the
 // words as int32 bit-views and the kernels read them as uint32_t.)
+// `encode` writes a code, `decode` reads one: the bit layout lives here.
 #pragma once
 
 #include <stdint.h>
@@ -31,6 +32,25 @@ __device__ __forceinline__ void decode(uint32_t word, int j, uint32_t& keep,
 // x times a decoded code, by integer logic alone: no float multiply.
 __device__ __forceinline__ float apply(float x, uint32_t keep, uint32_t flip) {
   return __uint_as_float((__float_as_uint(x) & keep) ^ flip);
+}
+
+// The code of one stochastic sample (paper Eqs. 4-6), shifted to position j
+// of its word: wn = clip(w / alpha, -1, 1), by an IEEE division and a
+// NaN-keeping clip.  Ternary: 0b01 where u < |wn| and wn > 0, 0b11 where
+// u < |wn| and wn < 0, else 0.  Binary: 1 where u < (wn + 1) * 0.5.  The
+// _rn intrinsics keep nvcc from fusing or reordering the arithmetic, so
+// the code is bit-equal to the plain PyTorch version and the JAX kernel.
+template <int MODE>
+__device__ __forceinline__ uint32_t encode(float w, float u, float alpha,
+                                           int j) {
+  float wn = __fdiv_rn(w, alpha);
+  wn = wn < -1.f ? -1.f : (wn > 1.f ? 1.f : wn);
+  if (MODE == 0) {
+    const uint32_t c = u < fabsf(wn) ? (wn > 0.f ? 1u : (wn < 0.f ? 3u : 0u))
+                                     : 0u;
+    return c << (2 * j);
+  }
+  return static_cast<uint32_t>(u < __fmul_rn(__fadd_rn(wn, 1.f), 0.5f)) << j;
 }
 
 // Code j of `word` as a float: +1, -1 or +0.

@@ -25,18 +25,20 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("packed_gemv", "packed_matmul", "fused_tick")
+KERNELS = ("packed_gemv", "packed_matmul", "fused_tick", "quantize_pack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of each kernel's C entry point: every pointer and the stream as
 # c_void_p, so ctypes never truncates them to 32-bit ints
 SIGNATURES = {
     "packed_gemv": ("packed_gemv_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "packed_matmul": ("packed_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "fused_tick": ("fused_tick_launch", [_P] * 21 + [_I] * 6 + [_P]),
+    "quantize_pack": ("quantize_pack_launch", [_P, _P, _P, _F, _I, _I, _I, _P]),
 }
 
 _libs: dict = {}

@@ -1,7 +1,7 @@
 """Public wrappers around the kernels, ported from `repro/kernels/ops.py`:
-padding, alpha scaling, the GEMV/GEMM routing, and `qmatmul` — the one
-matmul entry for fp and packed weights — plus the fused decode tick's
-gate-aligned code layout and public entry."""
+padding, alpha scaling, the GEMV/GEMM routing, `quantize_pack`, and
+`qmatmul` — the one matmul entry for fp and packed weights — plus the
+fused decode tick's gate-aligned code layout and public entry."""
 from __future__ import annotations
 
 from typing import Optional
@@ -39,6 +39,16 @@ def packed_matmul(x: torch.Tensor, codes: torch.Tensor, alpha=1.0, *,
     else:
         y = PK.packed_matmul(xm, codes, mode=mode)
     return (y * alpha).reshape(*lead, N)
+
+
+def quantize_pack(w: torch.Tensor, u: torch.Tensor, alpha, *,
+                  mode: str = "ternary") -> torch.Tensor:
+    """Fused stochastic quantize (paper Eqs. 4-6) and bit-pack.  w and u
+    (K, N) with K % G == 0; returns (K/G, N) int32 bit-views of the packed
+    words.  Pad a ragged K with w = 0 and u = 1.0: every pad code is then 0
+    in both modes, the layout `QTensor.from_master` pads to."""
+    return PK.quantize_pack(w.float().contiguous(), u.float().contiguous(),
+                            float(alpha), mode=mode)
 
 
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Matmul against 2-bit (ternary) / 1-bit (binary) packed weights, ported
 from `repro/kernels/packed_matmul.py`.
 
-Two kernels, each with its plain PyTorch version beside it:
+Three kernels, each with its plain PyTorch version beside it:
 
   * `packed_gemv`   — the multiply-free decode-shape GEMV (x has at most 8
                       rows): codes become plus/minus masks and each output
@@ -10,6 +10,10 @@ Two kernels, each with its plain PyTorch version beside it:
   * `packed_matmul` — the prefill GEMM: codes decode to -1/0/+1 fp32 and
                       meet x in an exact fp32 product.
                       Kernel: csrc/packed_matmul.cu.
+  * `quantize_pack` — paper Eqs. 4-6 stochastic sampling from an explicit
+                      uniform-noise operand, fused with bit-packing:
+                      (K, N) fp32 -> (K/G, N) words, bit-exact.
+                      Kernel: csrc/quantize_pack.cu.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors (kernels/dispatch.py).  Codes are int32 bit-views of the
@@ -19,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantize import decode_codes, pack_group
+from repro_torch.core.quantize import (or_pack, decode_codes, divide,
+                                       pack_group)
 from repro_torch.kernels import build, dispatch
 
 MODES = {"ternary": 0, "binary": 1}
@@ -102,4 +107,40 @@ def packed_matmul(x: torch.Tensor, codes: torch.Tensor, *,
     build.launch("packed_matmul", x.device, x.data_ptr(), codes.data_ptr(),
                  out.data_ptr(), M, K, N, MODES[mode])
     dispatch.count_launch("packed_matmul")
+    return out
+
+
+def quantize_pack_plain(w: torch.Tensor, u: torch.Tensor, alpha: float, *,
+                        mode: str) -> torch.Tensor:
+    """Plain version of `quantize_pack`, step for step the JAX kernel's:
+    wn = clip(w / alpha, -1, 1) (an IEEE division); ternary code 0b01 where
+    u < |wn| and wn > 0, 0b11 where u < |wn| and wn < 0, else 0; binary bit
+    1 where u < (wn + 1) * 0.5."""
+    wn = torch.clamp(divide(w.float(), alpha), -1.0, 1.0)
+    one = torch.ones((), dtype=torch.int32, device=w.device)
+    if mode == "ternary":
+        t = torch.where(u < wn.abs(), torch.sign(wn), 0.0)
+        codes = torch.where(t > 0, one, torch.where(t < 0, 3 * one, 0 * one))
+        return or_pack(codes, pack_group(mode), 2)
+    return or_pack((u < (wn + 1.0) * 0.5).to(torch.int32), pack_group(mode), 1)
+
+
+def quantize_pack(w: torch.Tensor, u: torch.Tensor, alpha: float, *,
+                  mode: str) -> torch.Tensor:
+    """w, u (K, N) fp32, K % G == 0 -> int32 words (K/G, N)."""
+    group = pack_group(mode)
+    K, N = w.shape
+    if K % group:
+        raise ValueError(f"quantize_pack: K={K} not a multiple of {group}")
+    if tuple(u.shape) != (K, N):
+        raise ValueError(f"quantize_pack: noise {tuple(u.shape)} != w {(K, N)}")
+    if not dispatch.on_card("quantize_pack", w, u):
+        dispatch.count_plain("quantize_pack")
+        return quantize_pack_plain(w, u, alpha, mode=mode)
+    dispatch.check("quantize_pack w", w, torch.float32, (K, N))
+    dispatch.check("quantize_pack u", u, torch.float32, (K, N))
+    out = torch.empty((K // group, N), dtype=torch.int32, device=w.device)
+    build.launch("quantize_pack", w.device, w.data_ptr(), u.data_ptr(),
+                 out.data_ptr(), float(alpha), K, N, MODES[mode])
+    dispatch.count_launch("quantize_pack")
     return out

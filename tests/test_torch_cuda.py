@@ -19,7 +19,12 @@ grows with the sum of the magnitudes added, not with the result: both the
 kernel and the plain version are held to the fp64 product within
 1e-5 * (|x| @ |w|), about 5 * sqrt(K) * eps32 at K ~ 1000.  The fused tick
 adds libm sigmoid/tanh and fused multiply-adds: 1e-5 absolute on h and c,
-1e-4 on logits.  Dead rows are compared bit for bit.
+1e-4 on logits.  Dead rows are compared bit for bit.  quantize_pack's codes
+are compared word for word, on the card and against the CPU.  A full-width
+train step on the card is held to the same step on the CPU within 1e-4:
+cuBLAS and the CPU sum the products in other orders, about 1e-6 of the
+loss, and the launcher's learning rate keeps Adam's sign-like update on
+near-zero gradients small.
 """
 import numpy as np
 import pytest
@@ -33,7 +38,11 @@ from repro_torch.kernels import decode_step as DK
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import ops as OPS
 from repro_torch.kernels import packed_matmul as PK
+from repro_torch.core import quantize as Q
+from repro_torch.core.qtensor import tree_leaves, tree_to
 from repro_torch.serve.recurrent import RNNRuntime
+from repro_torch.train import optimizer as OPT
+from repro_torch.train import train_step as TS
 
 pytestmark = pytest.mark.cuda
 
@@ -214,3 +223,67 @@ def test_gate_codes_stay_word_equal_on_the_card(card):
         assert torch.equal(on_card.codes.cpu(), on_cpu.codes)
         assert torch.equal(OPS.prepare_gate_codes(on_card, 4).cpu(),
                            OPS.prepare_gate_codes(on_cpu, 4))
+
+
+@pytest.mark.parametrize("mode,group", [("ternary", 16), ("binary", 32)])
+@pytest.mark.parametrize("kw,N", [(1, 1), (2, 33), (63, 4000), (4, 130),
+                                  (300, 257)])
+@pytest.mark.parametrize("alpha", [0.05, 1.0, 3e-4])
+def test_quantize_pack_matches_plain_word_for_word(card, mode, group, kw, N,
+                                                   alpha):
+    """K = kw * G (16 k and 32 k), ragged N; w reaches past +-alpha and
+    holds exact 0, alpha and -alpha; u holds 0 and the sampling
+    thresholds themselves."""
+    K = kw * group
+    rng = np.random.default_rng(K * N)
+    w = (rng.normal(size=(K, N)) * alpha).astype(np.float32)
+    w.flat[::7] = 0.0
+    w.flat[1::11] = alpha
+    w.flat[2::13] = -alpha
+    u = rng.random((K, N), dtype=np.float32)
+    u.flat[::5] = 0.0
+    w_t, u_t = torch.from_numpy(w), torch.from_numpy(u)
+    wn = torch.clamp(Q.divide(w_t, alpha), -1.0, 1.0)
+    u_t.view(-1)[3::17] = wn.abs().view(-1)[3::17]
+    u_t.view(-1)[4::19] = ((wn + 1.0) * 0.5).view(-1)[4::19]
+    got = PK.quantize_pack(w_t.to(card), u_t.to(card), alpha, mode=mode)
+    want = PK.quantize_pack_plain(w_t.to(card), u_t.to(card), alpha,
+                                  mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), PK.quantize_pack_plain(w_t, u_t, alpha,
+                                                         mode=mode))
+    assert dispatch.LAUNCHES["quantize_pack"] == 1
+
+
+def test_quantize_pack_refuses_what_the_kernel_does_not_take(card):
+    w = torch.zeros((32, 8), device=card)
+    with pytest.raises(TypeError):
+        PK.quantize_pack(w.double(), w.double(), 0.1, mode="ternary")
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.quantize_pack(torch.zeros((8, 32), device=card).T, w, 0.1,
+                         mode="ternary")
+    with pytest.raises(ValueError, match="mixed devices"):
+        PK.quantize_pack(w, w.cpu(), 0.1, mode="binary")
+    assert not dispatch.LAUNCHES and not dispatch.PLAIN_CALLS
+
+
+def test_full_width_train_step_on_the_card_matches_the_cpu(card):
+    """rnn-paper at H = 1000 (vocab 50, ternary), one step of the
+    launcher's optimizer from one init, with the same injected noise."""
+    from repro_torch.configs import get_rnn_config
+    cfg = get_rnn_config("rnn-paper")
+    opt = OPT.OptConfig(lr=1e-3, clip_norm=1.0, warmup_steps=20)
+    var = BL.rnn_lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    st = TS.train_state_init(var["params"], opt, 1, bn_state=var["state"])
+    noise = BL.draw_noise(st.params, torch.Generator().manual_seed(2))
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (4, 9), generator=g)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    step = TS.make_rnn_train_step(cfg, opt)
+    cpu, m_cpu = step(st, batch, noise=noise)
+    dev, m_dev = step(tree_to(st, card), tree_to(batch, card),
+                      noise=tree_to(noise, card))
+    assert abs(float(m_dev["loss"]) - float(m_cpu["loss"])) <= 1e-4
+    for a, b in zip(tree_leaves(dev), tree_leaves(cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)

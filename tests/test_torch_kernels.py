@@ -2,6 +2,7 @@
 kernels, on the CPU, where each wrapper runs its plain PyTorch version.
 
 The JAX side runs the Pallas kernels in interpret mode, as its own tests do.
+quantize_pack is compared word for word: its codes are bit-exact.
 Tolerances: the packed GEMV/GEMM products are exact (weights are -1/0/+1)
 and only the fp32 summation order differs, so 1e-5 abs/rel, the JAX
 package's own kernel tolerance.  The fused tick adds sigmoid/tanh from two
@@ -21,6 +22,7 @@ from repro.kernels import ops as JOPS
 from repro.kernels import packed_matmul as JPK
 from repro.kernels import ref as JREF
 from repro_torch.core import qtensor as QT
+from repro_torch.core import quantize as Q
 from repro_torch.kernels import decode_step as DK
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import ops as OPS
@@ -89,6 +91,80 @@ def test_matmul_oracles_match_jax_and_the_plain_kernels(mode, group):
     gemv = PK.packed_gemv_plain(_t(x[:8]), _t(wp), mode=mode) * alpha
     np.testing.assert_allclose(gemm.numpy(), t.numpy(), **TOL)
     np.testing.assert_allclose(gemv.numpy(), t[:8].numpy(), **TOL)
+
+
+# --- quantize_pack -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(256, 128), (64, 40), (1024, 96)])
+@pytest.mark.parametrize("mode", ["ternary", "binary"])
+def test_quantize_pack_plain_matches_pallas_word_for_word(mode, shape):
+    """w spans past +-alpha (the clip) and has exact zeros and |w| ==
+    alpha; u holds 0 and values equal to |wn| and (wn + 1) / 2."""
+    rng = np.random.default_rng(shape[0] + shape[1])
+    alpha = 0.05
+    w = (rng.normal(size=shape) * 0.04).astype(np.float32)
+    w.flat[::7] = 0.0
+    w.flat[1::11] = alpha
+    w.flat[2::13] = -alpha
+    u = rng.random(shape, dtype=np.float32)
+    u.flat[::5] = 0.0
+    wn = np.clip(w / np.float32(alpha), -1, 1)
+    u.flat[3::17] = np.abs(wn).flat[3::17]
+    u.flat[4::19] = ((wn + 1) * np.float32(0.5)).flat[4::19]
+    j = JOPS.quantize_pack(jnp.asarray(w), jnp.asarray(u), alpha, mode=mode,
+                           interpret=True)
+    dispatch.reset_counts()
+    t = OPS.quantize_pack(_t(w), _t(u), alpha, mode=mode)
+    assert dict(dispatch.PLAIN_CALLS) == {"quantize_pack": 1}
+    assert not dispatch.LAUNCHES
+    np.testing.assert_array_equal(t.numpy().view(np.uint32), np.asarray(j))
+    ref = getattr(REF, f"quantize_pack_{mode}_ref")(_t(w), _t(u), alpha)
+    np.testing.assert_array_equal(ref.numpy(), t.numpy())
+    jref = getattr(JREF, f"quantize_pack_{mode}_ref")(jnp.asarray(w),
+                                                      jnp.asarray(u), alpha)
+    np.testing.assert_array_equal(np.asarray(jref), np.asarray(j))
+
+
+@pytest.mark.parametrize("mode", ["ternary", "binary"])
+def test_quantize_pack_fused_equals_two_step(mode):
+    """Fused == (stochastic quantize, then pack), as the JAX test holds
+    its kernel (tests/test_kernels.py)."""
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy((rng.normal(size=(256, 128)) * 0.03).astype(np.float32))
+    u = torch.from_numpy(rng.random((256, 128), dtype=np.float32))
+    a = 0.04
+    fused = OPS.quantize_pack(w, u, a, mode=mode)
+    if mode == "ternary":
+        two = Q.pack_ternary(Q.ternarize_stochastic(w, u, a) / a)
+    else:
+        two = Q.pack_binary(Q.binarize_stochastic(w, u, a) / a)
+    assert torch.equal(fused, two)
+
+
+@pytest.mark.parametrize("mode", ["ternary", "binary"])
+def test_quantize_pack_ragged_k_pads_to_the_qtensor_layout(mode):
+    """A ragged K padded with w = 0 and u = 1.0 gives zero pad codes, the
+    layout `QTensor.from_master` pads to."""
+    rng = np.random.default_rng(6)
+    K, N = 50, 24
+    w = torch.from_numpy(rng.uniform(-0.3, 0.3, (K, N)).astype(np.float32))
+    u = torch.from_numpy(rng.random((K, N), dtype=np.float32))
+    kp = QT.QTensor.from_master(w, mode).codes.shape[0] * Q.pack_group(mode)
+    pad = torch.nn.functional.pad
+    codes = OPS.quantize_pack(pad(w, (0, 0, 0, kp - K)),
+                              pad(u, (0, 0, 0, kp - K), value=1.0), 0.2,
+                              mode=mode)
+    dense = pad(Q.quantize(w, mode, 0.2, u, with_ste=False) / 0.2,
+                (0, 0, 0, kp - K))
+    pack = Q.pack_ternary if mode == "ternary" else Q.pack_binary
+    assert torch.equal(codes, pack(dense))
+    vals = Q.decode_codes(codes, mode)[K:]
+    assert not vals.any()
+    with pytest.raises(ValueError, match="multiple of"):
+        OPS.quantize_pack(w, u, 0.2, mode=mode)
+    with pytest.raises(ValueError, match="noise"):
+        OPS.quantize_pack(w[:32], u[:16], 0.2, mode=mode)
 
 
 @pytest.mark.parametrize("shape,xlead", [((136, 96), (3,)), ((136, 96), (8,)),
