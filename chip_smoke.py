@@ -7,13 +7,18 @@ NVIDIA card.
 Phases, in order; any failure exits non-zero before the last line:
   1. card     — nvidia-smi name and power limit, torch and CUDA versions;
   2. build    — compile the four CUDA kernels from `src/repro_torch/csrc`
-                (one nvcc each, all at once) and print the ptxas report;
-                then the SASS of `packed_gemv` must hold no float multiply;
+                (one nvcc each, all at once) and print the ptxas report:
+                `packed_matmul` and `fused_tick` must spill no register;
+                then the SASS of `packed_gemv` must hold no float multiply,
+                and that of `packed_matmul` bf16 tensor-core HMMAs;
   3. kernels  — at the main path's shapes, hold each kernel against its
                 plain PyTorch version on the card and time both (device
                 time from torch.profiler, wall time per call from CUDA
                 events), beside the analytic bound and one PyTorch library
-                call where one computes the same function;
+                call where one computes the same function: the GEMM at
+                M = 16 (B = 16 prefill) and 32 (packed eval), each launched
+                twice and held bit-equal; the tick at B = 4 and 16, each
+                held against the plain version on its own inputs;
   4. main path — rnn-paper at full width (char-PTB BN-LSTM, H = 1000,
                 ternary, random weights from a seed, BN statistics, BN
                 scales and biases moved off init): rnn_lm_init ->
@@ -23,7 +28,8 @@ Phases, in order; any failure exits non-zero before the last line:
                 Launch counters are zeroed just before and read just after;
                 every kernel must have launched, one fused tick per decode
                 step, and the fused decode's logits, h and c must match the
-                unfused plain path on the card within 1e-5 of their size;
+                unfused plain path on the card at B = 4 and 16 within 1e-5
+                of their size;
   5. profile  — where a prefill's and a decode step's time goes at B = 4
                 and 16 (torch.profiler: device busy time, idle share);
   6. training — rnn-paper at full width through `repro_torch.launch.train`
@@ -60,6 +66,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_S = 67e12        # H100 SXM fp32 on the CUDA cores (FMA = 2 flop)
 FP32_ADD_S = FP32_FLOP_S / 2  # an FADD issues at the FMA instruction rate
+BF16_FLOP_S = 989e12       # H100 SXM dense bf16 on the tensor cores
 MULTIPLY_OPS = re.compile(r"\b(FMUL|FFMA|HMUL2|HFMA2|DMUL|DFMA|HMMA)\w*")
 # ptxas materializes constants with `HFMA2.MMA Rd, -RZ, RZ, imm, imm`: both
 # multiplicands are the zero register, so it moves an immediate and
@@ -79,25 +86,32 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_profile(fn, reps: int = 1, skip: str | None = None):
+def device_profile(fn, reps: int = 1, skip: str | None = None,
+                   attempts: int = 3):
     """Run `fn` `reps` times under torch.profiler.  Returns (device us by
     kernel name, host wall seconds of the whole run, synchronized); kernels
-    whose name holds `skip` are left out."""
+    whose name holds `skip` are left out.  Now and then the profiler hands
+    back no device event at all for a run; the run is then repeated, up to
+    `attempts` times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not (skip and skip in e.name):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not (skip and skip in e.name):
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us())
+        if by_name:
+            break
     return by_name, wall
 
 
@@ -180,13 +194,25 @@ def nonzero_weights(qt) -> int:
     return int(torch.count_nonzero(qt.dequantize()))
 
 
+def packed_bytes(qt, rows: int) -> int:
+    """x (rows, k) and the code words read once, the output written once."""
+    return rows * qt.k * 4 + nbytes(qt.codes) + rows * qt.codes.shape[1] * 4
+
+
 def packed_bound(qt, rows: int) -> tuple[float, str]:
-    """The bound of x (rows, k) @ unpack(codes): x and the code words read
-    once, the output written once; one fp32 add per row and nonzero weight
+    """The bound of the multiply-free GEMV x (rows, k) @ unpack(codes): its
+    bytes, or one fp32 add per row and nonzero weight on the CUDA cores
     (the weights are -1/0/+1, so a product is an add or nothing)."""
-    N = qt.codes.shape[1]
-    moved = rows * qt.k * 4 + nbytes(qt.codes) + rows * N * 4
-    return bound(moved, rows * nonzero_weights(qt) / FP32_ADD_S)
+    return bound(packed_bytes(qt, rows),
+                 rows * nonzero_weights(qt) / FP32_ADD_S)
+
+
+def gemm_bound(qt, rows: int) -> tuple[float, str]:
+    """The bound of the GEMM's route to x (rows, k) @ unpack(codes): its
+    bytes, or the three bf16 products of the exact split (x = hi + mid +
+    lo), 3 * 2 * rows * k * N flops at the bf16 tensor-core rate."""
+    flops = 3 * 2 * rows * qt.k * qt.codes.shape[1]
+    return bound(packed_bytes(qt, rows), flops / BF16_FLOP_S)
 
 
 def tick_bound(cfg, qv: dict, B: int) -> tuple[float, str]:
@@ -228,9 +254,30 @@ def off_init(var: dict, g) -> dict:
     return var
 
 
-def sass_check(so_path: Path) -> dict:
-    """cuobjdump the packed_gemv library: its kernel functions must hold no
-    float multiply (integer IMAD for addresses is fine)."""
+def ptxas_usage(log: str) -> list:
+    """(kernel, registers, bytes spilled: stores + loads) for each kernel
+    function of an `nvcc -Xptxas -v` log, template arguments kept."""
+    out, fn, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            n = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", m.group(1))
+            fn = (f"{n.group(1)}<{','.join(re.findall(r'Li(\d+)E', n.group(2)))}>"
+                  if n else m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), spill))
+            fn, spill = None, 0
+    return out
+
+
+def sass_functions(so_path: Path) -> dict:
+    """{kernel function: its SASS lines} of a kernel library (cuobjdump)."""
     import os
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
@@ -245,7 +292,15 @@ def sass_check(so_path: Path) -> dict:
             funcs[cur] = []
         elif cur is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
             funcs[cur].append(line)
-    gemv = {f: body for f, body in funcs.items() if "packed_gemv" in f}
+    return funcs
+
+
+def sass_check(gemv_so: Path, matmul_so: Path) -> dict:
+    """The packed_gemv kernels must hold no float multiply (integer IMAD for
+    addresses is fine); the packed_matmul kernels must multiply on the
+    tensor cores (HMMA, bf16 in, fp32 out).  Returns instruction counts."""
+    gemv = {f: body for f, body in sass_functions(gemv_so).items()
+            if "packed_gemv" in f}
     if not gemv:
         fail("no packed_gemv function found in the SASS")
     counts = {}
@@ -257,6 +312,15 @@ def sass_check(so_path: Path) -> dict:
         text = "\n".join(body)
         counts[f] = {op: len(re.findall(rf"\b{op}\b", text))
                      for op in ("FADD", "LOP3", "IMAD")}
+    gemm = {f: body for f, body in sass_functions(matmul_so).items()
+            if "packed_matmul" in f}
+    if not gemm:
+        fail("no packed_matmul function found in the SASS")
+    for f, body in gemm.items():
+        hmma = sum(1 for l in body if re.search(r"\bHMMA\.16816\.F32\.BF16\b", l))
+        if not hmma:
+            fail(f"no bf16 HMMA in {f}")
+        counts[f] = {"HMMA.16816.F32.BF16": hmma}
     return counts
 
 
@@ -301,25 +365,35 @@ def kernels_phase(report: dict) -> list:
             lambda: PK.packed_gemv_plain(x, qt.codes, mode=mode),
             lambda: torch.matmul(x, w), b_ms, b_by))
 
-    # -- packed_matmul: prefill at batch 16 ------------------------------------
+    # -- packed_matmul: prefill at batch 16, the packed eval at batch 32 -------
     for mode in ("ternary", "binary"):
-        qt = wh[mode]
-        K = qt.codes.shape[0] * qt.group
-        x = torch.tanh(torch.randn(16, K, generator=g)).to(dev)
-        x[:, qt.k:] = 0.0
-        got = PK.packed_matmul(x, qt.codes, mode=mode)
-        want = PK.packed_matmul_plain(x, qt.codes, mode=mode)
-        err = (got - want).abs().max().item()
-        if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
-            fail(f"packed_matmul {mode}: max abs err {err}")
-        w = torch.nn.functional.pad(qt.dequantize() / qt.alpha,
-                                    (0, 0, 0, K - qt.k))
-        b_ms, b_by = packed_bound(qt, 16)
-        rows.append(timed_row(
-            "packed_matmul", f"{mode} x(16,{K}) codes{tuple(qt.codes.shape)}",
-            err, lambda: PK.packed_matmul(x, qt.codes, mode=mode),
-            lambda: PK.packed_matmul_plain(x, qt.codes, mode=mode),
-            lambda: torch.matmul(x, w), b_ms, b_by))
+        for M in (16, 32):
+            qt = wh[mode]
+            K = qt.codes.shape[0] * qt.group
+            x = torch.tanh(torch.randn(M, K, generator=g)).to(dev)
+            x[:, qt.k:] = 0.0
+            got = PK.packed_matmul(x, qt.codes, mode=mode)
+            again = PK.packed_matmul(x, qt.codes, mode=mode)
+            want = PK.packed_matmul_plain(x, qt.codes, mode=mode)
+            err = (got - want).abs().max().item()
+            if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
+                fail(f"packed_matmul {mode} M={M}: max abs err {err}")
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                fail(f"packed_matmul {mode} M={M}: two launches differ")
+            w = torch.nn.functional.pad(qt.dequantize() / qt.alpha,
+                                        (0, 0, 0, K - qt.k))
+            b_ms, b_by = gemm_bound(qt, M)
+            plan = PK.matmul_plan(M, K, qt.codes.shape[1], mode=mode)
+            rows.append(timed_row(
+                "packed_matmul", f"{mode} x({M},{K}) codes"
+                f"{tuple(qt.codes.shape)} {plan['blocks']} blocks, "
+                f"cluster {plan['cluster']}", err,
+                lambda: PK.packed_matmul(x, qt.codes, mode=mode),
+                lambda: PK.packed_matmul_plain(x, qt.codes, mode=mode),
+                lambda: torch.matmul(x, w), b_ms, b_by))
+            rows[-1]["fp32_add_bound_ms"] = packed_bound(qt, M)[0]
+        print(f"  packed_matmul {mode}: M=16,32 match plain; two launches "
+              f"bit-equal", flush=True)
 
     # -- fused_tick: LSTM/GRU x ternary/binary x L in {1, 2}, dead rows --------
     for cell in ("lstm", "gru"):
@@ -347,7 +421,6 @@ def kernels_phase(report: dict) -> list:
                 errs = [(got[i][:, alive] - want[i][:, alive]).abs().max().item()
                         for i in (0, 1)]
                 errs.append((lg[alive] - want[2][alive]).abs().max().item())
-                err = max(errs)
                 if errs[0] > 1e-5 or errs[1] > 1e-5 or errs[2] > 1e-4:
                     fail(f"fused_tick {cell}/{mode}/L={L}: errs h,c,logits {errs}")
                 for dead in (1, 3):
@@ -362,18 +435,35 @@ def kernels_phase(report: dict) -> list:
                          f"!= argmax of its logits {own}")
                 if (cell, mode, L) != ("lstm", "ternary", 1):
                     continue
-                # the main path's tick: every row live, finite state, B = 4
-                # (padded to 8 rows); the bound counts the unpadded function
-                h_run = torch.tanh(torch.randn(L, B, c.d_hidden, generator=g)).to(dev)
-                c_run = torch.randn(L, B, c.d_hidden, generator=g).to(dev)
-                targs = OPS.tick_operands(tok, h_run, c_run, tick, None)
-                hp, vp = targs[4].shape[-1], targs[12].shape[1]
-                b_ms, b_by = tick_bound(c, qv, B)
-                rows.append(timed_row(
-                    "fused_tick", f"{cell} {mode} L={L} B={B} bp=8 Hp={hp} Vp={vp}",
-                    err, lambda: DK.fused_tick(*targs, cell=cell, mode=mode),
-                    lambda: DK.fused_tick_plain(*targs, cell=cell, mode=mode),
-                    None, b_ms, b_by))
+                # the main path's ticks: every row live, finite state, B = 4
+                # (one pass of 4 rows) and B = 16 (two passes of 8), each
+                # held against the plain version on its own inputs; the
+                # bound counts the unpadded function
+                for Bt in (4, 16):
+                    h_run = torch.tanh(torch.randn(L, Bt, c.d_hidden,
+                                                   generator=g)).to(dev)
+                    c_run = torch.randn(L, Bt, c.d_hidden, generator=g).to(dev)
+                    tok_run = torch.randint(0, c.vocab, (Bt,), generator=g).to(dev)
+                    targs = OPS.tick_operands(tok_run, h_run, c_run, tick, None)
+                    hp, vp, bp = targs[4].shape[-1], targs[12].shape[1], targs[0].shape[0]
+                    got = DK.fused_tick(*targs, cell=cell, mode=mode)
+                    want = DK.fused_tick_plain(*targs, cell=cell, mode=mode)
+                    errs = [(got[i] - want[i]).abs().max().item()
+                            for i in range(3)]
+                    if errs[0] > 1e-5 or errs[1] > 1e-5 or errs[2] > 1e-4:
+                        fail(f"fused_tick {cell}/{mode}/L={L} B={Bt}: errs "
+                             f"h,c,logits {errs}")
+                    own = torch.argmax(got[2], dim=-1).to(torch.int32)
+                    if not torch.equal(got[3], own):
+                        fail(f"fused_tick {cell}/{mode}/L={L} B={Bt}: greedy "
+                             f"{got[3]} != argmax of its logits {own}")
+                    b_ms, b_by = tick_bound(c, qv, Bt)
+                    rows.append(timed_row(
+                        "fused_tick", f"{cell} {mode} L={L} B={Bt} bp={bp} "
+                        f"rows={DK.tick_rows(bp)} Hp={hp} Vp={vp}", max(errs),
+                        lambda: DK.fused_tick(*targs, cell=cell, mode=mode),
+                        lambda: DK.fused_tick_plain(*targs, cell=cell, mode=mode),
+                        None, b_ms, b_by))
             print(f"  fused_tick {cell}/{mode}: L=1,2 match plain; dead rows "
                   f"bit-exact; greedy == argmax", flush=True)
     rows += quantize_pack_rows(g)
@@ -492,38 +582,42 @@ def main_path_phase(report: dict) -> dict:
             fail(f"kernel {k} was never launched on the main path")
 
     # fused decode against the port's own unfused plain path (dense tables:
-    # dequantized weights, torch ops only), step by step from one state.
-    # Each of logits, h and c is held within 1e-5 of its largest magnitude:
-    # fp32 summation over H = 1000 leaves about 1e-7 of it, and a tick that
-    # skipped a gate's GEMV would be off by far more than 1e-5.
+    # dequantized weights, torch ops only), step by step from one state, at
+    # B = 4 (one row pass of 4) and 16 (two of 8).  Each of logits, h and c
+    # is held within 1e-5 of its largest magnitude: fp32 summation over
+    # H = 1000 leaves about 1e-7 of it, and a tick that skipped a gate's
+    # GEMV would be off by far more than 1e-5.
     dense = BL.rnn_decode_tables(rt.variables, cfg, dense=True)
-    prompt = torch.randint(0, cfg.vocab, (4, S),
-                           generator=torch.Generator().manual_seed(9))
-    _, st = rt.prefill(prompt.cuda(), rt.init_state(4))
-    su = st
-    toks = torch.randint(0, cfg.vocab, (8, 4),
-                         generator=torch.Generator().manual_seed(10)).cuda()
-    err = {"logits": 0.0, "h": 0.0, "c": 0.0}
-    size = dict(err)
-    for i in range(8):
-        lf, st = rt.decode_step(toks[i], st)
-        lu, su = BL.rnn_decode_step(rt.variables, toks[i], cfg, su,
-                                    tables=dense, fused=False)
-        for k, got, want in (("logits", lf, lu), ("h", st.h, su.h),
-                             ("c", st.c, su.c)):
-            err[k] = max(err[k], (got - want).abs().max().item())
-            size[k] = max(size[k], want.abs().max().item())
-    rel = {k: err[k] / size[k] for k in err}
-    if not all(r <= 1e-5 for r in rel.values()):
-        fail(f"fused decode vs unfused plain path: max abs err {err} against "
-             f"max |value| {size}")
-    print("  fused decode == unfused plain path over 8 steps: "
-          + ", ".join(f"{k} max abs err {err[k]:.2e} of max |{k}| "
-                      f"{size[k]:.3g}" for k in err) + " (limit 1e-5 of it)",
-          flush=True)
+    fused_err, fused_size = {}, {}
+    for B in (4, 16):
+        prompt = torch.randint(0, cfg.vocab, (B, S),
+                               generator=torch.Generator().manual_seed(9))
+        _, st = rt.prefill(prompt.cuda(), rt.init_state(B))
+        su = st
+        toks = torch.randint(0, cfg.vocab, (8, B),
+                             generator=torch.Generator().manual_seed(10)).cuda()
+        err = {"logits": 0.0, "h": 0.0, "c": 0.0}
+        size = dict(err)
+        for i in range(8):
+            lf, st = rt.decode_step(toks[i], st)
+            lu, su = BL.rnn_decode_step(rt.variables, toks[i], cfg, su,
+                                        tables=dense, fused=False)
+            for k, got, want in (("logits", lf, lu), ("h", st.h, su.h),
+                                 ("c", st.c, su.c)):
+                err[k] = max(err[k], (got - want).abs().max().item())
+                size[k] = max(size[k], want.abs().max().item())
+        rel = {k: err[k] / size[k] for k in err}
+        if not all(r <= 1e-5 for r in rel.values()):
+            fail(f"fused decode vs unfused plain path at B={B}: max abs err "
+                 f"{err} against max |value| {size}")
+        print(f"  B={B:2d} fused decode == unfused plain path over 8 steps: "
+              + ", ".join(f"{k} max abs err {err[k]:.2e} of max |{k}| "
+                          f"{size[k]:.3g}" for k in err) + " (limit 1e-5 of it)",
+              flush=True)
+        fused_err[f"B={B}"], fused_size[f"B={B}"] = err, size
     report.update(sessions=sessions, main_path_launches=launches,
-                  fused_vs_unfused_max_abs_err=err,
-                  fused_vs_unfused_max_abs_value=size)
+                  fused_vs_unfused_max_abs_err=fused_err,
+                  fused_vs_unfused_max_abs_value=fused_size)
     return launches, rt
 
 
@@ -790,14 +884,21 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     print(f"build: {report['build_s']:.1f} s for {len(built)} kernels "
           f"(parallel nvcc)", flush=True)
+    report["ptxas"] = {}
     for name, (path, secs, log) in built.items():
-        usage = [l.strip() for l in log.splitlines()
-                 if "registers" in l or "spill" in l]
-        print(f"  {name}: {path.name} {secs:.1f} s; " + " | ".join(usage[:4]),
+        usage = ptxas_usage(log)
+        report["ptxas"][name] = usage
+        print(f"  {name}: {path.name} {secs:.1f} s; " + " | ".join(
+            f"{fn} {regs} regs, {spill} B spilled" for fn, regs, spill in usage),
               flush=True)
-    report["sass_gemv"] = sass_check(built["packed_gemv"][0])
-    print(f"sass: packed_gemv holds no FMUL/FFMA/HMUL2/HFMA2/DMUL/DFMA/HMMA "
-          f"{report['sass_gemv']}", flush=True)
+    for name in ("packed_matmul", "fused_tick"):
+        spilled = [(fn, b) for fn, _, b in report["ptxas"][name] if b]
+        if spilled:
+            fail(f"{name} spills registers: {spilled}")
+    report["sass"] = sass_check(built["packed_gemv"][0],
+                                built["packed_matmul"][0])
+    print(f"sass: packed_gemv holds no FMUL/FFMA/HMUL2/HFMA2/DMUL/DFMA/HMMA; "
+          f"packed_matmul multiplies on bf16 HMMA {report['sass']}", flush=True)
 
     # 3. kernels against their plain versions
     rows = kernels_phase(report)

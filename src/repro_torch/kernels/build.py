@@ -36,8 +36,9 @@ _F = ctypes.c_float
 # c_void_p, so ctypes never truncates them to 32-bit ints
 SIGNATURES = {
     "packed_gemv": ("packed_gemv_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "packed_matmul": ("packed_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
-    "fused_tick": ("fused_tick_launch", [_P] * 21 + [_I] * 6 + [_P]),
+    "packed_matmul": ("packed_matmul_launch",
+                      [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "fused_tick": ("fused_tick_launch", [_P] * 23 + [_I] * 9 + [_P]),
     "quantize_pack": ("quantize_pack_launch", [_P, _P, _P, _F, _I, _I, _I, _P]),
 }
 

@@ -11,9 +11,10 @@ their x-side GEMV in the same launch.  `fused_tick_plain` is the same
 function in plain PyTorch; the wrapper runs it for CPU tensors.
 
 Operands arrive padded from `ops.fused_decode_tick`: batch to a multiple of
-8, each gate's width to the 128-column tile, code rows to Hp/G.  Pad lanes
-carry zero activations and zero affines, so pad h/c stay 0.0 across layers,
-and pad logit columns sit at finfo.min through the padded bias.
+4 (the kernel's row pass), each gate's width to the 128-column tile, code
+rows to Hp/G.  Pad lanes carry zero activations and zero affines, so pad
+h/c stay 0.0 across layers, and pad logit columns sit at finfo.min through
+the padded bias.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.kernels.packed_matmul import MODES, packed_gemv_plain
 
 BN_TILE = 128  # column tile each gate's width is padded to
 SLICE_COLS = 8  # columns a block of the CUDA kernel owns (csrc kCols)
+ROW_PAD = 4     # the batch is padded to a multiple of the smallest row pass
 CELLS = {"lstm": 0, "gru": 1}
 
 
@@ -35,6 +37,33 @@ def greedy_argmax(lg: torch.Tensor) -> torch.Tensor:
     mx = lg.max(dim=-1, keepdim=True).values
     col = torch.arange(vp, device=lg.device).expand_as(lg)
     return torch.where(lg == mx, col, vp).min(dim=-1).values.to(torch.int32)
+
+
+def tick_rows(bp: int) -> int:
+    """Batch rows one pass of the CUDA kernel covers: 8 where they divide
+    the padded batch, else 4."""
+    if bp < 1 or bp % ROW_PAD:
+        raise ValueError(f"fused_tick needs the batch padded to {ROW_PAD}, "
+                         f"got {bp}")
+    return 8 if bp % 8 == 0 else 4
+
+
+def tick_late_head(vp: int, n_sm: int) -> bool:
+    """Whether the CUDA kernel runs the head after its last barrier, in
+    units of 128 columns: where the head has at least 32 columns an SM
+    (word-PTB's Vp 10,112 on 132 SMs), so ws streams once a row pass from a
+    quarter of the SMs or more.  A narrower head (rnn-paper's Vp 128) is
+    instead summed from partial products that each block computes as soon
+    as it has written its slice of h; those partials take bp/8 times the
+    bytes of ws, which only a narrow head can afford."""
+    return vp % 128 == 0 and vp // 32 >= n_sm
+
+
+def tick_grid_max(bp: int, hp: int, vp: int) -> int:
+    """The most blocks the kernel launches (it takes fewer where fewer are
+    co-resident): one per 8-column slice of Hp, or one per 8-column unit
+    of the head's rows, whichever is more."""
+    return max(hp // SLICE_COLS, -(-bp * vp // 8))
 
 
 def fused_tick_plain(ax0, h, c, live, codes_h, codes_x, scale_h, shift_h,
@@ -104,8 +133,7 @@ def fused_tick(ax0, h, c, live, codes_h, codes_x, scale_h, shift_h, scale_x,
         dispatch.count_plain("fused_tick")
         return fused_tick_plain(*args, cell=cell, mode=mode)
 
-    if bp % 8:
-        raise ValueError(f"fused_tick needs the batch padded to 8, got {bp}")
+    rows = tick_rows(bp)
     lx = codes_x.shape[0]
     f32, i32 = torch.float32, torch.int32
     for name, t, dt, shape in (
@@ -128,15 +156,25 @@ def fused_tick(ax0, h, c, live, codes_h, codes_x, scale_h, shift_h, scale_x,
     dev = h.device
     h_out = torch.empty_like(h)
     c_out = torch.empty_like(c)
-    nsv = vp // SLICE_COLS
+    grid_max = tick_grid_max(bp, hp, vp)
+    late = tick_late_head(
+        vp, torch.cuda.get_device_properties(dev).multi_processor_count)
     logits = torch.empty((bp, vp), dtype=f32, device=dev)
     greedy = torch.empty((bp,), dtype=i32, device=dev)
-    part_val = torch.empty((nsv, bp), dtype=f32, device=dev)
-    part_idx = torch.empty((nsv, bp), dtype=i32, device=dev)
-    part_nan = torch.empty((nsv, bp), dtype=i32, device=dev)
+    # per-slice head partials (early head only) and per-8-column argmax
+    # partials
+    head_part = torch.empty((1,) if late else
+                            (vp // 8, bp, hp // SLICE_COLS, 8), dtype=f32,
+                            device=dev)
+    part_val = torch.empty((bp, vp // 8), dtype=f32, device=dev)
+    part_idx = torch.empty((bp, vp // 8), dtype=i32, device=dev)
+    part_nan = torch.empty((bp, vp // 8), dtype=i32, device=dev)
+    ticket = torch.empty((1,), dtype=i32, device=dev)  # the kernel zeroes it
     build.launch("fused_tick", dev, *(t.data_ptr() for t in args),
                  h_out.data_ptr(), c_out.data_ptr(), logits.data_ptr(),
-                 greedy.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
-                 part_nan.data_ptr(), L, bp, hp, vp, CELLS[cell], MODES[mode])
+                 greedy.data_ptr(), head_part.data_ptr(), part_val.data_ptr(),
+                 part_idx.data_ptr(), part_nan.data_ptr(), ticket.data_ptr(),
+                 L, bp, hp, vp, CELLS[cell], MODES[mode], rows, int(late),
+                 grid_max)
     dispatch.count_launch("fused_tick")
     return h_out, c_out, logits, greedy

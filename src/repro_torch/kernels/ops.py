@@ -106,12 +106,13 @@ def prepare_gate_codes(qt: QTensor, n_gates: int) -> torch.Tensor:
 def tick_operands(tok: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                   tick: dict, live: Optional[torch.Tensor] = None) -> tuple:
     """The padded operands of `decode_step.fused_tick` for one tick: the
-    layer-0 row gather, batch padded to 8 and gate width to Hp, the live
-    mask as 0/1 rows, and the padded head."""
+    layer-0 row gather, batch padded to a multiple of 4 (the kernel's
+    smallest row pass) and gate width to Hp, the live mask as 0/1 rows,
+    and the padded head."""
     L, B, H = h.shape
     codes_h = tick["codes_h"]
     g, hp = codes_h.shape[1], codes_h.shape[-1]
-    bp = -(-max(B, 1) // 8) * 8
+    bp = -(-max(B, 1) // DK.ROW_PAD) * DK.ROW_PAD
     f32 = torch.float32
 
     rows = tick["rows0"][tok].to(f32)                          # (B, g*H)

@@ -7,9 +7,11 @@ Three kernels, each with its plain PyTorch version beside it:
                       rows): codes become plus/minus masks and each output
                       column is sum(select(plus, x)) - sum(select(minus, x)).
                       Kernel: csrc/packed_gemv.cu.
-  * `packed_matmul` — the prefill GEMM: codes decode to -1/0/+1 fp32 and
-                      meet x in an exact fp32 product.
-                      Kernel: csrc/packed_matmul.cu.
+  * `packed_matmul` — the prefill GEMM: codes decode to -1/0/+1 and meet
+                      x in an exact fp32 product (on the card: bf16 tensor
+                      cores, x split exactly into three bf16 terms).
+                      Kernel: csrc/packed_matmul.cu, launched as
+                      `matmul_plan` says.
   * `quantize_pack` — paper Eqs. 4-6 stochastic sampling from an explicit
                       uniform-noise operand, fused with bit-packing:
                       (K, N) fp32 -> (K/G, N) words, bit-exact.
@@ -28,6 +30,11 @@ from repro_torch.core.quantize import (or_pack, decode_codes, divide,
 from repro_torch.kernels import build, dispatch
 
 MODES = {"ternary": 0, "binary": 1}
+
+SMS = 132          # streaming multiprocessors of an H100 SXM
+GEMM_COLS = 128    # output columns a block of the GEMM owns (csrc BN)
+GEMM_ROWS = 16     # output rows a block of the GEMM owns: one mma tile
+MAX_CLUSTER = 8    # the portable thread block cluster size
 
 
 def code_masks(packed: torch.Tensor, *, mode: str):
@@ -63,6 +70,21 @@ def packed_matmul_plain(x: torch.Tensor, codes: torch.Tensor, *,
     else:
         w = c.float() * 2.0 - 1.0
     return x.float() @ w
+
+
+def matmul_plan(M: int, K: int, N: int, *, mode: str) -> dict:
+    """How `packed_matmul` launches for x (M, K): a grid of blocks of 16
+    rows by 128 columns, times `cluster` blocks splitting K.  The split
+    doubles, up to 8, while the grid stays within two blocks an SM and
+    every block keeps at least two code words: at M = 16 and N = 4000, 32
+    tiles become 256 blocks."""
+    tiles = -(-N // GEMM_COLS) * -(-M // GEMM_ROWS)
+    words = K // pack_group(mode)
+    cluster = 1
+    while (cluster < MAX_CLUSTER and tiles * (2 * cluster) <= 2 * SMS
+           and 4 * cluster <= words):
+        cluster *= 2
+    return {"cluster": cluster, "blocks": tiles * cluster}
 
 
 def _checked(name: str, x: torch.Tensor, codes: torch.Tensor, mode: str):
@@ -103,9 +125,10 @@ def packed_matmul(x: torch.Tensor, codes: torch.Tensor, *,
         return packed_matmul_plain(x, codes, mode=mode)
     M, K = x.shape
     N = codes.shape[1]
+    plan = matmul_plan(M, K, N, mode=mode)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     build.launch("packed_matmul", x.device, x.data_ptr(), codes.data_ptr(),
-                 out.data_ptr(), M, K, N, MODES[mode])
+                 out.data_ptr(), M, K, N, MODES[mode], plan["cluster"])
     dispatch.count_launch("packed_matmul")
     return out
 

@@ -9,9 +9,11 @@ installed:
 (`--noconftest` because tests/conftest.py configures JAX.)  The CPU tests
 (tests/test_torch_*.py) hold the plain versions against the JAX package;
 these hold the kernels against the plain versions at shapes the main path
-does not reach: every GEMV row count, ragged column counts, batches that
-take several row passes of the fused tick, three layers, a head wider than
-the main path's (vocab 7300), and non-finite logits.
+does not reach: every GEMV row count, every GEMM row tiling with and
+without a K split, ragged column counts, batches that take several row
+passes of the fused tick (4 and 8 rows a pass), three layers, heads wider
+than the main path's (vocab 7300 and 10,000), and non-finite logits.  The
+GEMM and the tick are also launched twice and must repeat bit for bit.
 
 Tolerances: the packed products are exact (weights are -1/0/+1), so the
 GEMV and GEMM differ from the exact sum only by fp32 summation error, which
@@ -101,6 +103,32 @@ def test_packed_matmul_matches_plain(card, mode, group, M, K, N):
     assert dispatch.LAUNCHES["packed_matmul"] == 1
 
 
+@pytest.mark.parametrize("M", [9, 15, 16, 17, 31, 32, 33, 130, 3200])
+@pytest.mark.parametrize("mode,group", [("ternary", 16), ("binary", 32)])
+@pytest.mark.parametrize("K,N", [(1024, 4000), (16384, 200), (160, 33)])
+def test_packed_matmul_tiles_clusters_and_repeats(card, mode, group, M, K,
+                                                  N):
+    """Every row tiling (one 16-row tile, two, ragged last tiles, many),
+    K split across a cluster and not, K up to 16,384, ragged N.  x is zero
+    past the true K and the last code words are zero: binary decodes them
+    to -1, so only the zero activations keep them out.  Two launches on the
+    same inputs give the same bits."""
+    rng = np.random.default_rng(M + K + N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    x[:, K - group - 3:] = 0.0
+    x = torch.from_numpy(x).to(card)
+    codes = _codes(rng, K // group, N)
+    codes[-1] = 0
+    codes = codes.to(card)
+    got = PK.packed_matmul(x, codes, mode=mode)
+    again = PK.packed_matmul(x, codes, mode=mode)
+    want = PK.packed_matmul_plain(x, codes, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _assert_summation_close(got, want, x, codes, mode)
+    assert dispatch.LAUNCHES["packed_matmul"] == 2
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     codes = torch.zeros((4, 64), dtype=torch.int32, device=card)
     x = torch.zeros((2, 64), device=card)
@@ -170,6 +198,107 @@ def test_fused_tick_matches_plain(card, cell, mode, layers, B):
     torch.testing.assert_close(got[3][alive], DK.greedy_argmax(got[2][alive]))
     # pad lanes stay exactly zero across layers
     assert not got[0][..., 136:].any() and not got[1][..., 136:].any()
+
+
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 8, 13, 16])
+@pytest.mark.parametrize("layers", [1, 2, 3])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_fused_tick_row_passes_layers_and_a_wide_head(card, cell, layers, B):
+    """Both row passes (4 and 8 rows: B = 5 pads to 8, 13 to 16), one to
+    three layers, a 10,000-word head (Vp 10,112: its partial products and
+    the argmax spread over every block), ternary at even B and binary at
+    odd, dead rows holding NaN and inf, a live row whose state is NaN (its
+    logits are NaN, so greedy gives it Vp), and a bitwise repeat."""
+    mode = "binary" if B % 2 else "ternary"
+    cfg, qv, g = _tick(card, cell, mode, hidden=136, layers=layers,
+                       vocab=10000)
+    tick = BL.rnn_decode_tables(qv, cfg)[0]["tick"]
+    h = torch.tanh(torch.randn(layers, B, 136, generator=g)).to(card)
+    c = torch.randn(layers, B, 136, generator=g).to(card)
+    live = torch.ones(B, dtype=torch.bool, device=card)
+    dead = [r for r in (1, 4, 11) if r < B]
+    nan_row = 2 if B > 2 else None
+    for r in dead:
+        live[r] = False
+        h[:, r] = float("nan")
+        c[:, r] = float("inf")
+    if nan_row is not None:
+        h[:, nan_row] = float("nan")
+    tok = torch.randint(0, 10000, (B,), generator=g).to(card)
+    args = OPS.tick_operands(tok, h, c, tick, live)
+    vp = args[12].shape[1]
+    got = DK.fused_tick(*args, cell=cell, mode=mode)
+    again = DK.fused_tick(*args, cell=cell, mode=mode)
+    want = DK.fused_tick_plain(*args, cell=cell, mode=mode)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["fused_tick"] == 2
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ok = [r for r in range(B) if r not in dead and r != nan_row]
+    torch.testing.assert_close(got[0][:, ok], want[0][:, ok], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[1][:, ok], want[1][:, ok], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2][ok], want[2][ok], rtol=0, atol=1e-4)
+    torch.testing.assert_close(got[3][ok], DK.greedy_argmax(got[2][ok]))
+    for r in dead:
+        for out, inp in ((got[0], args[1]), (got[1], args[2])):
+            assert torch.equal(out[:, r].view(torch.int32),
+                               inp[:, r].view(torch.int32))
+    if nan_row is not None:
+        assert torch.isnan(got[2][nan_row]).any()
+        assert got[3][nan_row].item() == want[3][nan_row].item() == vp
+
+
+@pytest.mark.parametrize("rows", [4, 8])
+@pytest.mark.parametrize("layers", [1, 2])
+def test_fused_tick_row_pass_choice(card, rows, layers):
+    """The wrapper's row pass: B = 12 runs three passes of 4 rows, B = 16
+    two of 8; both match the plain version, dead rows included."""
+    B = 12 if rows == 4 else 16
+    assert DK.tick_rows(B) == rows
+    cfg, qv, g = _tick(card, "lstm", "ternary", hidden=136, layers=layers,
+                       vocab=50)
+    tick = BL.rnn_decode_tables(qv, cfg)[0]["tick"]
+    h = torch.tanh(torch.randn(layers, B, 136, generator=g)).to(card)
+    c = torch.randn(layers, B, 136, generator=g).to(card)
+    live = torch.arange(B, device=card) % 5 != 2
+    tok = torch.randint(0, 50, (B,), generator=g).to(card)
+    args = OPS.tick_operands(tok, h, c, tick, live)
+    got = DK.fused_tick(*args, cell="lstm", mode="ternary")
+    want = DK.fused_tick_plain(*args, cell="lstm", mode="ternary")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
+    assert torch.equal(got[3], DK.greedy_argmax(got[2]))
+
+
+@pytest.mark.parametrize("B", [4, 16])
+@pytest.mark.parametrize("vocab", [2000, 10000])
+def test_fused_tick_early_and_late_heads(card, vocab, B):
+    """Both heads at Hp 1024: vocab 2000 (Vp 2048, 16 columns an SM of an
+    H100) sums the slices' early partial products, vocab 10,000 runs the
+    head after the barrier in 128-column units; at B = 16 the late head
+    stages two row passes.  Both match the plain version and repeat bit for
+    bit."""
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    cfg, qv, g = _tick(card, "lstm", "ternary", hidden=1000, layers=1,
+                       vocab=vocab)
+    tick = BL.rnn_decode_tables(qv, cfg)[0]["tick"]
+    vp = tick["ws"].shape[1]
+    assert DK.tick_late_head(vp, n_sm) == (vocab == 10000)
+    h = torch.tanh(torch.randn(1, B, 1000, generator=g)).to(card)
+    c = torch.randn(1, B, 1000, generator=g).to(card)
+    tok = torch.randint(0, vocab, (B,), generator=g).to(card)
+    args = OPS.tick_operands(tok, h, c, tick, None)
+    got = DK.fused_tick(*args, cell="lstm", mode="ternary")
+    again = DK.fused_tick(*args, cell="lstm", mode="ternary")
+    want = DK.fused_tick_plain(*args, cell="lstm", mode="ternary")
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4)
+    assert torch.equal(got[3], DK.greedy_argmax(got[2]))
 
 
 def test_fused_tick_greedy_nan_row_gets_vp(card):

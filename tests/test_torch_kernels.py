@@ -256,7 +256,7 @@ def _both_ticks(cfg, tick, tok, h, c, live=None):
     return [np.asarray(a) for a in jout], [a.numpy() for a in tout]
 
 
-@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("B", [1, 4, 5])
 @pytest.mark.parametrize("mode", ["ternary", "binary"])
 @pytest.mark.parametrize("cell", ["lstm", "gru"])
 def test_fused_tick_plain_matches_pallas(cell, mode, B):
@@ -269,6 +269,92 @@ def test_fused_tick_plain_matches_pallas(cell, mode, B):
     np.testing.assert_allclose(tc, jc, atol=1e-5)
     np.testing.assert_array_equal(tg, jg)
     np.testing.assert_array_equal(tg, np.argmax(tl, axis=-1))
+
+
+@pytest.mark.parametrize("B,bp", [(1, 4), (4, 4), (5, 8)])
+def test_tick_operands_pad_the_batch_to_four(B, bp):
+    """The port pads the batch to a multiple of 4 (the CUDA kernel's
+    smallest row pass), the JAX kernel to 8: pad rows hold zero state and
+    are dead, and the tick still matches the JAX kernel on the real rows."""
+    cfg, tick = _jax_packed("lstm", "ternary", layers=2)
+    h, c = _state(cfg, B)
+    live = np.ones(B, bool)
+    live[-1] = B == 1
+    tok = np.arange(B, dtype=np.int32) * 3 % cfg.vocab
+    ttick = {k: _t(v) for k, v in tick.items()}
+    ops = OPS.tick_operands(torch.from_numpy(tok), torch.from_numpy(h),
+                            torch.from_numpy(c), ttick,
+                            torch.from_numpy(live))
+    ax0, hp_, cp_, live_m = ops[:4]
+    assert ax0.shape[0] == hp_.shape[1] == cp_.shape[1] == live_m.shape[0] == bp
+    assert not ax0[B:].any() and not hp_[:, B:].any() and not cp_[:, B:].any()
+    assert not live_m[B:].any()
+    assert DK.tick_rows(bp) == (8 if bp % 8 == 0 else 4)
+    (jl, jh, jc, jg), (tl, th, tc, tg) = _both_ticks(cfg, tick, tok, h, c,
+                                                     live)
+    np.testing.assert_allclose(tl, jl, atol=1e-5)
+    np.testing.assert_allclose(th, jh, atol=1e-5)
+    np.testing.assert_allclose(tc, jc, atol=1e-5)
+    np.testing.assert_array_equal(tg, jg)
+
+
+@pytest.mark.parametrize("bp,rows", [(4, 4), (8, 8), (12, 4), (16, 8),
+                                     (6, None), (0, None)])
+def test_tick_rows_follow_the_padded_batch(bp, rows):
+    """The row pass: 8 rows where 8 divide the padded batch, else 4; a
+    batch not padded to 4 is refused."""
+    if rows is None:
+        with pytest.raises(ValueError, match="padded to 4"):
+            DK.tick_rows(bp)
+    else:
+        assert DK.tick_rows(bp) == rows
+
+
+def test_tick_grid_covers_the_slices_and_the_head():
+    """rnn-paper decode (Hp 1024, Vp 128): one block per 8-column slice;
+    a 10,000-word head at Hp 128 gets a block per 8 of its logits."""
+    assert DK.tick_grid_max(4, 1024, 128) == 128
+    assert DK.tick_grid_max(16, 1024, 128) == 256
+    assert DK.tick_grid_max(16, 128, 10112) == 16 * 10112 // 8
+
+
+@pytest.mark.parametrize("vp,n_sm,late", [
+    (128, 132, False),     # rnn-paper: Vp 128, early partials on every block
+    (2048, 132, False),    # 16 columns an SM
+    (4224, 132, True),     # 32 columns an SM: 33 units of 128
+    (10112, 132, True),    # word-PTB: 79 units of 128
+    (10112, 400, False),
+    (4160, 130, False),    # not a whole number of 128-column units
+])
+def test_tick_late_head_needs_a_unit_an_sm(vp, n_sm, late):
+    """The head runs after the barrier only where it has 32 columns an SM
+    or more, in whole 128-column units; a narrower head keeps the early
+    per-slice partials."""
+    assert DK.tick_late_head(vp, n_sm) is late
+
+
+@pytest.mark.parametrize("M,K,N,mode,cluster", [
+    (16, 1008, 4000, "ternary", 8),   # B = 16 prefill, h-side GEMM
+    (32, 1008, 4000, "ternary", 4),   # packed eval, h-side GEMM
+    (16, 1024, 4000, "binary", 8),
+    (32, 1024, 4000, "binary", 4),
+    (9, 1008, 4000, "ternary", 8),
+    (130, 1008, 4000, "ternary", 1),
+    (3200, 1008, 4000, "ternary", 1),  # packed eval's B*T rows
+    (16, 64, 4000, "ternary", 2),      # 4 code words: split once
+])
+def test_matmul_plan_fills_the_card(M, K, N, mode, cluster):
+    """At the main path's shapes the GEMM's grid holds at least as many
+    blocks as an H100 has SMs (132) and at most two an SM: 16-row tiles, K
+    split by a cluster of up to 8 blocks, each keeping at least 2 code
+    words."""
+    plan = PK.matmul_plan(M, K, N, mode=mode)
+    assert plan["cluster"] == cluster
+    words = K // Q.pack_group(mode)
+    assert cluster == 1 or words // cluster >= 2
+    if words >= 32 and M <= 32:
+        assert PK.SMS <= plan["blocks"] <= 2 * PK.SMS
+    assert plan["blocks"] == cluster * -(-N // 128) * -(-M // 16)
 
 
 @pytest.mark.parametrize("hidden", [40, 136])
