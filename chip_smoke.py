@@ -8,17 +8,21 @@ Phases, in order; any failure exits non-zero before the last line:
   1. card     — nvidia-smi name and power limit, torch and CUDA versions;
   2. build    — compile the four CUDA kernels from `src/repro_torch/csrc`
                 (one nvcc each, all at once) and print the ptxas report:
-                `packed_matmul` and `fused_tick` must spill no register;
+                `packed_gemv`, `packed_matmul` and `fused_tick` must spill
+                no register;
                 then the SASS of `packed_gemv` must hold no float multiply,
                 and that of `packed_matmul` bf16 tensor-core HMMAs;
-  3. kernels  — at the main path's shapes, hold each kernel against its
-                plain PyTorch version on the card and time both (device
-                time from torch.profiler, wall time per call from CUDA
-                events), beside the analytic bound and one PyTorch library
-                call where one computes the same function: the GEMM at
-                M = 16 (B = 16 prefill) and 32 (packed eval), each launched
-                twice and held bit-equal; the tick at B = 4 and 16, each
-                held against the plain version on its own inputs;
+  3. kernels  — the launch floor (the device time of a one-element
+                in-place add on the same stream); then, at the main path's
+                shapes, hold each kernel against its plain PyTorch version
+                on the card and time both (device time from torch.profiler,
+                wall time per call from CUDA events), beside the analytic
+                bound and one PyTorch library call where one computes the
+                same function: the GEMV at bp = 4 (B = 4 prefill, ternary)
+                and 8 (binary), the GEMM at M = 16 (B = 16 prefill) and 32
+                (packed eval), each launched twice and held bit-equal; the
+                tick at B = 4 and 16, each held against the plain version on
+                its own inputs;
   4. main path — rnn-paper at full width (char-PTB BN-LSTM, H = 1000,
                 ternary, random weights from a seed, BN statistics, BN
                 scales and biases moved off init): rnn_lm_init ->
@@ -261,8 +265,8 @@ def ptxas_usage(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            n = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", m.group(1))
-            fn = (f"{n.group(1)}<{','.join(re.findall(r'Li(\d+)E', n.group(2)))}>"
+            n = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", m.group(1))
+            fn = (f"{n.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', n.group(2)))}>"
                   if n else m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -324,6 +328,18 @@ def sass_check(gemv_so: Path, matmul_so: Path) -> dict:
     return counts
 
 
+def launch_floor(report: dict) -> None:
+    """The device time of the smallest kernel: a one-element in-place add
+    on the current stream, as torch.profiler records it.  Any launch costs
+    at least this much of a kernel's device time."""
+    import torch
+    t = torch.zeros(1, device="cuda")
+    floor = time_call(lambda: t.add_(1.0), 200)
+    report["launch_floor"] = floor
+    print(f"launch floor: one-element add_ {floor['ms'] * 1e3:.2f} us device "
+          f"({floor['wall_ms'] * 1e3:.2f} us wall)", flush=True)
+
+
 def kernels_phase(report: dict) -> list:
     """Each kernel against its plain version at the main path's shapes."""
     import dataclasses
@@ -352,18 +368,25 @@ def kernels_phase(report: dict) -> list:
         x = torch.tanh(torch.randn(bp, K, generator=g)).to(dev)
         x[:, qt.k:] = 0.0
         got = PK.packed_gemv(x, qt.codes, mode=mode)
+        again = PK.packed_gemv(x, qt.codes, mode=mode)
         want = PK.packed_gemv_plain(x, qt.codes, mode=mode)
         err = (got - want).abs().max().item()
         if not torch.allclose(got, want, rtol=1e-5, atol=1e-4):
             fail(f"packed_gemv {mode} bp={bp}: max abs err {err}")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            fail(f"packed_gemv {mode} bp={bp}: two launches differ")
         w = qt.dequantize() / qt.alpha
         w = torch.nn.functional.pad(w, (0, 0, 0, K - qt.k))
         b_ms, b_by = packed_bound(qt, bp)
+        plan = PK.gemv_plan(bp, K, qt.codes.shape[1], mode=mode)
         rows.append(timed_row(
-            "packed_gemv", f"{mode} x({bp},{K}) codes{tuple(qt.codes.shape)}",
+            "packed_gemv", f"{mode} x({bp},{K}) codes{tuple(qt.codes.shape)} "
+            f"{plan['blocks']} blocks, cluster {plan['cluster']}",
             err, lambda: PK.packed_gemv(x, qt.codes, mode=mode),
             lambda: PK.packed_gemv_plain(x, qt.codes, mode=mode),
             lambda: torch.matmul(x, w), b_ms, b_by))
+        print(f"  packed_gemv {mode}: bp={bp} matches plain; two launches "
+              f"bit-equal", flush=True)
 
     # -- packed_matmul: prefill at batch 16, the packed eval at batch 32 -------
     for mode in ("ternary", "binary"):
@@ -891,7 +914,7 @@ def main() -> int:
         print(f"  {name}: {path.name} {secs:.1f} s; " + " | ".join(
             f"{fn} {regs} regs, {spill} B spilled" for fn, regs, spill in usage),
               flush=True)
-    for name in ("packed_matmul", "fused_tick"):
+    for name in ("packed_gemv", "packed_matmul", "fused_tick"):
         spilled = [(fn, b) for fn, _, b in report["ptxas"][name] if b]
         if spilled:
             fail(f"{name} spills registers: {spilled}")
@@ -901,6 +924,7 @@ def main() -> int:
           f"packed_matmul multiplies on bf16 HMMA {report['sass']}", flush=True)
 
     # 3. kernels against their plain versions
+    launch_floor(report)
     rows = kernels_phase(report)
 
     # 4. the serving path, then where its time goes

@@ -73,7 +73,7 @@
 //           float atomics: two launches on the same inputs give the same
 //           bits.
 //           Measured (NVIDIA H100 80GB HBM3, 700 W power limit;
-//           time_tick.py): 11.1 us of device time at B = 4 and 23.2 us at
+//           time_kernels.py): 11.1 us of device time at B = 4 and 23.2 us at
 //           B = 16 (two passes of 8 rows), against 21.0 us and 35.8 us for
 //           the first design, which staged [row][k] (a shared load per
 //           add), padded B to 8, took three barriers and ran the head on

@@ -35,7 +35,7 @@ _F = ctypes.c_float
 # argtypes of each kernel's C entry point: every pointer and the stream as
 # c_void_p, so ctypes never truncates them to 32-bit ints
 SIGNATURES = {
-    "packed_gemv": ("packed_gemv_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "packed_gemv": ("packed_gemv_launch", [_P, _P, _P] + [_I] * 8 + [_P]),
     "packed_matmul": ("packed_matmul_launch",
                       [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "fused_tick": ("fused_tick_launch", [_P] * 23 + [_I] * 9 + [_P]),
@@ -76,13 +76,16 @@ def _start(name: str):
 
 def build_all(names=KERNELS) -> dict:
     """Compile every kernel whose `.so` is missing, one `nvcc` each, all
-    started together.  Returns {name: (path, seconds, compiler log)}."""
+    started together.  Returns {name: (path, seconds, compiler log)}; a
+    library built before gives the log of its build."""
     t0 = time.perf_counter()
     jobs = {n: _start(n) for n in names}
     done = {}
     for name, job in jobs.items():
-        if job is None:
-            done[name] = (so_path(name), 0.0, "cached")
+        if job is None:  # built before: its compiler log lies beside it
+            log = so_path(name).with_suffix(".log")
+            done[name] = (so_path(name), 0.0,
+                          log.read_text() if log.exists() else "cached")
             continue
         proc, tmp, out = job
         log, _ = proc.communicate()

@@ -6,7 +6,8 @@ Three kernels, each with its plain PyTorch version beside it:
   * `packed_gemv`   — the multiply-free decode-shape GEMV (x has at most 8
                       rows): codes become plus/minus masks and each output
                       column is sum(select(plus, x)) - sum(select(minus, x)).
-                      Kernel: csrc/packed_gemv.cu.
+                      Kernel: csrc/packed_gemv.cu, launched as `gemv_plan`
+                      says.
   * `packed_matmul` — the prefill GEMM: codes decode to -1/0/+1 and meet
                       x in an exact fp32 product (on the card: bf16 tensor
                       cores, x split exactly into three bf16 terms).
@@ -32,6 +33,7 @@ from repro_torch.kernels import build, dispatch
 MODES = {"ternary": 0, "binary": 1}
 
 SMS = 132          # streaming multiprocessors of an H100 SXM
+GEMV_COLS = 32     # output columns a block of the GEMV owns (csrc kCols)
 GEMM_COLS = 128    # output columns a block of the GEMM owns (csrc BN)
 GEMM_ROWS = 16     # output rows a block of the GEMM owns: one mma tile
 MAX_CLUSTER = 8    # the portable thread block cluster size
@@ -87,6 +89,25 @@ def matmul_plan(M: int, K: int, N: int, *, mode: str) -> dict:
     return {"cluster": cluster, "blocks": tiles * cluster}
 
 
+def gemv_plan(bp: int, K: int, N: int, *, mode: str) -> dict:
+    """How `packed_gemv` launches for x (bp, K): the instance of `rows` >= bp
+    (1, 2, 4 or 8), a grid of `tiles` blocks of 32 columns times `cluster`
+    blocks splitting K, and `vec`, 16-byte code loads where N % 4 == 0 (the
+    wrapper also needs the codes 16-byte aligned).  The split doubles, up
+    to 8, while the grid is short of one block an SM and every block keeps
+    at least one code word: at N = 4000, 125 tiles become 250 blocks in
+    clusters of 2."""
+    tiles = -(-N // GEMV_COLS)
+    words = K // pack_group(mode)
+    cluster = 1
+    while (cluster < MAX_CLUSTER and tiles * cluster < SMS
+           and 2 * cluster <= words):
+        cluster *= 2
+    rows = next(r for r in (1, 2, 4, 8) if r >= bp)
+    return {"rows": rows, "cluster": cluster, "tiles": tiles,
+            "blocks": tiles * cluster, "vec": N % 4 == 0}
+
+
 def _checked(name: str, x: torch.Tensor, codes: torch.Tensor, mode: str):
     group = pack_group(mode)
     M, K = x.shape
@@ -110,9 +131,12 @@ def packed_gemv(x: torch.Tensor, codes: torch.Tensor, *,
         return packed_gemv_plain(x, codes, mode=mode)
     bp, K = x.shape
     N = codes.shape[1]
+    plan = gemv_plan(bp, K, N, mode=mode)
+    vec = plan["vec"] and codes.data_ptr() % 16 == 0
     out = torch.empty((bp, N), dtype=torch.float32, device=x.device)
     build.launch("packed_gemv", x.device, x.data_ptr(), codes.data_ptr(),
-                 out.data_ptr(), bp, K, N, MODES[mode])
+                 out.data_ptr(), bp, K, N, MODES[mode], plan["rows"],
+                 plan["cluster"], plan["tiles"], int(vec))
     dispatch.count_launch("packed_gemv")
     return out
 

@@ -9,11 +9,12 @@ installed:
 (`--noconftest` because tests/conftest.py configures JAX.)  The CPU tests
 (tests/test_torch_*.py) hold the plain versions against the JAX package;
 these hold the kernels against the plain versions at shapes the main path
-does not reach: every GEMV row count, every GEMM row tiling with and
-without a K split, ragged column counts, batches that take several row
-passes of the fused tick (4 and 8 rows a pass), three layers, heads wider
-than the main path's (vocab 7300 and 10,000), and non-finite logits.  The
-GEMM and the tick are also launched twice and must repeat bit for bit.
+does not reach: every GEMV row count, codes not 16-byte aligned, every
+GEMM row tiling with and without a K split, ragged column counts, batches
+that take several row passes of the fused tick (4 and 8 rows a pass),
+three layers, heads wider than the main path's (vocab 7300 and 10,000),
+and non-finite logits.  The GEMV, the GEMM and the tick are also launched
+twice and must repeat bit for bit.
 
 Tolerances: the packed products are exact (weights are -1/0/+1), so the
 GEMV and GEMM differ from the exact sum only by fp32 summation error, which
@@ -75,18 +76,76 @@ def _assert_summation_close(got, want, x, codes, mode):
             (out.double() - exact).abs().max().item()
 
 
-@pytest.mark.parametrize("bp", [1, 2, 3, 5, 8])
+def _unaligned(codes):
+    """A contiguous view of `codes` whose data pointer is 4 bytes past a
+    16-byte boundary: the GEMV must take its scalar code loads."""
+    flat = torch.empty(codes.numel() + 4, dtype=codes.dtype,
+                       device=codes.device)
+    view = flat[1:1 + codes.numel()].view(codes.shape)
+    view.copy_(codes)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("layout", ["own", "unaligned"])
+@pytest.mark.parametrize("bp", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("mode,group", [("ternary", 16), ("binary", 32)])
-@pytest.mark.parametrize("K,N", [(1024, 4000), (2080, 100), (32, 33)])
-def test_packed_gemv_matches_plain(card, mode, group, bp, K, N):
+@pytest.mark.parametrize("K,N", [(1024, 4000), (2080, 100), (32, 33),
+                                 (16384, 200)])
+def test_packed_gemv_matches_plain(card, mode, group, bp, K, N, layout):
+    """Every row count (instances of 1, 2, 4 and 8 rows), 16-byte code
+    loads (N % 4 == 0) and scalar ones (N = 33, or codes not 16-byte
+    aligned), K split over a cluster or not, and K long enough to take
+    several passes a block."""
     rng = np.random.default_rng(bp * N)
     x = torch.from_numpy(rng.normal(size=(bp, K)).astype(np.float32)).to(card)
     codes = _codes(rng, K // group, N).to(card)
+    if layout == "unaligned":
+        codes = _unaligned(codes)
     got = PK.packed_gemv(x, codes, mode=mode)
     want = PK.packed_gemv_plain(x, codes, mode=mode)
     torch.cuda.synchronize()
     _assert_summation_close(got, want, x, codes, mode)
     assert dispatch.LAUNCHES["packed_gemv"] == 1
+
+
+@pytest.mark.parametrize("mode,group,bp", [("ternary", 16, 4),
+                                           ("binary", 32, 8)])
+def test_packed_gemv_repeats_bit_for_bit(card, mode, group, bp):
+    """Two launches at the main path's shape give the same bits: the K
+    split sums its partials in a fixed order, with no atomics."""
+    rng = np.random.default_rng(bp)
+    K = 1024 if mode == "binary" else 1008
+    x = np.tanh(rng.normal(size=(bp, K))).astype(np.float32)
+    x[:, 1000:] = 0.0
+    x = torch.from_numpy(x).to(card)
+    codes = _codes(rng, K // group, 4000).to(card)
+    got = PK.packed_gemv(x, codes, mode=mode)
+    again = PK.packed_gemv(x, codes, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _assert_summation_close(got, PK.packed_gemv_plain(x, codes, mode=mode),
+                            x, codes, mode)
+    assert dispatch.LAUNCHES["packed_gemv"] == 2
+
+
+@pytest.mark.parametrize("M", [1, 5, 8])
+@pytest.mark.parametrize("mode", ["ternary", "binary"])
+def test_qmatmul_stacked_on_the_card_matches_the_cpu(card, mode, M):
+    """A stacked QTensor (L = 2) applies one GEMV a matrix on the card (the
+    second matrix's codes are a view into the stack) and matches the plain
+    versions on the CPU."""
+    rng = np.random.default_rng(M)
+    w = rng.uniform(-0.2, 0.2, (2, 136, 4000)).astype(np.float32)
+    x = rng.normal(size=(2, M, 136)).astype(np.float32)
+    qt = QTensor.from_master(torch.from_numpy(w), mode)
+    want = OPS.qmatmul(torch.from_numpy(x), qt)
+    got = OPS.qmatmul(torch.from_numpy(x).to(card), qt.to(card))
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["packed_gemv"] == 2
+    assert not dispatch.LAUNCHES["packed_matmul"]
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("M", [9, 16, 70, 130])

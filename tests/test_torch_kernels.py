@@ -357,6 +357,36 @@ def test_matmul_plan_fills_the_card(M, K, N, mode, cluster):
     assert plan["blocks"] == cluster * -(-N // 128) * -(-M // 16)
 
 
+@pytest.mark.parametrize("bp,K,N,mode,cluster,rows", [
+    (4, 1008, 4000, "ternary", 2, 4),   # B = 4 prefill, h-side GEMV
+    (1, 1008, 4000, "ternary", 2, 1),
+    (8, 1024, 4000, "binary", 2, 8),
+    (3, 1008, 4000, "ternary", 2, 4),
+    (4, 656, 2600, "ternary", 2, 4),    # word-PTB medium
+    (4, 1504, 6000, "ternary", 1, 4),   # word-PTB large: 188 tiles
+    (4, 2000, 8000, "ternary", 1, 4),   # char-text8: 250 tiles
+    (4, 64, 256, "ternary", 4, 4),      # 4 code words: one a block
+    (5, 32, 33, "ternary", 2, 8),       # 2 code words: split once
+    (2, 16, 4000, "ternary", 1, 2),     # 1 code word: no split
+])
+def test_gemv_plan_fills_the_card(bp, K, N, mode, cluster, rows):
+    """At the main path's shapes the GEMV's grid holds at least as many
+    blocks as an H100 has SMs (132): 32-column tiles, K split by a
+    cluster of at most 8 blocks, each keeping at least 1 code word; the
+    instance is the least of 1, 2, 4, 8 rows that holds bp; N % 4 != 0
+    takes the scalar path."""
+    plan = PK.gemv_plan(bp, K, N, mode=mode)
+    words = K // Q.pack_group(mode)
+    assert (plan["cluster"], plan["rows"]) == (cluster, rows)
+    assert 1 <= plan["cluster"] <= PK.MAX_CLUSTER
+    assert words // plan["cluster"] >= 1
+    assert plan["tiles"] == -(-N // 32)
+    assert plan["blocks"] == plan["tiles"] * plan["cluster"]
+    if words >= 8 and N >= 2600:
+        assert plan["blocks"] >= PK.SMS
+    assert plan["vec"] is (N % 4 == 0)
+
+
 @pytest.mark.parametrize("hidden", [40, 136])
 def test_fused_tick_ragged_hidden_binary_pad_codes(hidden):
     """H neither a 128-tile nor a pack-group multiple, binary (pad code

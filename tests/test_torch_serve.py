@@ -296,7 +296,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "train/train_step.py", "train/checkpoint.py",
             "train/fault_tolerance.py", "data/synth.py", "data/text.py",
             "data/loader.py", "launch/train.py", "convert.py"} <= names
-    files += [ROOT / "chip_smoke.py", ROOT / "time_tick.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "time_kernels.py"]
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
