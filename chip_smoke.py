@@ -18,8 +18,8 @@ Phases, in order; any failure exits non-zero before the last line:
                 on the card and time both (device time from torch.profiler,
                 wall time per call from CUDA events), beside the analytic
                 bound and one PyTorch library call where one computes the
-                same function: the GEMV at bp = 4 (B = 4 prefill, ternary)
-                and 8 (binary), the GEMM at M = 16 (B = 16 prefill) and 32
+                same function: the GEMV at bp = 4 (B = 4 prefill, ternary),
+                1 (the engine's prompt step, ternary) and 8 (binary), the GEMM at M = 16 (B = 16 prefill) and 32
                 (packed eval), each launched twice and held bit-equal; the
                 tick at B = 4 and 16, each held against the plain version on
                 its own inputs;
@@ -36,7 +36,32 @@ Phases, in order; any failure exits non-zero before the last line:
                 of their size;
   5. profile  — where a prefill's and a decode step's time goes at B = 4
                 and 16 (torch.profiler: device busy time, idle share);
-  6. training — rnn-paper at full width through `repro_torch.launch.train`
+  6. engine   — the continuous-batching engine at rnn-paper's full width
+                (packed ternary, off init), slots 16, prefill chunk 32:
+                64 requests of `launch.serve.synth_traffic(seed=0)`
+                (prompts U[1, 96], generation U[1, 64], temperature 0.8,
+                top-k 40) drained with the launch counters zeroed just
+                before and read just after: every stream must equal
+                `drive_session(B=1)` on its request byte for byte, the
+                fused tick must launch once a tick and the GEMV once a
+                prompt token, no chunk may stall the
+                decodes twice; then the same workload in real time at half
+                the sustained request rate (tok/s, latency and TTFT
+                percentiles, occupancy), a tick and a chunk under
+                torch.profiler; speculative decoding (an fp target, its
+                own ternary draft, spec_k 4, 16 greedy requests) whose
+                streams must equal the plain engine's greedy, and again
+                at temperature 0.8, where after every round each live
+                slot's draft row must equal the draft run alone over its
+                committed tokens, bit for bit; 16 requests
+                behind one 64-token prefix with a 64 MB prefix cache (at
+                least 15 hits, streams equal to a cache-off engine); and
+                the front door's loopback smoke (a streamed request, a
+                hangup that cancels, a prefix hit, over 127.0.0.1); and
+                two layers at H = 256, where chunked and whole prefill
+                meet different kernels: the state held to 1e-5, bit
+                equality and differing streams reported;
+  7. training — rnn-paper at full width through `repro_torch.launch.train`
                 (batch 32, seq 100, 20 steps, eval and checkpoint every 10,
                 synthetic corpus), with the launch counters zeroed just
                 before and read just after: the loss must be finite and
@@ -49,7 +74,7 @@ Phases, in order; any failure exits non-zero before the last line:
                 M = 32 each timestep), and the export must serve through
                 drive_session (fused tick, GEMV prefill); every kernel must
                 have launched.  Then one train step under torch.profiler;
-  7. result   — the kernels JSON line, the card line, and
+  8. result   — the kernels JSON line, the card line, and
                 {"ok": true, "device": {...}} last.
 
 It needs one card and no network; the build goes to `build/kernels/`.
@@ -361,8 +386,9 @@ def kernels_phase(report: dict) -> list:
         for m in ("ternary", "binary")}
     rows = []
 
-    # -- packed_gemv: prefill h-side at batch 4, and 8 rows binary -------------
-    for mode, bp in (("ternary", 4), ("binary", 8)):
+    # -- packed_gemv: prefill h-side at batch 4, the engine's one-row prompt
+    # step, and 8 rows binary ------------------------------------------------
+    for mode, bp in (("ternary", 4), ("ternary", 1), ("binary", 8)):
         qt = wh[mode]
         K = qt.codes.shape[0] * qt.group
         x = torch.tanh(torch.randn(bp, K, generator=g)).to(dev)
@@ -658,12 +684,14 @@ def profile_phase(report: dict, rt) -> None:
         prompt = torch.randint(0, cfg.vocab, (B, 32),
                                generator=torch.Generator().manual_seed(B)).cuda()
         logits, st = rt.prefill(prompt, rt.init_state(B))
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        box = [logits, st]
+        seeds = torch.arange(B, device="cuda")
+        box = [logits, st, 0]
 
         def step():
-            nxt = sample(box[0], gen, temperature=0.8, vocab=cfg.vocab)
+            nxt = sample(box[0], seeds, box[2], temperature=0.8,
+                         vocab=cfg.vocab)
             box[0], box[1] = rt.decode_step(nxt, box[1])
+            box[2] += 1
 
         step()
         for phase, fn, n in (
@@ -680,6 +708,380 @@ def profile_phase(report: dict, rt) -> None:
                   f"busy {busy:8.1f} us  idle {row['idle_share']:.3f}  top "
                   + ", ".join(f"{k} {v:.1f}" for k, v in row["top"]), flush=True)
     report["profile"] = out
+
+
+def engine_streams_equal(rt, comps, reqs) -> int:
+    """Every completion against its request alone through drive_session
+    (B = 1); fails on the first stream that differs.  Returns the number
+    of tokens compared."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.recurrent import drive_session
+    by_rid = {c.rid: c for c in comps}
+    n = 0
+    for r in reqs:
+        prompt = torch.as_tensor(np.asarray(r.prompt, np.int64))[None]
+        out, _ = drive_session(rt, prompt, rt.cfg.vocab, gen=r.max_tokens,
+                               temperature=r.temperature, top_k=r.top_k,
+                               seed=r.seed)
+        if by_rid[r.rid].tokens != out[0].tolist():
+            fail(f"engine stream of request {r.rid} differs from "
+                 f"drive_session(B=1): {by_rid[r.rid].tokens} vs "
+                 f"{out[0].tolist()}")
+        n += len(by_rid[r.rid].tokens)
+    return n
+
+
+def spec_rows_checked(eng, reqs) -> tuple:
+    """Drive a speculative engine step by step.  After every round, each
+    live slot's draft-pool row must be the state of the draft runtime run
+    alone (B = 1) over that slot's prompt (in the engine's chunks) and the
+    tokens it committed, bit for bit: a wrong rollback would only lower the
+    acceptance, and the target keeps the streams right.  Returns (streams
+    by rid, rows compared)."""
+    import numpy as np
+    import torch
+    draft, C = eng.draft, eng.prefill_chunk
+    for r in reqs:
+        eng.submit(r)
+    alone, fed, streams, compared = {}, {}, {}, 0
+    bits = lambda a, b: torch.equal(a.reshape(-1).view(torch.int32),
+                                    b.reshape(-1).view(torch.int32))
+    while eng.has_work():
+        events, _ = eng.step()
+        for rid, toks in events:
+            streams.setdefault(rid, []).extend(toks)
+        for slot in np.flatnonzero(eng._live_host):
+            act = eng._active[slot]
+            if act.rid not in alone:
+                st = draft.init_state(1, per_slot=True)
+                prompt = torch.as_tensor(act.prompt.astype(np.int64),
+                                         device=eng.device)[None]
+                for lo in range(0, prompt.shape[1], C):
+                    _, st = draft.prefill_chunk(prompt[:, lo:lo + C], st)
+                alone[act.rid], fed[act.rid] = st, 0
+            st = alone[act.rid]
+            for tok in act.tokens[fed[act.rid]:-1]:  # the last is pending
+                _, st = draft.decode_step(
+                    torch.tensor([tok], device=eng.device), st)
+            alone[act.rid], fed[act.rid] = st, len(act.tokens) - 1
+            row = eng.draft_pool
+            if not (bits(st.h, row.h[:, slot]) and bits(st.c, row.c[:, slot])
+                    and bits(st.pos, row.pos[slot])):
+                fail(f"spec: slot {slot}'s draft row after {fed[act.rid]} "
+                     f"committed tokens of request {act.rid} is not the "
+                     f"draft's state run alone")
+            compared += 1
+    return streams, compared
+
+
+def tick_row_bits(rt) -> None:
+    """One row's h, c, logits and greedy id from the fused tick at B = 1,
+    4, 12 and 16 (one pass of 4, three of 4, two of 8), beside other rows
+    and live patterns: the same bits, or the engine's streams would
+    depend on the batch."""
+    import torch
+    from repro_torch.kernels import decode_step as DK
+    from repro_torch.kernels import ops as OPS
+    cfg, tick = rt.cfg, rt.tables[0]["tick"]
+    g = torch.Generator().manual_seed(4)
+    L, H, V = cfg.n_layers, cfg.d_hidden, cfg.vocab
+    h0 = torch.tanh(torch.randn(L, H, generator=g)).cuda()
+    c0 = torch.randn(L, H, generator=g).cuda()
+    ref = None
+    for B in (1, 4, 12, 16):
+        at = B // 2
+        h = torch.tanh(torch.randn(L, B, H, generator=g)).cuda()
+        c = torch.randn(L, B, H, generator=g).cuda()
+        h[:, at], c[:, at] = h0, c0
+        tok = torch.randint(0, V, (B,), generator=g).cuda()
+        tok[at] = 7
+        live = (torch.rand(B, generator=g) > 0.4).cuda()
+        live[at] = True
+        hn, cn, lg, gr = DK.fused_tick(*OPS.tick_operands(tok, h, c, tick,
+                                                         live),
+                                       cell=cfg.cell, mode=cfg.quant.mode)
+        row = [hn[:, at, :H], cn[:, at, :H], lg[at, :V], gr[at:at + 1]]
+        if ref is None:
+            ref = [t.clone() for t in row]
+        elif not all(torch.equal(a.reshape(-1).view(torch.int32),
+                                 b.reshape(-1).view(torch.int32))
+                     for a, b in zip(row, ref)):
+            fail(f"fused_tick: a row's bits at B={B} differ from B=1")
+    print("  fused_tick: a row's h, c, logits and greedy id are the same "
+          "bits at B = 1, 4, 12, 16", flush=True)
+
+
+def two_layer_parity() -> dict:
+    """Two layers at H = 256 (ternary, off init): layer 1's x-side
+    projection takes a whole chunk in the engine and the whole prompt in
+    drive_session, so past 8 tokens the GEMV meets the GEMM (or two GEMM
+    plans meet).  For prompts of 5 to 40 tokens in chunks of 8 and 32: is
+    the chunked state bit-equal to the whole prompt's, and how far apart
+    (it must stay within 1e-5)?  And an engine at 16 slots over 24 mixed
+    requests: how many streams differ from drive_session(B=1)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_rnn_config
+    from repro_torch.core import bnlstm as BL
+    from repro_torch.launch.serve import synth_traffic
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.recurrent import RNNRuntime, drive_session
+    cfg = dataclasses.replace(get_rnn_config("rnn-paper"), d_hidden=256,
+                              n_layers=2)
+    gen = torch.Generator().manual_seed(1)
+    var = off_init(BL.rnn_lm_init(gen, cfg, device="cuda"), gen)
+    rt = RNNRuntime(cfg, {"params": BL.export_packed_rnn(var["params"], cfg),
+                          "state": var["state"]}, device="cuda")
+    out = {"prefill": {}, "streams_differ": {}}
+    bits = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for S in (5, 8, 12, 20, 33, 40):
+        toks = torch.randint(0, cfg.vocab, (1, S), generator=gen).cuda()
+        _, whole = rt.prefill(toks, rt.init_state(1, per_slot=True))
+        for chunk in (8, 32):
+            st = rt.init_state(1, per_slot=True)
+            for lo in range(0, S, chunk):
+                _, st = rt.prefill_chunk(toks[:, lo:lo + chunk], st)
+            err = max((st.h - whole.h).abs().max().item(),
+                      (st.c - whole.c).abs().max().item())
+            if err > 1e-5:
+                fail(f"L=2 prompt {S} in chunks of {chunk}: state {err} from "
+                     f"the whole prompt's")
+            out["prefill"][f"S={S} chunk={chunk}"] = {
+                "bits_equal": bits(st.h, whole.h) and bits(st.c, whole.c),
+                "max_abs": err}
+    reqs = synth_traffic(cfg.vocab, requests=24, rate=100.0, prompt_len=40,
+                         gen=16, temperature=0.8, top_k=5, seed=1)
+    for chunk in (8, 32):
+        eng = ServeEngine(rt, cfg.vocab, slots=16, max_context=56,
+                          prefill_chunk=chunk)
+        comps, _ = eng.run([dataclasses.replace(r) for r in reqs],
+                           realtime=False)
+        by_rid = {c.rid: c.tokens for c in comps}
+        out["streams_differ"][f"chunk={chunk}"] = sum(
+            by_rid[r.rid] != drive_session(
+                rt, torch.as_tensor(np.asarray(r.prompt, np.int64))[None],
+                cfg.vocab, gen=r.max_tokens, temperature=r.temperature,
+                top_k=r.top_k, seed=r.seed)[0][0].tolist() for r in reqs)
+    unequal = [k for k, v in out["prefill"].items() if not v["bits_equal"]]
+    print(f"  L=2, H=256: chunked prefill bit-equal to whole except "
+          f"{unequal} (max abs "
+          f"{max(v['max_abs'] for v in out['prefill'].values()):.2e}, limit "
+          f"1e-5); engine streams differing from drive_session(B=1): "
+          f"{out['streams_differ']} of 24", flush=True)
+    return out
+
+
+def engine_profile(eng) -> dict:
+    """Where an engine iteration's time goes at 15 live slots of 16: a step
+    that only ticks, and one prefill chunk of 32 steps into the free slot,
+    each timed on the host clock (the engine reads the sampled ids back
+    every tick, so a step ends synchronized) and under torch.profiler
+    (device busy, idle share)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(5)
+    for i in range(15):
+        eng.submit(Request(prompt=rng.integers(0, eng.vocab, size=8),
+                           max_tokens=120, temperature=0.8, top_k=40,
+                           seed=900 + i))
+    while eng._prefill_q or eng._heap:
+        eng.step()
+    chunk = rng.integers(0, eng.vocab, size=32).astype(np.int64)
+    free = eng._free_slot()
+    out = {}
+    for name, fn, n in (("tick step", eng.step, 20),
+                        ("prefill chunk (32 steps)",
+                         lambda: eng._run_chunk(chunk, free), 5)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / n
+        by_name, wall = device_profile(fn, n)
+        busy = sum(by_name.values()) / n
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        row = {"host_us": host * 1e6, "profiled_wall_us": wall / n * 1e6,
+               "device_busy_us": busy,
+               "idle_share": 1.0 - busy / (wall / n * 1e6),
+               "top": [(k[:48], v / n) for k, v in top]}
+        out[name] = row
+        print(f"    {name:24s}: host {row['host_us']:8.1f} us (profiled "
+              f"{row['profiled_wall_us']:8.1f})  device busy {busy:7.1f} us  "
+              f"idle {row['idle_share']:.3f}  top "
+              + ", ".join(f"{k} {v:.1f}" for k, v in row["top"]), flush=True)
+    eng._scrub([free])
+    for act in list(eng._active):
+        if act is not None:
+            eng.cancel(act.rid)
+    return out
+
+
+def engine_phase(report: dict) -> dict:
+    """The continuous-batching engine at rnn-paper's full width: plain
+    (byte parity with drive_session, one fused tick a tick, one GEMV a
+    prompt step), realtime at half the sustained rate, speculative (fp
+    target, ternary draft), the prefix cache, and the front door's smoke.
+    Returns the plain run's launch counts."""
+    import asyncio
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_rnn_config
+    from repro_torch.core import bnlstm as BL
+    from repro_torch.core.quantize import QuantSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import synth_traffic
+    from repro_torch.serve import frontdoor
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.prefixcache import PrefixCache
+    from repro_torch.serve.recurrent import RNNRuntime, speculative_draft
+
+    cfg = get_rnn_config("rnn-paper")
+    gen = torch.Generator().manual_seed(0)
+    var = off_init(BL.rnn_lm_init(gen, cfg, device="cuda"), gen)
+    rt = RNNRuntime(cfg, {"params": BL.export_packed_rnn(var["params"], cfg),
+                          "state": var["state"]}, device="cuda")
+    P, G, N = 96, 64, 64
+    traffic = lambda rate: synth_traffic(
+        cfg.vocab, requests=N, rate=rate, prompt_len=P, gen=G,
+        temperature=0.8, top_k=40, seed=0)
+    reqs = traffic(1000.0)
+    eng = ServeEngine(rt, cfg.vocab, slots=16, max_context=P + G,
+                      prefill_chunk=32)
+    eng.warm()
+    tick_row_bits(rt)
+    out = {}
+
+    # -- plain, as fast as it drains: the counted run --------------------
+    steps0, ticks0 = eng.prefill_steps, eng.ticks
+    dispatch.reset_counts()      # ---- the counted engine run starts here
+    comps, m = eng.run([dataclasses.replace(r) for r in reqs],
+                       realtime=False)
+    launches = dict(dispatch.LAUNCHES)
+    plain = dict(dispatch.PLAIN_CALLS)
+    # ---- the counted engine run ends here
+    steps = eng.prefill_steps - steps0
+    if plain:
+        fail(f"plain versions ran in the engine: {plain}")
+    want = {"fused_tick": eng.ticks - ticks0, "packed_gemv": steps}
+    if launches != want:
+        fail(f"engine launches {launches}, want {want} (one fused tick a "
+             f"tick, one GEMV a prompt step, pad steps included)")
+    if m["max_decode_stall_ticks"] > 1 or m["tick_launches"] != 1:
+        fail(f"engine: max decode stall {m['max_decode_stall_ticks']}, "
+             f"tick launches {m['tick_launches']}")
+    n_tok = engine_streams_equal(rt, comps, reqs)
+    sustained = N / m["wall_s"]
+    out["drain"] = dict(m, launches=launches, prefill_steps=steps,
+                        sustained_req_s=sustained)
+    print(f"  plain engine, slots 16, chunk 32, {N} requests (prompts "
+          f"U[1,{P}], gen U[1,{G}], T 0.8, top-k 40), drained: "
+          f"{m['agg_tok_s']:.0f} tok/s, {sustained:.1f} req/s, {m['ticks']} "
+          f"ticks, occupancy {m['occupancy']:.2f}, launches {launches}; "
+          f"all {n_tok} tokens == drive_session(B=1)", flush=True)
+
+    # -- realtime at half the sustained rate ------------------------------
+    rreqs = traffic(0.5 * sustained)
+    rcomps, rm = eng.run([dataclasses.replace(r) for r in rreqs],
+                         realtime=True)
+    if len(rcomps) != N:
+        fail(f"realtime run completed {len(rcomps)} of {N}")
+    out["realtime"] = dict(rm, offered_req_s=0.5 * sustained)
+    print(f"  realtime at {0.5 * sustained:.1f} req/s: {rm['agg_tok_s']:.0f} "
+          f"tok/s, latency p50 {rm['p50_latency_s'] * 1e3:.1f} p95 "
+          f"{rm['p95_latency_s'] * 1e3:.1f} ms, TTFT p50 "
+          f"{rm['ttft_p50_s'] * 1e3:.1f} p95 {rm['ttft_p95_s'] * 1e3:.1f} ms, "
+          f"occupancy {rm['occupancy']:.2f}, max stall "
+          f"{rm['max_decode_stall_ticks']}", flush=True)
+    out["profile"] = engine_profile(eng)
+
+    # -- speculative: fp target, its ternary draft, greedy ----------------
+    fcfg = dataclasses.replace(cfg, quant=QuantSpec(mode="none"))
+    target = RNNRuntime(fcfg, {"params": var["params"],
+                               "state": var["state"]}, device="cuda")
+    draft = speculative_draft(target, mode="ternary")
+    greedy = [dataclasses.replace(r, temperature=0.0, top_k=0)
+              for r in reqs[:16]]
+    plain_eng = ServeEngine(target, cfg.vocab, slots=16, max_context=P + G,
+                            prefill_chunk=32)
+    spec_eng = ServeEngine(target, cfg.vocab, slots=16, max_context=P + G,
+                           prefill_chunk=32, draft=draft, spec_k=4)
+    plain_eng.warm()
+    spec_eng.warm()
+    pc, pm = plain_eng.run([dataclasses.replace(r) for r in greedy],
+                           realtime=False)
+    dispatch.reset_counts()
+    sc, sm = spec_eng.run([dataclasses.replace(r) for r in greedy],
+                          realtime=False)
+    spec_launches = dict(dispatch.LAUNCHES)
+    pby = {c.rid: c.tokens for c in pc}
+    for c in sc:
+        if c.tokens != pby[c.rid]:
+            fail(f"spec stream {c.rid} differs from the plain engine's "
+                 f"greedy: {c.tokens} vs {pby[c.rid]}")
+    if spec_launches.get("fused_tick") != 5 * sm["spec_rounds"]:
+        fail(f"spec launches {spec_launches}, rounds {sm['spec_rounds']}")
+    out["spec"] = dict(sm, launches=spec_launches, plain_greedy=pm)
+    print(f"  speculative k=4, fp target + ternary draft, 16 greedy "
+          f"requests: streams == plain engine's greedy; accept rate "
+          f"{sm['accept_rate']:.3f}, {sm['agg_tok_s']:.0f} tok/s emitted "
+          f"(plain fp engine {pm['agg_tok_s']:.0f}), launches {spec_launches}",
+          flush=True)
+    # the rollback, sampled (temperature 0.8, top-k 40), so that rounds
+    # reject part way along the drafted span, not only at its first or
+    # past its last proposal
+    roll_eng = ServeEngine(target, cfg.vocab, slots=16, max_context=P + G,
+                           prefill_chunk=32, draft=draft, spec_k=4)
+    _, compared = spec_rows_checked(
+        roll_eng, [dataclasses.replace(r) for r in reqs[:16]])
+    rs = roll_eng.stats()
+    rejected = rs["drafted_tokens"] - rs["accepted_drafts"]
+    if not 0 < rejected < rs["drafted_tokens"]:
+        fail(f"spec rollback check: {rejected} of {rs['drafted_tokens']} "
+             f"drafts rejected; it needs rounds that reject part way")
+    out["spec_rollback"] = dict(rs, rows_compared=compared)
+    print(f"  speculative k=4, ternary draft, T 0.8: {rejected} of "
+          f"{rs['drafted_tokens']} drafts rejected; {compared} draft rows "
+          f"after a round == the draft run alone, bit for bit", flush=True)
+
+    # -- the prefix cache: 16 requests behind one 64-token prefix ---------
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, cfg.vocab, size=64)
+    shared = [Request(prompt=np.concatenate(
+        [system, rng.integers(0, cfg.vocab, size=int(rng.integers(1, 17)))]),
+        max_tokens=16, temperature=0.8, top_k=40, seed=700 + i, rid=i)
+        for i in range(16)]
+    cached = ServeEngine(rt, cfg.vocab, slots=16, max_context=P + G,
+                         prefill_chunk=32, prefix_cache=PrefixCache(64 << 20))
+    cold = ServeEngine(rt, cfg.vocab, slots=16, max_context=P + G,
+                       prefill_chunk=32)
+    hc = cached.run([shared[0]], realtime=False)[0]
+    hc += cached.run(shared[1:], realtime=False)[0]
+    cc, _ = cold.run(shared, realtime=False)
+    st = cached.prefix_cache.stats()
+    cby = {c.rid: c.tokens for c in cc}
+    if st["hits"] < 15 or any(c.tokens != cby[c.rid] for c in hc):
+        fail(f"prefix cache: {st}; streams equal "
+             f"{[c.tokens == cby[c.rid] for c in hc]}")
+    out["prefix_cache"] = dict(st, cached_tokens=sum(c.cached_tokens
+                                                     for c in hc))
+    print(f"  prefix cache 64 MB: {st['hits']} hits of 16 requests, "
+          f"{out['prefix_cache']['cached_tokens']} prompt tokens spliced, "
+          f"streams == cache-off engine", flush=True)
+
+    # -- the front door's loopback smoke ----------------------------------
+    if asyncio.run(frontdoor._smoke(0, "cuda")) != 0:
+        fail("front-door smoke")
+    out["two_layers"] = two_layer_parity()
+    report["engine"] = out
+    return launches
 
 
 TRAIN_ARGS = ["--arch", "rnn-paper", "--batch", "32", "--seq", "100",
@@ -931,11 +1333,18 @@ def main() -> int:
     launches, rt = main_path_phase(report)
     profile_phase(report, rt)
 
-    # 6. the training path
+    # 6. the continuous-batching engine
+    print("engine:", flush=True)
+    t0 = time.perf_counter()
+    engine_launches = engine_phase(report)
+    report["engine_s"] = time.perf_counter() - t0
+    print(f"  engine phase: {report['engine_s']:.1f} s", flush=True)
+
+    # 7. the training path
     print("training:", flush=True)
     launches["quantize_pack"] = training_phase(report)["quantize_pack"]
 
-    # 7. result
+    # 8. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
@@ -949,6 +1358,7 @@ def main() -> int:
         r = next(r for r in rows if r["name"] == name)  # the main path's shape
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
+                        "engine_launches": engine_launches.get(name, 0),
                         "max_abs_err": max(x["max_abs_err"] for x in rows
                                            if x["name"] == name),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -23,8 +23,13 @@ statistics into those affines once per session, and, for a packed tree,
 stacks the whole-tick artifact that `rnn_decode_step` feeds one launch of
 the fused kernel per tick.
 
-The engine's chunked prefill / verify / speculative commit are not ported
-yet.
+The continuous-batching engine's half: a per-slot state (`pos` (B,)), row
+surgery on it (`rnn_gather_slot`, `rnn_write_slots`, `rnn_reset_slots`,
+in place where JAX returns a new array), `rnn_prefill_chunk`, the
+speculative `rnn_verify` and `rnn_spec_commit`.  Every serving matmul goes
+through `OPS.serve_matmul`, which keeps a row's bits independent of how
+many rows share the call on the CPU, so a request's stream does not depend
+on its batch or on how its prompt was chunked.
 """
 from __future__ import annotations
 
@@ -286,17 +291,57 @@ class RNNState(NamedTuple):
 
     h: torch.Tensor    # (n_layers, B, H)
     c: torch.Tensor    # (n_layers, B, H)
-    pos: torch.Tensor  # () int32 tokens consumed
+    pos: torch.Tensor  # () int32 tokens consumed; (B,) in a per-slot pool
 
 
 def rnn_state_init(cfg: RNNConfig, batch: int, dtype=None, *,
+                   per_slot: bool = False,
                    device: Optional[str | torch.device] = None) -> RNNState:
+    """A zero state.  `per_slot` gives each row its own token counter (B,):
+    the engine's pool, where slots sit at different depths.  `pos` is
+    bookkeeping (the recurrence is position-free), so both layouts run the
+    same compute."""
     device = dispatch.resolve_device(device)
     dtype = dtype or cfg.dtype
     z = torch.zeros((cfg.n_layers, batch, cfg.d_hidden), dtype=dtype,
                     device=device)
-    pos = torch.zeros((), dtype=torch.int32, device=device)
+    pos = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
+                      device=device)
     return RNNState(h=z, c=z.clone(), pos=pos)
+
+
+def rnn_gather_slot(state: RNNState, slot: int) -> RNNState:
+    """Row `slot` of a per-slot pool as a batch-1 state (views of the pool:
+    clone before keeping it past the next write)."""
+    return RNNState(h=state.h[:, slot:slot + 1], c=state.c[:, slot:slot + 1],
+                    pos=state.pos[slot:slot + 1])
+
+
+def rnn_write_slots(state: RNNState, sub: RNNState, slots) -> RNNState:
+    """Write a k-row state into rows `slots` (an int or k ints) of a
+    per-slot pool, in place, and return the pool.  Admission is two (L, H)
+    row copies a slot: the O(1) recurrent state moves no cache bytes.
+    `sub.pos` may be scalar (a request prefilled alone) or (k,).  Each row
+    is a device-to-device copy: no index goes to the card."""
+    slots = [int(s) for s in torch.as_tensor(slots).reshape(-1).tolist()]
+    pos = sub.pos.reshape(-1).expand(len(slots))
+    for j, s in enumerate(slots):
+        state.h[:, s].copy_(sub.h[:, j])
+        state.c[:, s].copy_(sub.c[:, j])
+        state.pos[s].copy_(pos[j])
+    return state
+
+
+def rnn_reset_slots(state: RNNState, slots) -> RNNState:
+    """Zero h, c and pos of rows `slots` (ints) of a per-slot pool, in
+    place: a freed slot reads like a fresh one, since the next occupant's
+    chunked prefill resumes from the row.  One fill per slot and leaf, with
+    the slot as a kernel argument: no host-to-device copy."""
+    for s in slots:
+        state.h[:, s].zero_()
+        state.c[:, s].zero_()
+        state.pos[s].zero_()
+    return state
 
 
 def _bn_affine(p: BNParams, s: BNState, eps: float):
@@ -399,7 +444,7 @@ def _tick_tables(params: dict, tables: list, cfg: RNNConfig) -> dict:
 
 def _serve_lstm_step(t: dict, ax, h, c):
     """ax (B, 4H) BN'd input-side preact (no bias).  Returns (h', c')."""
-    ah = OPS.qmatmul(h, t["qh"]) * t["scale_h"] + t["shift_h"]
+    ah = OPS.serve_matmul(h, t["qh"]) * t["scale_h"] + t["shift_h"]
     f, i, o, g = torch.chunk(ax + ah + t["b"], 4, dim=-1)
     c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     cn = c * t["scale_c"] + t["shift_c"]
@@ -408,7 +453,7 @@ def _serve_lstm_step(t: dict, ax, h, c):
 
 def _serve_gru_step(t: dict, ax, h):
     """ax (B, 3H) BN'd input-side preact (no bias).  Returns h'."""
-    ah = OPS.qmatmul(h, t["qh"]) * t["scale_h"] + t["shift_h"]
+    ah = OPS.serve_matmul(h, t["qh"]) * t["scale_h"] + t["shift_h"]
     axb = ax + t["b"]
     H = h.shape[-1]
     r = torch.sigmoid(axb[..., :H] + ah[..., :H])
@@ -422,7 +467,7 @@ def _serve_x_preact(t: dict, l: int, x, dtype):
     ids in, no matmul); deeper layers project the layer below."""
     if l == 0:
         return t["rows_bn"][x].to(dtype)
-    return OPS.qmatmul(x, t["qx"]) * t["scale_x"] + t["shift_x"]
+    return OPS.serve_matmul(x, t["qx"]) * t["scale_x"] + t["shift_x"]
 
 
 def _serve_scan_layer(t: dict, ax_seq, h0, c0, cell: str):
@@ -464,7 +509,7 @@ def rnn_logits_last(variables: dict, state: RNNState, cfg: RNNConfig):
     through the (B, 1, H) head shape both prefill flavours share."""
     head = variables["params"]["head"]
     x = state.h[-1].to(cfg.dtype)[:, None]
-    return (OPS.qmatmul(x, head["ws"]) + head["bs"])[:, 0]
+    return (OPS.serve_matmul(x, head["ws"]) + head["bs"])[:, 0]
 
 
 def rnn_prefill(variables: dict, tokens, cfg: RNNConfig,
@@ -478,7 +523,23 @@ def rnn_prefill(variables: dict, tokens, cfg: RNNConfig,
         tables = rnn_decode_tables(variables, cfg)
     x_seq, new_state = _prefill_state(variables, tokens, cfg, state, tables)
     head = variables["params"]["head"]
-    return OPS.qmatmul(x_seq, head["ws"]) + head["bs"], new_state
+    return OPS.serve_matmul(x_seq, head["ws"]) + head["bs"], new_state
+
+
+def rnn_prefill_chunk(variables: dict, tokens, cfg: RNNConfig,
+                      state: RNNState, *, tables: Optional[list] = None):
+    """One prompt chunk, resumed from `state`: tokens (B, T) int, every one
+    real.  The layers run `rnn_prefill`'s scan, so a prompt fed in chunks
+    reaches the state of the whole prompt fed at once, and the first-token
+    logits come through `rnn_logits_last`, the (B, 1, H) head both
+    prefills sample from.  JAX pads a chunk to a bucket length and picks
+    the state at the last real step, so that a jit traces once per
+    bucket; PyTorch traces nothing, and a pad step would be a real
+    recurrent step, so the port runs each chunk at its own length."""
+    if tables is None:
+        tables = rnn_decode_tables(variables, cfg)
+    _, new_state = _prefill_state(variables, tokens, cfg, state, tables)
+    return rnn_logits_last(variables, new_state, cfg), new_state
 
 
 def rnn_decode_step(variables: dict, tok, cfg: RNNConfig, state: RNNState, *,
@@ -527,6 +588,52 @@ def rnn_decode_step(variables: dict, tok, cfg: RNNConfig, state: RNNState, *,
         hT.append(hn)
         cT.append(cn)
         x = hn
-    logits = OPS.qmatmul(x, params["head"]["ws"]) + params["head"]["bs"]
+    logits = OPS.serve_matmul(x, params["head"]["ws"]) + params["head"]["bs"]
     return logits, RNNState(h=torch.stack(hT), c=torch.stack(cT),
                             pos=state.pos + step)
+
+
+def rnn_verify(variables: dict, tokens, cfg: RNNConfig, state: RNNState, *,
+               tables: Optional[list] = None,
+               live: Optional[torch.Tensor] = None):
+    """The speculative target's verify: T tokens through `rnn_decode_step`
+    itself, one step after another.  tokens (B, T) int.  Returns (logits
+    (B, T, vocab), end state, (hs, cs)), hs/cs the state after each step
+    stacked over time, (T, L, B, H): what `rnn_spec_commit` selects from.
+    Position i's logits and state are those of i+1 decode steps, bit for
+    bit, so a verified greedy stream is the plain greedy stream.  `live`
+    freezes dead rows as in a tick."""
+    if tables is None:
+        tables = rnn_decode_tables(variables, cfg)
+    lgs, hs, cs = [], [], []
+    for i in range(tokens.shape[1]):
+        lg, state = rnn_decode_step(variables, tokens[:, i], cfg, state,
+                                    tables=tables, live=live)
+        lgs.append(lg)
+        hs.append(state.h)
+        cs.append(state.c)
+    return (torch.stack(lgs, dim=1), state,
+            (torch.stack(hs), torch.stack(cs)))
+
+
+def rnn_spec_commit(state0: RNNState, emits, n: torch.Tensor) -> RNNState:
+    """Roll a drafted or verified span back to `n` committed tokens a slot.
+
+    emits: (hs, cs), the per-step states of `rnn_verify` (or of the
+    engine's draft loop), (T, L, B, H); n (B,) int in [0, T].  Row b gets
+    the state after its first n[b] tokens; n = 0 keeps `state0`'s row bit
+    for bit (reject everything; also a dead slot).  The O(1) state makes
+    rollback a select, not a rewind."""
+    hs, cs = emits
+    T, L, B, H = hs.shape
+    n = n.to(torch.long)
+    idx = (n - 1).clamp_min(0)
+    rows = torch.arange(B, device=hs.device)
+    keep = (n > 0)[None, :, None]
+
+    def pick(stack, base):
+        sel = stack.permute(2, 0, 1, 3)[rows, idx]       # (B, L, H)
+        return torch.where(keep, sel.transpose(0, 1), base)
+
+    return RNNState(h=pick(hs, state0.h), c=pick(cs, state0.c),
+                    pos=state0.pos + n.to(state0.pos.dtype))

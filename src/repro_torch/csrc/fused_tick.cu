@@ -358,20 +358,21 @@ __device__ __forceinline__ void stage_pass(const TickParams& p, int l, int s,
 
 // The early head's second half, after the barrier: a unit is one row's 8
 // head columns [8 vb, 8 vb + 8), and its logits are the sums of the
-// slices' partials, read as nsl*8 contiguous floats.  A block takes
-// per_block units at once where it can, in groups of 8*subs threads: 8
-// columns times subs strided slice subsets, summed by a fixed shuffle tree
-// (and across warps in warp order), plus the bias.  The unit's best column
-// is its argmax partial.
+// slices' partials, read as nsl*8 contiguous floats.  A block takes its
+// per_block units one after another, each with all its threads: 8 columns
+// times 32 strided slice subsets, summed by a fixed shuffle tree and across
+// warps in warp order, plus the bias.  The tree is the same whatever bp
+// and the grid are, so a row's logits do not depend on the batch beside it
+// (the engine ticks all its slots at once, a lone request pads to 4 rows).
+// The unit's best column is its argmax partial.
 __device__ __forceinline__ void sum_head_partials(const TickParams& p,
                                                   float* red) {
   const int bp = p.bp, vp = p.vp, nsl = p.hp / kCols;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int vbn = vp / 8, units = bp * vbn;
   const int per_block = (units + gridDim.x - 1) / gridDim.x;
-  int subs = 32;
-  while (subs > 1 && per_block * 8 * subs > kThreads) subs >>= 1;
-  const int gsz = 8 * subs, gpr = kThreads / gsz;
+  constexpr int subs = kThreads / 8;
+  constexpr int gsz = 8 * subs, gpr = kThreads / gsz;
   const int grp = t / gsz, r = t % gsz, vi = r & 7, sub = r >> 3;
   const int ub = min(units, (int)blockIdx.x * per_block);
   const int ue = min(units, ub + per_block);

@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.core.quantize import pack_group
 from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.packed_matmul import MODES, packed_gemv_plain
+from repro_torch.kernels.packed_matmul import (MODES, packed_gemv_plain,
+                                                rowwise_matmul)
 
 BN_TILE = 128  # column tile each gate's width is padded to
 SLICE_COLS = 8  # columns a block of the CUDA kernel owns (csrc kCols)
@@ -99,7 +100,7 @@ def fused_tick_plain(ax0, h, c, live, codes_h, codes_x, scale_h, shift_h,
             ax = torch.stack(
                 [packed_gemv_plain(h_new, codes_x[l, i], mode=mode)
                  * scale_x[l, i] + shift_x[l, i] for i in range(g)], dim=1)
-    lg = h_new @ ws + bs
+    lg = rowwise_matmul(h_new, ws) + bs  # a row's logits: its own bits
     return torch.stack(h_out), torch.stack(c_out), lg, greedy_argmax(lg)
 
 

@@ -1,6 +1,7 @@
 """Public wrappers around the kernels, ported from `repro/kernels/ops.py`:
 padding, alpha scaling, the GEMV/GEMM routing, `quantize_pack`, and
-`qmatmul` — the one matmul entry for fp and packed weights — plus the
+`qmatmul` — the one matmul entry for fp and packed weights — and its
+serving form `serve_matmul`, plus the
 fused decode tick's gate-aligned code layout and public entry."""
 from __future__ import annotations
 
@@ -75,6 +76,19 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     if w.scale is not None:
         y = y * w.scale
     return y.to(x.dtype)
+
+
+def serve_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """`qmatmul` for the serving path, with each row's bits independent of
+    the number of rows in the call on the CPU: there a packed `w` runs the
+    kernels' plain versions and an fp `w` `PK.rowwise_matmul`, as they do,
+    so a request served alone and in a batch, or its prompt whole and in
+    chunks, reach the same bits.  On the card an fp `w` is one cuBLAS call,
+    whose rounding may depend on the row count."""
+    if isinstance(w, QTensor) or x.device.type != "cpu":
+        return qmatmul(x, w)
+    rows = PK.rowwise_matmul(x.reshape(-1, x.shape[-1]), w)
+    return rows.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

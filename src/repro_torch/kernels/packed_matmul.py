@@ -10,7 +10,8 @@ Three kernels, each with its plain PyTorch version beside it:
                       says.
   * `packed_matmul` — the prefill GEMM: codes decode to -1/0/+1 and meet
                       x in an exact fp32 product (on the card: bf16 tensor
-                      cores, x split exactly into three bf16 terms).
+                      cores, x split exactly into three bf16 terms; the
+                      plain version sums row by row, as the GEMV's does).
                       Kernel: csrc/packed_matmul.cu, launched as
                       `matmul_plan` says.
   * `quantize_pack` — paper Eqs. 4-6 stochastic sampling from an explicit
@@ -51,27 +52,38 @@ def code_masks(packed: torch.Tensor, *, mode: str):
     return plus, ~plus
 
 
+def rowwise_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (K, N), each row computed as the first row of a two-row
+    product, so its bits come from one call shape whatever M is: on the
+    CPU a product of one row goes to MKL's sgemv and one of several to
+    sgemm, which sum in other orders, and a row's bits would depend on its
+    neighbours.  The one place the port keeps a row's bits its own; the
+    CPU engine tests hold it (a request served alone and among others)."""
+    pair = torch.zeros((2, x.shape[1]), dtype=x.dtype, device=x.device)
+    out = []
+    for i in range(x.shape[0]):
+        pair[0] = x[i]
+        out.append((pair @ w)[:1])
+    return torch.cat(out)
+
+
 def packed_gemv_plain(x: torch.Tensor, codes: torch.Tensor, *,
                       mode: str) -> torch.Tensor:
-    """Plain version of `packed_gemv`: select and sum, no weight multiply."""
-    x = x.float()
+    """Plain version of `packed_gemv`: x against the decoded -1/0/+1 weight
+    (every product exact), row by row (`rowwise_matmul`).  A summation in
+    an order of its own (a tree over k) would be closer to the exact sum,
+    but leaves the Pallas kernel's, which sums as the library's dot does,
+    by more than the parity tests' 1e-5 at K = 512."""
     plus, minus = code_masks(codes, mode=mode)
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    rows = [(torch.where(plus, xb[:, None], zero)
-             - torch.where(minus, xb[:, None], zero)).sum(dim=0) for xb in x]
-    return torch.stack(rows)
+    return rowwise_matmul(x.float(), plus.float() - minus.float())
 
 
 def packed_matmul_plain(x: torch.Tensor, codes: torch.Tensor, *,
                         mode: str) -> torch.Tensor:
-    """Plain version of `packed_matmul`: decode to -1/0/+1 fp32, then an
-    fp32 matmul."""
-    c = decode_codes(codes, mode)
-    if mode == "ternary":
-        w = (c == 1).float() - (c == 3).float()
-    else:
-        w = c.float() * 2.0 - 1.0
-    return x.float() @ w
+    """Plain version of `packed_matmul`: `packed_gemv_plain` at any number
+    of rows, so a row's bits depend neither on its neighbours nor on the
+    GEMV/GEMM routing, and a prompt's state not on how it was chunked."""
+    return packed_gemv_plain(x, codes, mode=mode)
 
 
 def matmul_plan(M: int, K: int, N: int, *, mode: str) -> dict:

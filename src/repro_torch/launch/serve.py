@@ -1,28 +1,63 @@
-"""Serving launcher for the paper's BN-LSTM: prefill a prompt batch, decode
-with sampling, in lockstep.  Ported from the `--arch rnn-paper` path of
-`repro/launch/serve.py`.
+"""Serving launcher for the paper's BN-LSTM, ported from the `--arch
+rnn-paper` path of `repro/launch/serve.py`.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rnn-paper --full
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --traffic \\
+      --requests 8 --slots 3 [--spec-k 4]
+  PYTHONPATH=src python -m repro_torch.launch.serve --listen --port 8700
 
-With --quant binary|ternary the master tree is exported once into packed
-QTensors and every decode tick is one launch of the fused CUDA kernel;
-prefill streams the packed codes through the GEMV (batch <= 8) or GEMM
-kernel per timestep.  The weights are random, drawn from --seed.  The
-continuous-batching engine (--traffic, --listen, --spec-k, --mesh) is not
-ported yet.
+Without --traffic or --listen it prefills a prompt batch and decodes with
+sampling, in lockstep (`drive_session`).  With --quant binary|ternary the
+master tree is exported once into packed QTensors and every decode tick is
+one launch of the fused CUDA kernel; prefill streams the packed codes
+through the GEMV (batch <= 8) or GEMM kernel per timestep.  The weights
+are random, drawn from --seed.  It runs on the card unless --device cpu is
+given.
+
+--traffic replays a synthetic Poisson workload with mixed prompt and
+generation lengths through the continuous-batching engine
+(serve/engine.py) and reports aggregate tok/s, slot occupancy and p50/p95
+latency and time to first token.
+
+--spec-k N adds speculative decoding to --traffic or --listen: the fp
+masters are the target and their own packed --quant export the draft,
+which proposes N tokens a round; the report adds the accept rate.
+
+--listen serves the warmed engine over HTTP/SSE (serve/frontdoor.py:
+POST /v1/generate, GET /v1/stats), with hangups cancelling and a
+prefix-state cache of --prefix-cache-mb.
+
+Refused: --mesh and the transformer archs, which wait for ROADMAP Queue 1
+item 9.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.configs import RNN_ARCH_IDS, get_rnn_config, rnn_paper
 from repro_torch.core import bnlstm as BL
 from repro_torch.core.quantize import QuantSpec
-from repro_torch.serve.recurrent import RNNRuntime, drive_session
+from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.recurrent import (RNNRuntime, drive_session,
+                                         speculative_draft)
+
+NOT_PORTED = {
+    "mesh": "--mesh (a mesh-sharded engine) waits for ROADMAP Queue 1 "
+            "item 9",
+    "arch": "the transformer-pool archs wait for ROADMAP Queue 1 item 9; "
+            f"the port serves {', '.join(RNN_ARCH_IDS)}",
+}
+
+
+def _report_bytes(rt, quant: str) -> None:
+    fp, packed = rt.param_nbytes()
+    print(f"model bytes: fp32 {fp/1e6:.1f} MB -> packed({quant}) "
+          f"{packed/1e6:.1f} MB ({fp/packed:.1f}x smaller)")
 
 
 def build_rnn(args):
@@ -41,15 +76,110 @@ def build_rnn(args):
     rt = RNNRuntime(cfg, {"params": params, "state": var["state"]},
                     device=args.device)
     if args.quant != "none":
-        fp, packed = rt.param_nbytes()
-        print(f"model bytes: fp32 {fp/1e6:.1f} MB -> packed({args.quant}) "
-              f"{packed/1e6:.1f} MB ({fp/packed:.1f}x smaller)")
+        _report_bytes(rt, args.quant)
     return cfg, rt
+
+
+def synth_traffic(vocab: int, *, requests: int, rate: float, prompt_len: int,
+                  gen: int, temperature: float, top_k: int,
+                  seed: int = 0) -> list:
+    """A synthetic mixed-length workload: Poisson arrivals at `rate` req/s,
+    prompt lengths U[1, prompt_len], generation lengths U[1, gen].  The
+    same numpy draws as the JAX launcher's, so a seed gives both packages
+    the same workload."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / max(rate, 1e-9), size=requests)
+    arrivals = np.cumsum(gaps)
+    reqs = []
+    for i in range(requests):
+        S = int(rng.integers(1, prompt_len + 1))
+        n = int(rng.integers(1, gen + 1))
+        reqs.append(Request(
+            prompt=rng.integers(0, vocab, size=S),
+            max_tokens=n, temperature=temperature, top_k=top_k,
+            seed=seed + 1000 + i, arrival_s=float(arrivals[i]), rid=i))
+    return reqs
+
+
+def run_traffic(cfg, rt, args, draft=None) -> dict:
+    """Replay a Poisson workload through the continuous-batching engine."""
+    ctx = args.prompt_len + args.gen
+    eng = ServeEngine(rt, cfg.vocab, slots=args.slots, max_context=ctx,
+                      prefill_chunk=args.prefill_chunk,
+                      draft=draft, spec_k=args.spec_k if draft else 0)
+    reqs = synth_traffic(cfg.vocab, requests=args.requests, rate=args.rate,
+                         prompt_len=args.prompt_len, gen=args.gen,
+                         temperature=args.temperature, top_k=args.top_k,
+                         seed=args.seed)
+    # a chunk and a tick run once before the clock starts
+    eng.warm()
+    comps, m = eng.run(reqs, realtime=True)
+    print(f"traffic: {m['requests']} requests over {m['wall_s']:.2f}s "
+          f"({args.rate:.1f} req/s offered, {args.slots} slots, "
+          f"prefill chunk {args.prefill_chunk}, {rt.device})")
+    print(f"aggregate decode: {m['agg_tok_s']:.1f} tok/s  "
+          f"occupancy: {100 * m['occupancy']:.0f}%  "
+          f"ticks: {m['ticks']} (fused-tick calls a tick: "
+          f"{m['tick_launches']})")
+    print(f"latency: p50 {m['p50_latency_s']*1e3:.0f} ms  "
+          f"p95 {m['p95_latency_s']*1e3:.0f} ms  |  "
+          f"ttft: p50 {m['ttft_p50_s']*1e3:.0f} ms  "
+          f"p95 {m['ttft_p95_s']*1e3:.0f} ms  "
+          f"(max decode stall: {m['max_decode_stall_ticks']} chunk)")
+    if draft is not None:
+        print(f"speculative: k={m['spec_k']}  "
+              f"accept rate {100 * m['accept_rate']:.0f}%  "
+              f"({m['accepted_drafts']}/{m['drafted_tokens']} drafts over "
+              f"{m['spec_rounds']} rounds)  "
+              f"draft {m['draft_tok_s']:.1f} tok/s proposed")
+    for c in sorted(comps, key=lambda c: c.rid)[:4]:
+        print(f"  req {c.rid}: prompt {c.prompt_len} -> {len(c.tokens)} toks "
+              f"({c.finished}), ttft {c.ttft_s*1e3:.0f} ms, "
+              f"latency {c.latency_s*1e3:.0f} ms")
+    return m
+
+
+def run_listen(cfg, rt, args, draft=None) -> None:
+    """Serve over HTTP/SSE: the engine built and warmed as --traffic builds
+    it, behind the asyncio front door, until interrupted."""
+    import asyncio
+
+    from repro_torch.serve.frontdoor import FrontDoor
+    from repro_torch.serve.prefixcache import PrefixCache
+
+    ctx = args.prompt_len + args.gen
+    cache = (PrefixCache(args.prefix_cache_mb << 20)
+             if args.prefix_cache_mb > 0 else None)
+    eng = ServeEngine(rt, cfg.vocab, slots=args.slots, max_context=ctx,
+                      prefill_chunk=args.prefill_chunk,
+                      draft=draft, spec_k=args.spec_k if draft else 0,
+                      prefix_cache=cache)
+    eng.warm()
+
+    async def _serve():
+        fd = FrontDoor(eng, host=args.host, port=args.port)
+        await fd.start()
+        print(f"front door listening on http://{fd.host}:{fd.port}  "
+              f"({args.slots} slots, ctx {ctx}, chunk {args.prefill_chunk}"
+              + (f", prefix cache {args.prefix_cache_mb} MB" if cache
+                 else "") + f", {rt.device})")
+        print(f"  curl -N -X POST http://{fd.host}:{fd.port}/v1/generate "
+              "-d '{\"prompt\": [1,2,3], \"max_tokens\": 16}'")
+        try:
+            await fd.serve_forever()
+        finally:
+            await fd.close()
+
+    try:
+        asyncio.run(_serve())
+    except KeyboardInterrupt:
+        pass
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=RNN_ARCH_IDS, default="rnn-paper")
+    ap.add_argument("--arch", default="rnn-paper",
+                    help=f"one of {', '.join(RNN_ARCH_IDS)}")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--quant", default="ternary",
@@ -63,9 +193,58 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu' for the plain "
                          "PyTorch versions of the kernels")
+    ap.add_argument("--traffic", action="store_true",
+                    help="replay a mixed-length Poisson workload through "
+                         "the continuous-batching ServeEngine")
+    ap.add_argument("--rate", type=float, default=4.0,
+                    help="offered arrival rate, requests/s (--traffic)")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="workload size (--traffic)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="engine slot-pool size (--traffic, --listen)")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="in-slot prefill chunk size: at most one chunk "
+                         "runs between decode ticks")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: the packed --quant export "
+                         "of the model drafts K tokens a round for the fp "
+                         "target to verify (--traffic or --listen; 0 = off)")
+    ap.add_argument("--listen", action="store_true",
+                    help="serve the engine over HTTP/SSE "
+                         "(serve/frontdoor.py)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8700)
+    ap.add_argument("--prefix-cache-mb", type=int, default=64,
+                    help="prefix-state cache byte budget for --listen "
+                         "(0 = off)")
+    ap.add_argument("--mesh", default="", help=NOT_PORTED["mesh"])
     args = ap.parse_args(argv)
 
-    cfg, rt = build_rnn(args)
+    if args.mesh:
+        raise SystemExit(f"not ported yet: {NOT_PORTED['mesh']}")
+    if args.arch not in RNN_ARCH_IDS:
+        raise SystemExit(f"not ported yet: --arch {args.arch}: "
+                         f"{NOT_PORTED['arch']}")
+    if args.spec_k and not (args.traffic or args.listen):
+        raise SystemExit("--spec-k is a continuous-batching engine mode; "
+                         "run it with --traffic or --listen")
+    draft = None
+    if args.spec_k:
+        # self-speculation: the fp masters are the target; --quant names
+        # the draft's packing (ternary when it says none)
+        draft_mode = args.quant if args.quant != "none" else "ternary"
+        args.quant = "none"
+        cfg, rt = build_rnn(args)
+        draft = speculative_draft(rt, mode=draft_mode)
+        _report_bytes(draft, draft_mode)
+    else:
+        cfg, rt = build_rnn(args)
+
+    if args.listen:
+        return run_listen(cfg, rt, args, draft=draft)
+    if args.traffic:
+        return run_traffic(cfg, rt, args, draft=draft)
+
     B, S = args.batch, args.prompt_len
     gen = torch.Generator().manual_seed(args.seed + 1)
     prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen)

@@ -18,8 +18,9 @@ quantization noise are functions of the step, so a restart is
 sample-exact.  Checkpoint index == completed steps == the next step to run.
 
 Not ported yet, and refused: --pipeline (train -> restart -> export ->
-serve through the engine, with the engine slice), --compress-grads and
---mesh-model (mesh training, ROADMAP Queue 1 item 9).
+serve through the engine; the engine is ported, the pipeline is the next
+PR), --compress-grads and --mesh-model (mesh training, ROADMAP Queue 1
+item 9).
 """
 from __future__ import annotations
 
@@ -49,8 +50,9 @@ from repro_torch.train.train_step import (make_rnn_eval, make_rnn_train_step,
                                           train_state_init)
 
 NOT_PORTED = {
-    "pipeline": "--pipeline waits for the engine slice (ServeEngine, "
-                "speculative decoding; ROADMAP 'Next')",
+    "pipeline": "--pipeline (train -> restart -> export -> serve through "
+                "the engine) waits only for its own PR, the first item of "
+                "ROADMAP 'Next'",
     "compress_grads": "--compress-grads waits for mesh training "
                       "(ROADMAP Queue 1 item 9)",
     "mesh_model": "--mesh-model waits for mesh training "

@@ -12,9 +12,19 @@ whole-tick artifact), so a packed tree decodes through one fused-kernel
 launch per tick with no per-call preparation.  `drive_session` is the
 canonical prefill -> sample -> decode loop the launcher and the chip smoke
 drive.
+
+The runtime also carries the continuous-batching engine's hooks
+(`serve/engine.py`): `init_state(per_slot=True)`, `decode_fn` with a `live`
+mask, `prefill_chunk`, `write_slots`, and the
+speculative `spec_snapshot`/`spec_emit`/`verify`/`spec_commit`.  JAX's
+`jit_prm` (the weights threaded into the engine's jits as an argument, so
+XLA cannot fold them) has no counterpart: PyTorch runs eagerly and folds
+nothing.  `speculative_draft` packs an fp target's own masters into a
+ternary/binary draft runtime.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Optional
 
@@ -22,9 +32,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import bnlstm as BL
-from repro_torch.core.qtensor import tree_leaves, tree_nbytes, tree_to
+from repro_torch.core.qtensor import (is_qtensor, tree_leaves, tree_nbytes,
+                                      tree_to)
+from repro_torch.core.quantize import QuantSpec
 from repro_torch.kernels import dispatch
-from repro_torch.serve.sampler import sample
+from repro_torch.serve.sampler import SAMPLE, draw_batch, gumbel, sample
 
 
 def state_nbytes(state: Any) -> int:
@@ -37,6 +49,9 @@ class RNNRuntime:
     """BN-LSTM / BN-GRU serving session."""
 
     family = "rnn"
+    # speculative decoding: verify is the decode step itself, rollback a
+    # select over the per-step states
+    spec_capable = True
 
     def __init__(self, cfg: BL.RNNConfig, variables: dict, *,
                  device: Optional[str | torch.device] = None):
@@ -45,9 +60,12 @@ class RNNRuntime:
         self.variables = tree_to(variables, self.device)
         self.tables = BL.rnn_decode_tables(self.variables, cfg)
 
-    def init_state(self, batch: int) -> BL.RNNState:
+    def init_state(self, batch: int, context: int = 0, *,
+                   per_slot: bool = False) -> BL.RNNState:
         """A zero state; its size does not grow with the context."""
-        return BL.rnn_state_init(self.cfg, batch, device=self.device)
+        del context
+        return BL.rnn_state_init(self.cfg, batch, per_slot=per_slot,
+                                 device=self.device)
 
     def prefill(self, tokens: torch.Tensor, state: BL.RNNState):
         """Run the prompt; returns the last token's logits (B, V) through
@@ -60,8 +78,85 @@ class RNNRuntime:
         return BL.rnn_decode_step(self.variables, tok, self.cfg, state,
                                   tables=self.tables)
 
+    # -- the engine's hooks ---------------------------------------------------
+
+    def decode_fn(self, tok: torch.Tensor, state: BL.RNNState,
+                  live: Optional[torch.Tensor] = None):
+        """The engine's tick body: `live` (B,) freezes dead slots' h, c and
+        pos bit for bit (inside the fused kernel on a packed tree)."""
+        return BL.rnn_decode_step(self.variables, tok, self.cfg, state,
+                                  tables=self.tables, live=live)
+
+    def prefill_chunk(self, tokens: torch.Tensor, state: BL.RNNState):
+        """One prompt chunk (B, T), carrying the state: the O(1) carry makes
+        any split of a prompt exact.  Returns the first-token logits (B, V)
+        and the state."""
+        return BL.rnn_prefill_chunk(self.variables, tokens, self.cfg, state,
+                                    tables=self.tables)
+
+    def write_slots(self, state: BL.RNNState, sub: BL.RNNState, slots):
+        return BL.rnn_write_slots(state, sub, slots)
+
+    # Rollback is the O(1) state again: each step of a draft or verify span
+    # emits its (h, c), and committing n tokens selects from the stack, so
+    # there is nothing to snapshot.
+
+    def spec_snapshot(self, state: BL.RNNState, span: int):
+        del state, span
+        return ()
+
+    def spec_emit(self, state: BL.RNNState):
+        """The per-step rollback material of the engine's draft loop."""
+        return (state.h, state.c)
+
+    def verify(self, tokens: torch.Tensor, state: BL.RNNState,
+               live: Optional[torch.Tensor] = None):
+        """(B, T) tokens -> (logits (B, T, V), end state, per-step emits),
+        each position bit-identical to that many decode steps."""
+        return BL.rnn_verify(self.variables, tokens, self.cfg, state,
+                             tables=self.tables, live=live)
+
+    def spec_commit(self, state0: BL.RNNState, state_after: BL.RNNState,
+                    snap, emits, n: torch.Tensor) -> BL.RNNState:
+        del state_after, snap
+        return BL.rnn_spec_commit(state0, emits, n)
+
     def param_nbytes(self) -> tuple[int, int]:
         return tree_nbytes(self.variables["params"])
+
+
+def serving_runtime(cfg, variables: dict, **kw) -> RNNRuntime:
+    """The one constructor: an RNNConfig gives an `RNNRuntime` over the
+    {'params', 'state'} variables.  The transformer pool is not ported
+    (ROADMAP Queue 1 item 9)."""
+    if not isinstance(cfg, BL.RNNConfig):
+        raise NotImplementedError(
+            "the port serves the paper's RNN family only; transformer "
+            "runtimes wait for ROADMAP Queue 1 item 9")
+    return RNNRuntime(cfg, variables, **kw)
+
+
+def speculative_draft(rt: RNNRuntime, mode: str = "ternary") -> RNNRuntime:
+    """Self-speculation: pack the fp target runtime's own masters into a
+    binary/ternary draft runtime on the same device, sharing the target's
+    config dims and frozen BN statistics.  The draft decodes through the
+    fused tick (on the card, the kernel; on the CPU, its plain version),
+    where JAX's `dense` switch could expand it into dense tables."""
+    if not isinstance(rt, RNNRuntime):
+        raise NotImplementedError(
+            "speculative pairing is ported for the RNN family only; "
+            "transformer runtimes wait for ROADMAP Queue 1 item 9")
+    if is_qtensor(rt.variables["params"]["layers"][0]["wx"]):
+        raise ValueError(
+            "speculative pairing packs the target's fp masters; this "
+            "runtime already serves a packed tree: build the pair from the "
+            "master weights instead")
+    dcfg = dataclasses.replace(rt.cfg, quant=QuantSpec(mode=mode,
+                                                       norm="batch"))
+    packed = BL.export_packed_rnn(rt.variables["params"], dcfg)
+    return RNNRuntime(dcfg, {"params": packed,
+                             "state": rt.variables["state"]},
+                      device=rt.device)
 
 
 def _sync(device: torch.device) -> None:
@@ -74,25 +169,37 @@ def drive_session(rt: RNNRuntime, prompt: torch.Tensor, vocab: int, *,
                   seed: int = 0, warmup: bool = False):
     """The canonical prefill -> sample -> decode session, timed.
 
-    With `warmup` an untimed prefill and decode step run first on their own
-    state.  Returns (generated (B, gen) int numpy array, metrics with
-    prefill/decode seconds, tok/s, the state bytes and `last_logits`, the
-    logits the session ended on)."""
+    Row b samples as a request of seed `seed + b`: token i draws from the
+    counter-based stream (seed + b, i) (serve/sampler.py), the one the
+    engine draws a request's token i from, so a request's stream is the
+    same here and in the engine.  The session's noise is drawn at once,
+    before its first step.  With `warmup` an untimed prefill and decode
+    step run first on their own state.  Returns (generated (B, gen) int
+    numpy array, metrics with prefill/decode seconds, tok/s, the state
+    bytes and `last_logits`, the logits the session ended on)."""
     dev = rt.device
     prompt = prompt.to(dev)
     B, S = prompt.shape
-    gen_rng = torch.Generator(device=dev)
+    seeds = seed + torch.arange(B, device=dev)
+
+    def session_sampler(logits):
+        if temperature <= 0.0:
+            return lambda lg, i: sample(lg, seeds, i, temperature=0.0,
+                                        vocab=vocab)
+        noise = gumbel(seeds, 0, SAMPLE, (B, gen, logits.shape[-1]), dev)
+        return lambda lg, i: draw_batch(lg, noise[:, i],
+                                        temperature=temperature,
+                                        top_k=top_k, vocab=vocab)
+
     if warmup:
-        gen_rng.manual_seed(seed)
         lg_w, st_w = rt.prefill(prompt, rt.init_state(B))
-        nxt_w = sample(lg_w, gen_rng, temperature=temperature, top_k=top_k,
-                       vocab=vocab)
-        rt.decode_step(nxt_w, st_w)
+        nxt_w = session_sampler(lg_w)(lg_w, 0) if gen else None
+        if nxt_w is not None:
+            rt.decode_step(nxt_w, st_w)
         _sync(dev)
         del lg_w, st_w, nxt_w
 
     state = rt.init_state(B)
-    gen_rng.manual_seed(seed)
     _sync(dev)
     t0 = time.perf_counter()
     logits, state = rt.prefill(prompt, state)
@@ -101,9 +208,9 @@ def drive_session(rt: RNNRuntime, prompt: torch.Tensor, vocab: int, *,
 
     toks = []
     t0 = time.perf_counter()
-    for _ in range(gen):
-        nxt = sample(logits, gen_rng, temperature=temperature, top_k=top_k,
-                     vocab=vocab)
+    pick = session_sampler(logits) if gen else None
+    for i in range(gen):
+        nxt = pick(logits, i)
         toks.append(nxt)  # stays on the device: no host round-trip per step
         logits, state = rt.decode_step(nxt, state)
     _sync(dev)

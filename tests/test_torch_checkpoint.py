@@ -203,7 +203,8 @@ def test_launcher_trains_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,queue", [
-    (["--pipeline"], "engine slice"), (["--compress-grads"], "Queue 1 item 9"),
+    (["--pipeline"], "waits only for its own PR"),
+    (["--compress-grads"], "Queue 1 item 9"),
     (["--mesh-model", "2"], "Queue 1 item 9")])
 def test_launcher_refuses_what_is_not_ported(flag, queue):
     with pytest.raises(SystemExit, match=queue):

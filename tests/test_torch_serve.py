@@ -12,7 +12,7 @@ sigmoid/tanh, about 1e-7 a step; the 5 prefill + 6 decode steps here stay
 well inside 1e-5, the JAX package's own fused-vs-unfused tolerance.
 Greedy streams are compared by token while the top-2 logit margin exceeds
 that tolerance; sampled streams only by distribution, since `jax.random`
-and `torch.Generator` give different numbers.
+and the port's counter-based draws give different numbers.
 """
 import ast
 import dataclasses
@@ -234,14 +234,16 @@ def test_sampler_matches_jax_distribution():
     jl = jl / temperature
     kth = jax.lax.top_k(jl, top_k)[0][..., -1:]
     probs = np.asarray(jax.nn.softmax(jnp.where(jl >= kth, jl, -jnp.inf)))[0]
-    g = torch.Generator().manual_seed(0)
-    draws = sample(torch.from_numpy(np.repeat(logits, n, axis=0)), g,
-                   temperature=temperature, top_k=top_k, vocab=vocab)
+    # n rows, each a request of its own seed: n independent counter-based
+    # draws
+    draws = sample(torch.from_numpy(np.repeat(logits, n, axis=0)),
+                   torch.arange(n), 0, temperature=temperature, top_k=top_k,
+                   vocab=vocab)
     freq = np.bincount(draws.numpy(), minlength=64) / n
     assert set(np.flatnonzero(freq)) <= set(np.flatnonzero(probs))
     se = np.sqrt(probs * (1 - probs) / n)
     assert np.all(np.abs(freq - probs) <= 4 * se + 1e-12)
-    greedy = sample(torch.from_numpy(logits), g, temperature=0.0, vocab=vocab)
+    greedy = sample(torch.from_numpy(logits), 0, temperature=0.0, vocab=vocab)
     assert greedy.item() == int(np.argmax(logits[0, :vocab]))
 
 

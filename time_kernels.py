@@ -3,7 +3,7 @@
 multiply-free GEMV (`csrc/packed_gemv.cu`) at the widths of the paper's
 configurations, on one NVIDIA card.
 
-    python3 time_kernels.py [--src DIR] [--only tick|gemv|phases]
+    python3 time_kernels.py [--src DIR] [--only tick|gemv|phases|session]
                             [--rows 4] [--out FILE]
 
 The tick: for char-PTB (H = 1000, V = 50), word-PTB medium (H = 650,
@@ -29,6 +29,11 @@ the main path's ternary bp = 4 and binary bp = 8: a copy of
 for each block, its start and end on the global timer, its SM, and the
 SM cycles from its start to the end of x staging, of its adds, of its
 pushes to the cluster and of the cluster barrier.
+`--only session` (not run by default) times the lockstep serving session
+instead: `drive_session` at rnn-paper's full width (ternary, off init),
+prompt 32, gen 32, temperature 0.8, top-k 40, B = 4 and 16, seven
+sessions each after one untimed: the decode tok/s of each and their
+median, so the host-bound sampler of two checkouts compares in turns.
 `--src` times the `repro_torch` package of another checkout's `src` (an
 earlier commit's kernels, built into that checkout's own `build/`), so two
 versions of a kernel can be compared within one run on one card.  Prints
@@ -231,10 +236,38 @@ def gemv_phases(args, card: str) -> list:
     return out
 
 
+def time_sessions(args, card: str) -> list:
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_rnn_config
+    from repro_torch.core import bnlstm as BL
+    from repro_torch.serve.recurrent import RNNRuntime, drive_session
+    cfg = get_rnn_config("rnn-paper")
+    g = torch.Generator().manual_seed(0)
+    v = CS.off_init(BL.rnn_lm_init(g, cfg, device="cuda"), g)
+    rt = RNNRuntime(cfg, {"params": BL.export_packed_rnn(v["params"], cfg),
+                          "state": v["state"]}, device="cuda")
+    out = []
+    for B in (4, 16):
+        prompt = torch.randint(0, cfg.vocab, (B, 32), generator=g)
+        run = lambda: drive_session(rt, prompt, cfg.vocab, gen=32,
+                                    temperature=0.8, top_k=40, seed=0)[1]
+        run()
+        tok_s = [run()["decode_tok_s"] for _ in range(7)]
+        row = dict(card=card, src=args.src, path="drive_session", B=B,
+                   prompt=32, gen=32, decode_tok_s=tok_s,
+                   median_decode_tok_s=statistics.median(tok_s))
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(CS.ROOT / "src"))
-    ap.add_argument("--only", choices=("tick", "gemv", "phases"), default=None)
+    ap.add_argument("--only", choices=("tick", "gemv", "phases", "session"),
+                    default=None)
     ap.add_argument("--rows", type=int, choices=(4, 8), default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -254,6 +287,8 @@ def main(argv=None) -> int:
         out += time_gemvs(args, card)
     if args.only == "phases":
         out += gemv_phases(args, card)
+    if args.only == "session":
+        out += time_sessions(args, card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in out))
