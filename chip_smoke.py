@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's BN-LSTM serving and training paths on one
-NVIDIA card.
+"""Drive the PyTorch port's BN-LSTM serving and training paths, its
+train -> restart -> export -> serve pipeline, and the transformer pool's
+dense serving path (qwen3-0.6B at full width) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -74,8 +75,40 @@ Phases, in order; any failure exits non-zero before the last line:
                 M = 32 each timestep), and the export must serve through
                 drive_session (fused tick, GEMV prefill); every kernel must
                 have launched.  Then one train step under torch.profiler;
-  8. result   — the kernels JSON line, the card line, and
-                {"ok": true, "device": {...}} last.
+  8. pipeline — `repro_torch.launch.train --pipeline --quick` at
+                rnn-paper's full width (batch 32, seq 100, 60 steps a leg):
+                a real SIGTERM at step 30, exit 43 and the resume, the two
+                legs' final checkpoints bit-equal, the packed export served
+                through the engine with every stream equal to
+                drive_session(B=1), and the trained accept rate of the fp
+                masters with their ternary draft (reported; JAX's 0.976 came
+                from 300 reduced steps).  Launches counted across the
+                children and this process: the fused tick and the GEMV
+                (the engine's ticks and prompt steps) must launch;
+  9. transformer — qwen3-0.6B at full width (28 layers, d 1024, 16 query
+                and 8 KV heads of 128, d_ff 3072, vocab 151,936, tied,
+                ternary, bf16), random weights from a seed: packed_gemv at
+                1, 4 and 8 rows and packed_matmul at M = 512 on layer 0's
+                seven projections, each launched twice and bit-equal and
+                held with its plain version to the fp64 product within
+                1e-5 of |x| @ |w|, timed beside the bound and torch.matmul;
+                the packed tree's bytes; packed against fp-dequantized
+                decode logits (relative L2 within 1e-4 in fp32 compute,
+                within 1e-1 in bf16); then, counted:
+                lockstep drive_session at B = 4, prompt 128, gen 32 (196
+                packed GEMVs a decode step, 196 GEMMs a prefill), a decode
+                step and a prefill under torch.profiler; the engine over 32
+                requests of synth_traffic(seed=0) (prompts U[1, 128], gen
+                U[1, 32], T 0.8, top-k 40) at 8 slots, chunk 32, the
+                sampled streams equal to drive_session(B=1) counted and,
+                run greedy, every divergence at a top-2 logit gap below
+                0.1; speculative k = 4 (bf16 masters, ternary draft, 8
+                greedy requests: accept rate, streams equal to the plain
+                engine's); 8 requests behind a 64-token prefix (at least 7
+                prefix-cache hits);
+  10. result  — the kernels JSON line (each kernel's launches on every
+                path), the card line, and {"ok": true, "device": {...}}
+                last.
 
 It needs one card and no network; the build goes to `build/kernels/`.
 Details land in `chiprun_out/chip_smoke.json`.
@@ -116,10 +149,11 @@ def card_line() -> str:
 
 
 def device_profile(fn, reps: int = 1, skip: str | None = None,
-                   attempts: int = 3):
+                   attempts: int = 3, counts: dict | None = None):
     """Run `fn` `reps` times under torch.profiler.  Returns (device us by
     kernel name, host wall seconds of the whole run, synchronized); kernels
-    whose name holds `skip` are left out.  Now and then the profiler hands
+    whose name holds `skip` are left out.  `counts`, when given, receives
+    the number of device events by name.  Now and then the profiler hands
     back no device event at all for a run; the run is then repeated, up to
     `attempts` times in all."""
     import torch
@@ -135,10 +169,14 @@ def device_profile(fn, reps: int = 1, skip: str | None = None,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         by_name: dict = {}
+        if counts is not None:
+            counts.clear()
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and not (skip and skip in e.name):
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us())
+                if counts is not None:
+                    counts[e.name] = counts.get(e.name, 0) + 1
         if by_name:
             break
     return by_name, wall
@@ -1282,6 +1320,410 @@ def training_phase(report: dict, argv: list = TRAIN_ARGS) -> dict:
     return launches
 
 
+def pipeline_phase(report: dict) -> dict:
+    """`repro_torch.launch.train --pipeline` at rnn-paper's full width
+    (H = 1000, batch 32, seq 100, 60 steps a leg): a real SIGTERM, exit 43
+    and the resume, bit-equal checkpoints of the two legs, the packed
+    export served through the engine byte for byte like drive_session
+    (B = 1), and the trained accept rate (reported, not held: JAX's 0.976
+    came from 300 steps and other random streams).  Its results file goes
+    to chiprun_out/.  Returns the launches of the run, the children's
+    (their training launches none: the step samples its weights densely,
+    and neither package's launcher calls quantize_pack) and this
+    process's: the engine's and drive_session's fused ticks and prompt-step
+    GEMVs, which must launch."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as launch_train
+
+    argv = ["--pipeline", "--quick", "--arch", "rnn-paper", "--steps", "60",
+            "--batch", "32", "--seq", "100", "--device", "cuda",
+            "--results-dir", str(ROOT / "chiprun_out")]
+    dispatch.reset_counts()   # ---- the counted pipeline run starts here
+    t0 = time.perf_counter()
+    train, serve, spec = launch_train.main(argv)
+    launches = dict(dispatch.LAUNCHES)
+    # ---- the counted pipeline run ends here
+    for k, v in train["child_launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    if dispatch.PLAIN_CALLS:
+        fail(f"plain versions ran in the pipeline: {dict(dispatch.PLAIN_CALLS)}")
+    if not (train["resume_bit_exact"] and train["restart_exit_code"] == 43
+            and serve["engine_byte_parity"] and spec["greedy_equal_plain"]):
+        fail(f"pipeline rows {train} {serve} {spec}")
+    for k in ("packed_gemv", "fused_tick"):
+        if not launches.get(k):
+            fail(f"kernel {k} was never launched in the pipeline: {launches}")
+    out = {"wall_s": time.perf_counter() - t0, "rows": [train, serve, spec],
+           "launches": launches}
+    report["pipeline"] = out
+    print(f"  pipeline: SIGTERM at step {train['sigterm_at_step']}, exit 43, "
+          f"resumed from {train['resumed_from_step']}; checkpoints bit-equal; "
+          f"final val BPC {train['final_val_bpc']:.4f}; engine streams == "
+          f"drive_session(B=1); trained accept rate {spec['accept_rate']:.3f} "
+          f"(JAX: 0.976 at 300 steps, reduced, not held); "
+          f"{out['wall_s']:.1f} s; launches {launches}", flush=True)
+    return launches
+
+
+QWEN_PROJECTIONS = (("attn", "Wq"), ("attn", "Wk"), ("attn", "Wv"),
+                    ("attn", "Wo"), ("mlp", "Wgate"), ("mlp", "Wup"),
+                    ("mlp", "Wdown"))
+
+
+def summation_check(name: str, got, want, x, w) -> float:
+    """Kernel and plain version against the fp64 product, within 1e-5 of
+    the summed magnitudes |x| @ |w| (fp32 sums of K terms in other orders;
+    tests/test_torch_cuda.py holds the same).  Returns max |got - want|."""
+    exact = x.double() @ w.double()
+    tol = 1e-5 * (x.double().abs() @ w.double().abs())
+    for out in (got, want):
+        if not ((out.double() - exact).abs() <= tol).all():
+            fail(f"{name}: off the fp64 product by "
+                 f"{(out.double() - exact).abs().max().item()}")
+    return (got - want).abs().max().item()
+
+
+def qwen_kernel_rows(packed: dict) -> list:
+    """packed_gemv at 1, 4 and 8 rows and packed_matmul at M = 512 (B = 4,
+    prompt 128) on layer 0's seven projections of the exported model, each
+    launched twice and bit-equal, against its plain version, timed beside
+    its bound (on the unpadded function) and torch.matmul on the
+    dequantized weight."""
+    import torch
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.kernels import packed_matmul as PK
+
+    g = torch.Generator().manual_seed(1)
+    rows = []
+    for blk, name in QWEN_PROJECTIONS:
+        qt = packed["stack"][0][blk][name]
+        codes = qt.codes[0]          # layer 0 of the stacked codes
+        if not codes.is_contiguous() or codes.data_ptr() % 16:
+            fail(f"{name}: layer 0's codes are not a contiguous, 16-byte "
+                 f"aligned slice")
+        one = QTensor(codes=codes, k=qt.k, mode=qt.mode, alpha=qt.alpha)
+        K, N = qt.k, codes.shape[1]
+        w = one.dequantize() / qt.alpha
+        for M in (1, 4, 8, 512):
+            fn = PK.packed_gemv if M <= 8 else PK.packed_matmul
+            plain = PK.packed_gemv_plain if M <= 8 else PK.packed_matmul_plain
+            x = torch.tanh(torch.randn(M, K, generator=g)).cuda()
+            got = fn(x, codes, mode=qt.mode)
+            again = fn(x, codes, mode=qt.mode)
+            want = plain(x, codes, mode=qt.mode)
+            err = summation_check(f"{fn.__name__} {name} M={M}", got, want,
+                                  x, w)
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                fail(f"{fn.__name__} {name} M={M}: two launches differ")
+            if M <= 8:
+                plan = PK.gemv_plan(M, K, N, mode=qt.mode)
+                shape = (f"qwen3 {name} x({M},{K}) codes{tuple(codes.shape)} "
+                         f"{plan['blocks']} blocks, cluster {plan['cluster']}")
+                b_ms, b_by = packed_bound(one, M)
+            else:
+                plan = PK.matmul_plan(M, K, N, mode=qt.mode)
+                shape = (f"qwen3 {name} x({M},{K}) codes{tuple(codes.shape)} "
+                         f"{plan['blocks']} blocks, cluster {plan['cluster']}")
+                b_ms, b_by = gemm_bound(one, M)
+            rows.append(timed_row(
+                fn.__name__, shape, err,
+                lambda: fn(x, codes, mode=qt.mode),
+                lambda: plain(x, codes, mode=qt.mode),
+                lambda: torch.matmul(x, w), b_ms, b_by, reps=100,
+                plain_reps=3))
+    us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
+    print("  qwen3-0.6B projections (layer 0), ternary: kernel == plain "
+          "within 1e-5 of |x| @ |w|, two launches bit-equal", flush=True)
+    for r in rows:
+        print(f"    {r['name']:14s} {r['shape']:58s} {r['max_abs_err']:.1e}  "
+              f"{us(r['ms'])} us ({us(r['wall_ms'])})  plain {us(r['plain_ms'])}"
+              f"  matmul {us(r['library_ms'])}  bound {r['bound_ms'] * 1e3:.2f}"
+              f" ({r['bound_by']})", flush=True)
+    return rows
+
+
+def first_divergence(rt, req, tokens: list, ctx: int):
+    """Run `req` alone, greedy, feeding the engine's `tokens`; at the first
+    step where the engine took another token than the alone argmax, return
+    (step, top-2 logit gap of the alone logits); None when all agree."""
+    import numpy as np
+    import torch
+    V = rt.cfg.vocab
+    st = rt.init_state(1, ctx)
+    lg, st = rt.prefill(torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                        device="cuda")[None], st)
+    for i, tok in enumerate(tokens):
+        top = torch.topk(lg[0, :V], 2).values
+        if int(torch.argmax(lg[0, :V])) != tok:
+            return i, (top[0] - top[1]).item()
+        lg, st = rt.decode_step(torch.tensor([tok], device="cuda"), st)
+    return None
+
+
+GAP_TOL = 0.1  # greedy divergences must fall at top-2 logit gaps below this
+
+
+def transformer_phase(report: dict) -> dict:
+    """qwen3-0.6B at full width (28 layers, d 1024, 16/8 heads of 128,
+    d_ff 3072, vocab 151,936, tied, qk_norm), random weights from a seed,
+    ternary export, bf16 compute: the kernels at its projection shapes, the
+    packed tree's bytes, packed against fp-dequantized logits, lockstep
+    drive_session, the engine, speculative decoding and the prefix cache.
+    Returns the launches of the counted serving run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import (QTensor, export_packed, tree_leaves,
+                                          tree_map)
+    from repro_torch.core.quantize import QuantSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import synth_traffic
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.prefixcache import PrefixCache
+    from repro_torch.serve.recurrent import (TransformerRuntime, drive_session,
+                                             speculative_draft)
+
+    cfg = get_config("qwen3-0.6b")
+    if (cfg.n_layers, cfg.d_model, cfg.hd, cfg.d_ff, cfg.vocab) != (
+            28, 1024, 128, 3072, 151936):
+        fail(f"qwen3-0.6b is not at its published width: {cfg}")
+    out = {}
+    t0 = time.perf_counter()
+    masters = T.model_init(torch.Generator("cuda").manual_seed(0), cfg)
+    packed = export_packed(masters, cfg.quant)
+    torch.cuda.synchronize()
+    out["init_export_s"] = time.perf_counter() - t0
+
+    # 1. the kernels at the seven projection shapes
+    out["kernel_rows"] = qwen_kernel_rows(packed)
+
+    # 2. bytes
+    rt = TransformerRuntime(cfg, packed, device="cuda")
+    codes = [l for l in tree_leaves(packed) if isinstance(l, QTensor)]
+    n_proj = sum(int(np.prod(q.shape)) for q in codes)
+    out["bytes"] = {
+        "projection_weights": n_proj,
+        "codes_bytes": sum(q.nbytes for q in codes),
+        "projection_fp32_bytes": 4 * n_proj,
+        "embed_fp32_bytes": packed["embed"].numel() * 4,
+        "packed_tree_bytes": rt.param_nbytes()[1],
+        "fp32_tree_bytes": rt.param_nbytes()[0],
+        "served_embed_bf16_bytes": rt.served["embed"].numel() * 2}
+    b = out["bytes"]
+    print(f"  qwen3-0.6B ternary: {n_proj / 1e6:.1f} M projection weights in "
+          f"{b['codes_bytes'] / 1e6:.1f} MB of codes (fp32 "
+          f"{b['projection_fp32_bytes'] / 1e6:.1f} MB), beside the fp32 "
+          f"embedding {b['embed_fp32_bytes'] / 1e6:.1f} MB (served as bf16, "
+          f"{b['served_embed_bf16_bytes'] / 1e6:.1f} MB); whole tree "
+          f"{b['packed_tree_bytes'] / 1e6:.1f} MB vs fp32 "
+          f"{b['fp32_tree_bytes'] / 1e6:.1f} MB", flush=True)
+
+    # 3. packed against the same weights dequantized into an fp tree, the
+    # first decode step's logits after a 16-token prompt at B = 4: in fp32
+    # compute the two differ only by fp32 summation order (relative L2
+    # within 1e-4); in bf16, the serving dtype, the fp tree also rounds
+    # alpha and every product's output to bf16 (relative L2 reported, held
+    # within 1e-1, which a lost alpha or channel scale would break)
+    deq = tree_map(lambda l: l.dequantize() if isinstance(l, QTensor) else l,
+                   packed)
+    prompt = torch.randint(0, cfg.vocab, (4, 16),
+                           generator=torch.Generator().manual_seed(2)).cuda()
+    out["packed_vs_dequantized"] = {}
+    for dtype, limit in (("float32", 1e-4), ("bfloat16", 1e-1)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        a = rt if dtype == "bfloat16" else TransformerRuntime(c, packed,
+                                                              device="cuda")
+        f = TransformerRuntime(c.with_quant(QuantSpec(mode="none")), deq,
+                               device="cuda")
+        lp, sp = a.prefill(prompt, a.init_state(4, 32))
+        lf, sf = f.prefill(prompt, f.init_state(4, 32))
+        nxt = torch.argmax(lf[:, :cfg.vocab], -1)
+        lp, _ = a.decode_step(nxt, sp)
+        lf, _ = f.decode_step(nxt, sf)
+        lp, lf = lp[:, :cfg.vocab], lf[:, :cfg.vocab]
+        rel = ((lp - lf).norm() / lf.norm()).item()
+        agree = int((lp.argmax(-1) == lf.argmax(-1)).sum())
+        out["packed_vs_dequantized"][dtype] = {
+            "rel_l2": rel, "limit": limit, "greedy_agree_of_4": agree,
+            "max_abs": (lp - lf).abs().max().item(),
+            "max_logit": lf.abs().max().item()}
+        if not rel <= limit:
+            fail(f"packed vs dequantized {dtype} decode logits: relative L2 "
+                 f"{rel} (limit {limit})")
+        print(f"  packed vs fp-dequantized, {dtype}, first decode step: "
+              f"relative L2 {rel:.2e} (limit {limit:.0e}), max abs "
+              f"{(lp - lf).abs().max().item():.3g} of max |logit| "
+              f"{lf.abs().max().item():.3g}, greedy agree {agree}/4",
+              flush=True)
+        del f
+    del deq
+
+    # ---- the counted transformer serving run starts here ----
+    dispatch.reset_counts()
+    # 4. lockstep B = 4, prompt 128, gen 32
+    B, S, GEN = 4, 128, 32
+    prompt = torch.randint(0, cfg.vocab, (B, S),
+                           generator=torch.Generator().manual_seed(3))
+    before = dict(dispatch.LAUNCHES)
+    toks, m = drive_session(rt, prompt, cfg.vocab, gen=GEN, temperature=0.8,
+                            top_k=40, seed=0, warmup=True)
+    delta = {k: v - before.get(k, 0) for k, v in dispatch.LAUNCHES.items()}
+    lg = m.pop("last_logits")
+    want = {"packed_gemv": 196 * (GEN + 1), "packed_matmul": 196 * 2}
+    if delta != want or not torch.isfinite(lg).all() or toks.shape != (B, GEN):
+        fail(f"qwen3 lockstep: launches {delta} (want {want}), tokens "
+             f"{toks.shape}")
+    out["lockstep"] = dict(m, launches=delta, per_decode_step=196,
+                           per_prefill=196)
+    print(f"  lockstep B={B}, prompt {S}, gen {GEN}: prefill "
+          f"{m['prefill_tok_s']:.0f} tok/s, decode {m['decode_tok_s']:.1f} "
+          f"tok/s; packed launches a decode step 196 (7 x 28 GEMVs), a "
+          f"prefill 196 GEMMs at M = {B * S}; state {m['state_nbytes'] / 1e6:.1f}"
+          f" MB", flush=True)
+    st0 = rt.init_state(B, S + GEN)
+    lg, st0 = rt.prefill(prompt.cuda(), st0)
+    box = [lg, st0]
+
+    def step():
+        box[0], box[1] = rt.decode_step(torch.argmax(box[0][:, :cfg.vocab],
+                                                     -1), box[1])
+    step()
+    prof = {}
+    for name, fn, n in (("decode_step", step, 8),
+                        ("prefill", lambda: rt.prefill(
+                            prompt.cuda(), rt.init_state(B, S + GEN)), 2)):
+        t1 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t1) / n
+        counts: dict = {}
+        by_name, wall = device_profile(fn, n, counts=counts)
+        busy = sum(by_name.values()) / n
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        prof[name] = {"host_us": host * 1e6, "wall_us": wall / n * 1e6,
+                      "device_busy_us": busy,
+                      "idle_share": 1.0 - busy / (wall / n * 1e6),
+                      "device_launches": sum(counts.values()) / n,
+                      "top": [(k[:48], v / n) for k, v in top]}
+        r = prof[name]
+        print(f"    {name:11s}: host {r['host_us']:9.1f} us (profiled "
+              f"{r['wall_us']:9.1f})  device busy {busy:8.1f} us  idle "
+              f"{r['idle_share']:.3f}  {r['device_launches']:.0f} device "
+              f"launches  top "
+              + ", ".join(f"{k} {v:.1f}" for k, v in r["top"]), flush=True)
+    out["profile"] = prof
+
+    # 5. the engine: 32 mixed requests at 8 slots, chunk 32
+    P, G = 128, 32
+    reqs = synth_traffic(cfg.vocab, requests=32, rate=1e3, prompt_len=P,
+                         gen=G, temperature=0.8, top_k=40, seed=0)
+    eng = ServeEngine(rt, cfg.vocab, slots=8, max_context=P + G,
+                      prefill_chunk=32)
+    eng.warm()
+    comps, em = eng.run([dataclasses.replace(r) for r in reqs],
+                        realtime=False)
+    if em["tick_launches"] != 196 or em["max_decode_stall_ticks"] > 1:
+        fail(f"qwen3 engine: {em['tick_launches']} kernel calls a tick, "
+             f"stall {em['max_decode_stall_ticks']}")
+    alone = lambda r: drive_session(
+        rt, torch.as_tensor(np.asarray(r.prompt, np.int64))[None], cfg.vocab,
+        gen=r.max_tokens, temperature=r.temperature, top_k=r.top_k,
+        seed=r.seed, context=P + G)[0][0].tolist()
+    by = {c.rid: c.tokens for c in comps}
+    equal = sum(by[r.rid] == alone(r) for r in reqs)
+    greedy = [dataclasses.replace(r, temperature=0.0, top_k=0) for r in reqs]
+    gcomps, _ = eng.run([dataclasses.replace(r) for r in greedy],
+                        realtime=False)
+    gby = {c.rid: c.tokens for c in gcomps}
+    gaps = []
+    for r in greedy:
+        d = first_divergence(rt, r, gby[r.rid], P + G)
+        if d is not None:
+            gaps.append({"rid": r.rid, "step": d[0], "gap": d[1]})
+    if any(g["gap"] > GAP_TOL for g in gaps):
+        fail(f"qwen3 engine: a greedy stream left drive_session(B=1) at a "
+             f"top-2 gap above {GAP_TOL}: {gaps}")
+    out["engine"] = dict(em, sampled_streams_equal=equal, requests=len(reqs),
+                         greedy_divergences=gaps)
+    print(f"  engine, slots 8, chunk 32, 32 requests (prompts U[1,{P}], gen "
+          f"U[1,{G}], T 0.8, top-k 40): {em['agg_tok_s']:.0f} tok/s, "
+          f"{em['ticks']} ticks, occupancy {em['occupancy']:.2f}, 196 packed "
+          f"GEMVs a tick; {equal}/{len(reqs)} sampled streams == "
+          f"drive_session(B=1); greedy: {len(reqs) - len(gaps)}/{len(reqs)} "
+          f"equal, divergences at top-2 gaps "
+          f"{[round(g['gap'], 4) for g in gaps]} (limit {GAP_TOL})",
+          flush=True)
+
+    # 6. speculative k = 4: bf16 fp masters the target, their ternary export
+    # the draft, 8 greedy requests
+    target = TransformerRuntime(cfg.with_quant(QuantSpec(mode="none")),
+                                masters, device="cuda")
+    del masters
+    draft = speculative_draft(target)
+    plain_eng = ServeEngine(target, cfg.vocab, slots=8, max_context=P + G,
+                            prefill_chunk=32)
+    spec_eng = ServeEngine(target, cfg.vocab, slots=8, max_context=P + G,
+                           prefill_chunk=32, draft=draft, spec_k=4)
+    plain_eng.warm()
+    spec_eng.warm()
+    pc, pm = plain_eng.run([dataclasses.replace(r) for r in greedy[:8]],
+                           realtime=False)
+    sc, sm = spec_eng.run([dataclasses.replace(r) for r in greedy[:8]],
+                          realtime=False)
+    pby = {c.rid: c.tokens for c in pc}
+    match = sum(c.tokens == pby[c.rid] for c in sc)
+    out["spec"] = dict(sm, greedy_match_of_8=match, plain_tok_s=pm["agg_tok_s"])
+    print(f"  speculative k=4, bf16 target + ternary draft, 8 greedy "
+          f"requests: accept rate {sm['accept_rate']:.3f}, {match}/8 streams "
+          f"== the plain engine's greedy, {sm['agg_tok_s']:.0f} tok/s "
+          f"(plain {pm['agg_tok_s']:.0f})", flush=True)
+    del target, draft, plain_eng, spec_eng
+
+    # 7. 8 requests behind a 64-token shared prefix
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, cfg.vocab, size=64)
+    shared = [Request(prompt=np.concatenate(
+        [system, rng.integers(0, cfg.vocab, size=int(rng.integers(1, 17)))]),
+        max_tokens=16, temperature=0.8, top_k=40, seed=700 + i, rid=i)
+        for i in range(8)]
+    cached = ServeEngine(rt, cfg.vocab, slots=8, max_context=P + G,
+                         prefill_chunk=32, prefix_cache=PrefixCache(256 << 20))
+    hc = cached.run([shared[0]], realtime=False)[0]
+    hc += cached.run(shared[1:], realtime=False)[0]
+    cold = ServeEngine(rt, cfg.vocab, slots=8, max_context=P + G,
+                       prefill_chunk=32)
+    cc, _ = cold.run(shared, realtime=False)
+    cby = {c.rid: c.tokens for c in cc}
+    pst = cached.prefix_cache.stats()
+    out["prefix_cache"] = dict(pst, streams_equal_cold=sum(
+        c.tokens == cby[c.rid] for c in hc))
+    launches = dict(dispatch.LAUNCHES)
+    plain_calls = dict(dispatch.PLAIN_CALLS)
+    # ---- the counted transformer serving run ends here ----
+    if pst["hits"] < 7:
+        fail(f"qwen3 prefix cache: {pst}")
+    print(f"  prefix cache: {pst['hits']} hits of 8, {pst['hit_tokens']} "
+          f"prompt tokens spliced, entries {pst['entries']} "
+          f"({pst['bytes'] / 1e6:.1f} MB); "
+          f"{out['prefix_cache']['streams_equal_cold']}/8 streams == the "
+          f"cache-off engine", flush=True)
+    if plain_calls:
+        fail(f"plain versions ran on the transformer path: {plain_calls}")
+    for k in ("packed_gemv", "packed_matmul"):
+        if not launches.get(k):
+            fail(f"kernel {k} was never launched on the transformer path")
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    report["transformer"] = out
+    print(f"  transformer phase: {out['wall_s']:.1f} s, launches {launches}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1344,7 +1786,16 @@ def main() -> int:
     print("training:", flush=True)
     launches["quantize_pack"] = training_phase(report)["quantize_pack"]
 
-    # 8. result
+    # 8. the pipeline: train -> SIGTERM/restart -> export -> serve
+    print("pipeline:", flush=True)
+    pipeline_launches = pipeline_phase(report)
+
+    # 9. the transformer pool: qwen3-0.6B at full width
+    print("transformer:", flush=True)
+    transformer_launches = transformer_phase(report)
+    all_rows = rows + report["transformer"]["kernel_rows"]
+
+    # 10. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
@@ -1359,7 +1810,10 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "engine_launches": engine_launches.get(name, 0),
-                        "max_abs_err": max(x["max_abs_err"] for x in rows
+                        "pipeline_launches": pipeline_launches.get(name, 0),
+                        "transformer_launches":
+                            transformer_launches.get(name, 0),
+                        "max_abs_err": max(x["max_abs_err"] for x in all_rows
                                            if x["name"] == name),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

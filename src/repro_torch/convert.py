@@ -1,12 +1,14 @@
 """Carry weights and training states across from the JAX package.
 
 `from_numpy(tree)` turns the JAX serving variables, given as numpy arrays,
-into the port's: nested dicts and lists keep their shape, a packed leaf
-arrives as `{"codes": uint32 ndarray, "k", "mode", "alpha", "scale"}` and
-becomes a `QTensor` whose int32 codes hold the same words, and a
-NamedTuple with the fields of `BNParams` or `BNState` (or a dict with those
-keys) becomes the port's.  Fed the same weights, both packages compute the
-same function.
+into the port's: nested dicts, lists and tuples keep their shape (the
+transformer tree's `stack` and `tail` tuples of layer-stacked leaves and
+its `s<W>` channel-scale companions included), a packed leaf arrives as
+`{"codes": uint32 ndarray, "k", "mode", "alpha", "scale"}` and becomes a
+`QTensor` whose int32 codes hold the same words (a stacked leaf's codes
+keep their layer axis), and a NamedTuple with the fields of `BNParams` or
+`BNState` (or a dict with those keys) becomes the port's.  Fed the same
+weights, both packages compute the same function.
 
 A JAX `TrainState` (params, opt, rng, bn_state, residual) becomes the
 port's `TrainState`: params, `opt.step`/`m`/`v` and `bn_state` carry
@@ -82,6 +84,8 @@ def from_numpy(tree: Any, device: Optional[str | torch.device] = None, *,
                 cls = _NAMED[frozenset(x)]
                 return cls(*(conv(x[f]) for f in cls._fields))
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, tuple) and fields is None:
+            return tuple(conv(v) for v in x)
         if isinstance(x, (list, tuple)):
             return [conv(v) for v in x]
         return _tensor(x)
@@ -108,4 +112,6 @@ def to_numpy(tree: Any) -> Any:
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_numpy(v) for v in tree]
+    if isinstance(tree, tuple):
+        return tuple(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()

@@ -1,8 +1,10 @@
-"""Serving launcher for the paper's BN-LSTM, ported from the `--arch
-rnn-paper` path of `repro/launch/serve.py`.
+"""Serving launcher, ported from `repro/launch/serve.py`: the paper's
+BN-LSTM and the transformer pool's dense family (llama3, qwen3, gemma3).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rnn-paper --full
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --reduced --device cpu [--traffic [--spec-k 2]]
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --traffic \\
       --requests 8 --slots 3 [--spec-k 4]
   PYTHONPATH=src python -m repro_torch.launch.serve --listen --port 8700
@@ -13,7 +15,11 @@ master tree is exported once into packed QTensors and every decode tick is
 one launch of the fused CUDA kernel; prefill streams the packed codes
 through the GEMV (batch <= 8) or GEMM kernel per timestep.  The weights
 are random, drawn from --seed.  It runs on the card unless --device cpu is
-given.
+given.  A transformer arch builds random weights from --seed too
+(`models/transformer.model_init`), exported packed with
+--quant binary|ternary: every projection then runs the packed GEMV (at
+most 8 rows: decode) or GEMM (prefill); --reduced shrinks it to the
+family's smoke size, --full keeps the published widths.
 
 --traffic replays a synthetic Poisson workload with mixed prompt and
 generation lengths through the continuous-batching engine
@@ -28,8 +34,8 @@ which proposes N tokens a round; the report adds the accept rate.
 POST /v1/generate, GET /v1/stats), with hangups cancelling and a
 prefix-state cache of --prefix-cache-mb.
 
-Refused: --mesh and the transformer archs, which wait for ROADMAP Queue 1
-item 9.
+Refused: --mesh and the transformer pool's moe, ssm, hybrid, audio and
+vlm families, which wait for ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -39,18 +45,22 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs import RNN_ARCH_IDS, get_rnn_config, rnn_paper
+from repro_torch.configs import (ARCH_IDS, RNN_ARCH_IDS, get_config,
+                                  get_rnn_config, rnn_paper)
 from repro_torch.core import bnlstm as BL
+from repro_torch.core.qtensor import export_packed
 from repro_torch.core.quantize import QuantSpec
+from repro_torch.kernels import dispatch
+from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Request, ServeEngine
-from repro_torch.serve.recurrent import (RNNRuntime, drive_session,
-                                         speculative_draft)
+from repro_torch.serve.recurrent import (RNNRuntime, TransformerRuntime,
+                                         drive_session, speculative_draft)
 
 NOT_PORTED = {
     "mesh": "--mesh (a mesh-sharded engine) waits for ROADMAP Queue 1 "
             "item 9",
-    "arch": "the transformer-pool archs wait for ROADMAP Queue 1 item 9; "
-            f"the port serves {', '.join(RNN_ARCH_IDS)}",
+    "arch": "the transformer pool's moe, ssm, hybrid, audio and vlm "
+            "families wait for ROADMAP Queue 1 item 9",
 }
 
 
@@ -75,6 +85,26 @@ def build_rnn(args):
         params = BL.export_packed_rnn(params, cfg)
     rt = RNNRuntime(cfg, {"params": params, "state": var["state"]},
                     device=args.device)
+    if args.quant != "none":
+        _report_bytes(rt, args.quant)
+    return cfg, rt
+
+
+def build_transformer(args):
+    """A dense transformer-pool arch with random weights from --seed,
+    exported packed unless --quant none, behind the serving runtime."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    cfg = cfg.with_quant(QuantSpec(mode=args.quant, norm="channel")
+                         if args.quant != "none" else QuantSpec(mode="none"))
+    device = dispatch.resolve_device(args.device)
+    params = T.model_init(torch.Generator(device).manual_seed(args.seed),
+                          cfg)
+    if args.quant != "none":
+        # the train -> serve handoff: masters -> packed QTensors, once
+        params = export_packed(params, cfg.quant)
+    rt = TransformerRuntime(cfg, params, device=device)
     if args.quant != "none":
         _report_bytes(rt, args.quant)
     return cfg, rt
@@ -119,7 +149,7 @@ def run_traffic(cfg, rt, args, draft=None) -> dict:
           f"prefill chunk {args.prefill_chunk}, {rt.device})")
     print(f"aggregate decode: {m['agg_tok_s']:.1f} tok/s  "
           f"occupancy: {100 * m['occupancy']:.0f}%  "
-          f"ticks: {m['ticks']} (fused-tick calls a tick: "
+          f"ticks: {m['ticks']} (kernel calls a tick: "
           f"{m['tick_launches']})")
     print(f"latency: p50 {m['p50_latency_s']*1e3:.0f} ms  "
           f"p95 {m['p95_latency_s']*1e3:.0f} ms  |  "
@@ -179,7 +209,7 @@ def run_listen(cfg, rt, args, draft=None) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="rnn-paper",
-                    help=f"one of {', '.join(RNN_ARCH_IDS)}")
+                    choices=RNN_ARCH_IDS + ARCH_IDS)
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--quant", default="ternary",
@@ -222,9 +252,10 @@ def main(argv=None):
 
     if args.mesh:
         raise SystemExit(f"not ported yet: {NOT_PORTED['mesh']}")
-    if args.arch not in RNN_ARCH_IDS:
+    if args.arch in ARCH_IDS and get_config(args.arch).family != "dense":
         raise SystemExit(f"not ported yet: --arch {args.arch}: "
                          f"{NOT_PORTED['arch']}")
+    build = build_rnn if args.arch in RNN_ARCH_IDS else build_transformer
     if args.spec_k and not (args.traffic or args.listen):
         raise SystemExit("--spec-k is a continuous-batching engine mode; "
                          "run it with --traffic or --listen")
@@ -234,11 +265,11 @@ def main(argv=None):
         # the draft's packing (ternary when it says none)
         draft_mode = args.quant if args.quant != "none" else "ternary"
         args.quant = "none"
-        cfg, rt = build_rnn(args)
+        cfg, rt = build(args)
         draft = speculative_draft(rt, mode=draft_mode)
         _report_bytes(draft, draft_mode)
     else:
-        cfg, rt = build_rnn(args)
+        cfg, rt = build(args)
 
     if args.listen:
         return run_listen(cfg, rt, args, draft=draft)

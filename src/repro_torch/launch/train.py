@@ -17,18 +17,39 @@ Fault tolerance: SIGTERM or SIGINT => checkpoint + exit 43 (restart with
 quantization noise are functions of the step, so a restart is
 sample-exact.  Checkpoint index == completed steps == the next step to run.
 
-Not ported yet, and refused: --pipeline (train -> restart -> export ->
-serve through the engine; the engine is ported, the pipeline is the next
-PR), --compress-grads and --mesh-model (mesh training, ROADMAP Queue 1
-item 9).
+--pipeline closes the paper's loop in one command (`run_rnn_pipeline`):
+leg A trains in a child process `python -m repro_torch.launch.train`,
+takes a real SIGTERM from this parent at a logged step, exits 43 and
+resumes with --resume auto; leg B trains the same run uninterrupted; the
+two final checkpoints must be bit-equal, leaf for leaf; the trained
+masters are exported packed with frozen BN and served through the
+`ServeEngine`, every stream byte-equal to `drive_session(B=1)`; and the
+fp masters with their ternary draft measure the trained accept rate.
+The children train on the parent's --device.  Results go to
+`<--results-dir>/torch_train_rnn.json` (by default
+`results/benchmarks/`, beside the JAX package's `train_rnn.json`, which
+it never writes).  --quick: at most 60 steps, evals every 20.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --pipeline --quick \\
+      --reduced --device cpu
+
+Not ported yet, and refused: --compress-grads and --mesh-model (mesh
+training, ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
+import re
+import shutil
+import signal
+import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -49,10 +70,11 @@ from repro_torch.train.optimizer import OptConfig, PlateauLR
 from repro_torch.train.train_step import (make_rnn_eval, make_rnn_train_step,
                                           train_state_init)
 
+SRC = Path(__file__).resolve().parents[2]
+RESULTS = SRC.parent / "results" / "benchmarks"
+RESULT_NAME = "torch_train_rnn.json"  # never JAX's train_rnn.json
+
 NOT_PORTED = {
-    "pipeline": "--pipeline (train -> restart -> export -> serve through "
-                "the engine) waits only for its own PR, the first item of "
-                "ROADMAP 'Next'",
     "compress_grads": "--compress-grads waits for mesh training "
                       "(ROADMAP Queue 1 item 9)",
     "mesh_model": "--mesh-model waits for mesh training "
@@ -92,7 +114,13 @@ def build_argparser():
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu' for the plain "
                          "PyTorch versions of the kernels")
-    ap.add_argument("--pipeline", action="store_true", help=NOT_PORTED["pipeline"])
+    ap.add_argument("--pipeline", action="store_true",
+                    help="train -> SIGTERM restart -> export -> serve, "
+                         "asserted end to end (run_rnn_pipeline)")
+    ap.add_argument("--quick", action="store_true",
+                    help="CI scale for --pipeline (at most 60 steps)")
+    ap.add_argument("--results-dir", default=str(RESULTS),
+                    help=f"where --pipeline writes {RESULT_NAME}")
     ap.add_argument("--compress-grads", action="store_true",
                     help=NOT_PORTED["compress_grads"])
     ap.add_argument("--mesh-model", type=int, default=1,
@@ -137,6 +165,16 @@ def _read_curve(path: Path) -> list:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+LAUNCH_LINE = "kernel launches "
+
+
+def _print_launches() -> None:
+    """The run's kernel launches as a last log line: a parent (the
+    pipeline) sums its children's from it."""
+    print(LAUNCH_LINE + json.dumps(dict(sorted(dispatch.LAUNCHES.items()))),
+          flush=True)
 
 
 def run_rnn(args, handler=None):
@@ -224,6 +262,7 @@ def run_rnn(args, handler=None):
                 if ckpt:
                     ckpt.wait()
                     CK.save(state, args.ckpt_dir, done)
+                _print_launches()
                 sys.exit(RESTART_EXIT_CODE)
     finally:
         prefetch.close()
@@ -235,16 +274,263 @@ def run_rnn(args, handler=None):
     dt = time.time() - t_start
     print(f"done: {args.steps - start_step} steps in {dt:.1f}s "
           f"({(args.steps - start_step) / max(dt, 1e-9):.2f} steps/s)")
+    _print_launches()
     return state
+
+
+# ---------------------------------------------------------------------------
+# the one-command pipeline: train -> SIGTERM/restart -> export -> serve
+# ---------------------------------------------------------------------------
+
+
+def _child_cmd(args, ckpt_dir: Path) -> list:
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           "--arch", args.arch, "--steps", str(args.steps),
+           "--batch", str(args.batch), "--seq", str(args.seq),
+           "--lr", str(args.lr), "--warmup", str(args.warmup),
+           "--momentum", str(args.momentum), "--seed", str(args.seed),
+           "--data", args.data, "--ckpt-dir", str(ckpt_dir),
+           "--ckpt-every", str(args.ckpt_every), "--resume", "auto",
+           "--log-every", str(args.log_every),
+           "--eval-every", str(args.eval_every),
+           "--eval-batches", str(args.eval_batches),
+           "--plateau-factor", str(args.plateau_factor)]
+    if args.reduced:
+        cmd.append("--reduced")
+    if args.quant is not None:
+        cmd += ["--quant", args.quant]
+    if args.opt is not None:
+        cmd += ["--opt", args.opt]
+    if args.device is not None:
+        cmd += ["--device", args.device]
+    return cmd
+
+
+def _run_leg(cmd: list, tag: str, kill_at_step: int | None = None) -> dict:
+    """Run one training leg as a child process (this package first on its
+    path); with kill_at_step, send it a real SIGTERM once it logs that
+    step, and expect exit 43.  Returns the child's kernel launches."""
+    env = os.environ.copy()
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    killed = False
+    launches = {}
+    pat = (re.compile(rf"^step\s+{kill_at_step}\b")
+           if kill_at_step is not None else None)
+    try:
+        for line in proc.stdout:
+            print(f"  [{tag}] {line}", end="", flush=True)
+            if line.startswith(LAUNCH_LINE):
+                launches = json.loads(line[len(LAUNCH_LINE):])
+            if pat is not None and not killed and pat.match(line.strip()):
+                proc.send_signal(signal.SIGTERM)
+                killed = True
+        rc = proc.wait()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    want = RESTART_EXIT_CODE if kill_at_step is not None else 0
+    if kill_at_step is not None and not killed:
+        raise SystemExit(f"pipeline: never saw 'step {kill_at_step}' in "
+                         f"{tag} output")
+    if rc != want:
+        raise SystemExit(f"pipeline: {tag} exited {rc}, expected {want}")
+    return launches
+
+
+def _ckpt_bit_equal(a: Path, b: Path) -> bool:
+    """Leaf-for-leaf bitwise comparison of two step_<n> checkpoints."""
+    ma = json.loads((a / "manifest.json").read_text())
+    mb = json.loads((b / "manifest.json").read_text())
+    if sorted(ma["leaves"]) != sorted(mb["leaves"]):
+        return False
+    for key in ma["leaves"]:
+        xa = np.load(a / CK.SHARD / f"{key}.npy")
+        xb = np.load(b / CK.SHARD / f"{key}.npy")
+        if xa.dtype != xb.dtype or xa.shape != xb.shape:
+            return False
+        if xa.tobytes() != xb.tobytes():
+            return False
+    return True
+
+
+def run_rnn_pipeline(args) -> list:
+    """train -> checkpoint -> SIGTERM restart -> export -> serve, asserted
+    (see the module docstring).  Returns the result rows."""
+    from repro_torch.core.qtensor import tree_nbytes
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.recurrent import (RNNRuntime, drive_session,
+                                             speculative_draft)
+
+    if args.quick:
+        args.steps = min(args.steps, 60)
+        args.eval_every = min(args.eval_every, 20)
+        args.ckpt_every = min(args.ckpt_every, 10)
+    args.log_every = min(args.log_every, 10)
+    kill_at = max((args.steps // 2) // args.log_every, 1) * args.log_every
+    device = dispatch.resolve_device(args.device)
+
+    made_tmp = args.ckpt_dir is None
+    base = Path(args.ckpt_dir) if args.ckpt_dir else Path(
+        tempfile.mkdtemp(prefix="rnn_pipeline_"))
+    dir_a, dir_b = base / "interrupted", base / "straight"
+    rows = []
+    try:
+        # -- leg A: train, SIGTERM at kill_at, restart, finish -------------
+        print(f"pipeline: leg A trains {args.steps} steps with SIGTERM at "
+              f"step {kill_at}, then resumes", flush=True)
+        cmd_a = _child_cmd(args, dir_a)
+        t0 = time.time()
+        legs = [_run_leg(cmd_a, "train-A", kill_at_step=kill_at)]
+        resumed_from = CK.latest_step(dir_a)
+        legs.append(_run_leg(cmd_a, "train-A-resume"))
+        # -- leg B: the uninterrupted reference ----------------------------
+        print("pipeline: leg B trains the same run uninterrupted", flush=True)
+        legs.append(_run_leg(_child_cmd(args, dir_b), "train-B"))
+        train_s = time.time() - t0
+        child_launches = dict(sum(map(Counter, legs), Counter()))
+
+        final = f"step_{args.steps:08d}"
+        exact = _ckpt_bit_equal(dir_a / final, dir_b / final)
+        curve = _read_curve(dir_b / "val_curve.jsonl")
+        print(f"pipeline: resume bit-exact vs uninterrupted: {exact} "
+              f"(restarted from step {resumed_from})", flush=True)
+        if not exact:
+            raise SystemExit("pipeline: resumed run diverged from the "
+                             "uninterrupted reference")
+        rows.append({
+            "phase": "train+restart", "steps": args.steps,
+            "sigterm_at_step": kill_at, "resumed_from_step": resumed_from,
+            "restart_exit_code": RESTART_EXIT_CODE,
+            "resume_bit_exact": exact,
+            "val_bpc_curve": [{"step": e["step"], "val_bpc": e["val_bpc"]}
+                              for e in curve],
+            "final_val_bpc": curve[-1]["val_bpc"] if curve else None,
+            "train_wall_s": train_s,
+            "child_launches": child_launches,
+        })
+
+        # -- export the trained masters and serve them ---------------------
+        corpus = rnn_corpus(args)
+        cfg = rnn_cfg(args, corpus)
+        opt_cfg = opt_config(args)
+        var = BL.rnn_lm_init(torch.Generator().manual_seed(args.seed), cfg,
+                             device=device)
+        template = train_state_init(var["params"], opt_cfg, args.seed + 1,
+                                    bn_state=var["state"])
+        trained = CK.restore(template, dir_b, args.steps)
+
+        mode = cfg.quant.mode if cfg.quant.mode != "none" else "ternary"
+        qvar = BL.serving_variables(trained.params, trained.bn_state, cfg)
+        fp_b, packed_b = tree_nbytes(qvar["params"])
+        rt_packed = RNNRuntime(cfg, qvar, device=device)
+        print(f"pipeline: exported packed {mode} weights "
+              f"({fp_b/1e6:.2f} MB fp32 -> {packed_b/1e6:.2f} MB, "
+              f"{fp_b/max(packed_b, 1):.1f}x), BN statistics frozen",
+              flush=True)
+
+        # byte parity: the engine's streams against drive_session(B=1)
+        rng = np.random.default_rng(7)
+        reqs = [Request(prompt=rng.integers(0, cfg.vocab,
+                                            size=int(rng.integers(2, 10))),
+                        max_tokens=int(rng.integers(2, 9)),
+                        temperature=0.8, top_k=5, seed=100 + i, rid=i)
+                for i in range(5)]
+        eng = ServeEngine(rt_packed, cfg.vocab, slots=2, max_context=64,
+                          prefill_chunk=4)
+        comps, _ = eng.run([dataclasses.replace(r) for r in reqs],
+                           realtime=False)
+        by_rid = {c.rid: c for c in comps}
+        for r in reqs:
+            out, _ = drive_session(
+                rt_packed, torch.as_tensor(np.asarray(r.prompt, np.int64))[None],
+                cfg.vocab, gen=r.max_tokens, temperature=r.temperature,
+                top_k=r.top_k, seed=r.seed)
+            if by_rid[r.rid].tokens != out[0].tolist():
+                raise SystemExit(f"pipeline: engine stream for request "
+                                 f"{r.rid} diverged from drive_session(B=1)")
+        print(f"pipeline: ServeEngine byte parity vs drive_session(B=1) over "
+              f"{len(reqs)} requests", flush=True)
+        rows.append({"phase": "export+serve", "quant": mode,
+                     "fp32_mb": fp_b / 1e6, "packed_mb": packed_b / 1e6,
+                     "engine_byte_parity": True,
+                     "parity_requests": len(reqs)})
+
+        # trained-master speculation: fp target, packed draft, greedy
+        fp_cfg = dataclasses.replace(cfg, quant=QuantSpec(mode="none"))
+        rt_fp = RNNRuntime(fp_cfg, {"params": trained.params,
+                                    "state": trained.bn_state},
+                           device=device)
+        draft = speculative_draft(rt_fp, mode=mode)
+        prompt_len, gen, spec_k = 6, 32 if args.quick else 48, 4
+        greedy = [Request(prompt=rng.integers(0, cfg.vocab, size=prompt_len),
+                          max_tokens=gen, temperature=0.0, top_k=0,
+                          seed=500 + i, rid=i) for i in range(4)]
+        ctx = prompt_len + gen
+        plain = ServeEngine(rt_fp, cfg.vocab, slots=1, max_context=ctx,
+                            prefill_chunk=8)
+        spec = ServeEngine(rt_fp, cfg.vocab, slots=1, max_context=ctx,
+                           prefill_chunk=8, draft=draft, spec_k=spec_k)
+        plain.warm()
+        spec.warm()
+        pc, mp = plain.run([dataclasses.replace(r) for r in greedy],
+                           realtime=False)
+        sc, ms = spec.run([dataclasses.replace(r) for r in greedy],
+                          realtime=False)
+        pby = {c.rid: c.tokens for c in pc}
+        if any(c.tokens != pby[c.rid] for c in sc):
+            raise SystemExit("pipeline: speculative greedy streams differ "
+                             "from plain greedy")
+        print(f"pipeline: trained-master speculation k={spec_k} accept rate "
+              f"{ms['accept_rate']:.3f}, {ms['agg_tok_s']:.0f} tok/s spec vs "
+              f"{mp['agg_tok_s']:.0f} plain", flush=True)
+        if not args.quick and ms["accept_rate"] <= 0.6:
+            raise SystemExit(f"pipeline: trained accept rate "
+                             f"{ms['accept_rate']:.3f} <= 0.6")
+        rows.append({"phase": "speculation", "spec_k": spec_k,
+                     "accept_rate": ms["accept_rate"],
+                     "drafted_tokens": ms["drafted_tokens"],
+                     "greedy_equal_plain": True,
+                     "plain_tok_s": mp["agg_tok_s"],
+                     "spec_tok_s": ms["agg_tok_s"],
+                     "asserted": not args.quick})
+    finally:
+        if made_tmp:
+            shutil.rmtree(base, ignore_errors=True)
+
+    results = Path(args.results_dir)
+    results.mkdir(parents=True, exist_ok=True)
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    payload = {"meta": {"arch": args.arch, "reduced": args.reduced,
+                        "hidden": cfg.d_hidden, "vocab": cfg.vocab,
+                        "cell": cfg.cell, "quant": cfg.quant.mode,
+                        "corpus": args.data, "steps": args.steps,
+                        "batch": args.batch, "seq": args.seq,
+                        "opt": opt_cfg.kind, "lr": args.lr,
+                        "quick": args.quick, "device": kind,
+                        "note": "synthetic corpus: relative claims only; "
+                                "absolute BPC is not comparable to the "
+                                "paper's tables"},
+               "rows": rows}
+    out = results / RESULT_NAME
+    out.write_text(json.dumps(payload, indent=1))
+    print(f"pipeline: wrote {out}", flush=True)
+    return rows
 
 
 def main(argv=None, handler=None):
     args = build_argparser().parse_args(argv)
-    asked = {"pipeline": args.pipeline, "compress_grads": args.compress_grads,
+    asked = {"compress_grads": args.compress_grads,
              "mesh_model": args.mesh_model != 1}
     for flag, on in asked.items():
         if on:
             raise SystemExit(f"not ported yet: {NOT_PORTED[flag]}")
+    if args.pipeline:
+        return run_rnn_pipeline(args)
     return run_rnn(args, handler)
 
 

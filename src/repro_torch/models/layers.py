@@ -1,0 +1,243 @@
+"""Shared transformer building blocks, ported from `repro/models/layers.py`:
+RMSNorm, RoPE, query-chunked grouped-query attention (full and sliding
+window) and the SwiGLU MLP.
+
+Every weight matmul goes through `kernels.ops.serve_matmul`, which takes
+an fp weight or a packed `QTensor` (the GEMV for at most 8 rows, the GEMM
+for more), so the layer code serves either tree.  On the CPU it computes
+row by row, so a row's bits do not depend on how many rows share the call
+(the engine's byte parity).  Attention is two batched products a layer;
+each has at least two rows a head group (G = Hq / Hkv >= 2 in the dense
+family), where the CPU's library rounds a row alike at any row count, and
+on the card it is cuBLAS, whose rounding may depend on the row count.
+
+Attention is plain tensor code, as it is in the JAX package (no Pallas
+kernel there, no library attention kernel here): fp32 logits, GQA grouped
+as (Hkv, G) without repeating K/V, `kv_pos < 0` masked, causal and
+window masks, an optional tanh softcap.
+
+Not ported: cross-attention (`kv_src`, `xgate`), the GeLU MLP and
+`sinusoidal_positions` (the audio and VLM families, ROADMAP Queue 1 item
+9), and the mesh `constrain` calls.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.qlinear import maybe_scale, scaled, winit
+from repro_torch.kernels.ops import serve_matmul
+
+NEG_INF = -1e30
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """Gemma-style RMSNorm, `1 + scale`, in fp32 inside."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale)).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Half-split rotary embedding.  x (..., S, H, hd); positions (S,) or
+    broadcastable to x's S axis ((B, S) per row)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    ar = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    freqs = torch.exp(-log_theta * ar / half)
+    ang = positions.float()[..., None] * freqs          # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :]               # over heads
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# scaled dot product with flexible masking, fp32 softmax
+# ---------------------------------------------------------------------------
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
+          window: int, softcap: float = 0.0) -> torch.Tensor:
+    """q (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd) with Hq % Hkv == 0; q_pos
+    (Sq,) or (B, Sq) and kv_pos (Skv,) or (B, Skv) absolute positions,
+    kv_pos < 0 marking unwritten cache slots.  GQA groups the q heads as
+    (Hkv, G) instead of repeating K/V."""
+    B, Sq, Hq, hd = q.shape
+    Hkv, Skv = k.shape[2], k.shape[1]
+    G = Hq // Hkv
+    # rows (g, q) of one kv head share its keys: (B, Hkv, G*Sq, hd)
+    qg = q.reshape(B, Sq, Hkv, G, hd).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, G * Sq, hd)
+    logits = (qg.float() @ k.permute(0, 2, 3, 1).float()) * (hd ** -0.5)
+    logits = logits.reshape(B, Hkv, G, Sq, Skv)
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    qp = q_pos if q_pos.dim() == 2 else q_pos[None]     # (B|1, Sq)
+    kp = kv_pos if kv_pos.dim() == 2 else kv_pos[None]  # (B|1, Skv)
+    mask = kp[:, None, :] >= 0
+    if causal:
+        mask = mask & (kp[:, None, :] <= qp[:, :, None])
+    if window > 0:
+        mask = mask & (kp[:, None, :] > qp[:, :, None] - window)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full((), NEG_INF, device=logits.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype).reshape(
+        B, Hkv, G * Sq, Skv)
+    o = probs @ v.permute(0, 2, 1, 3)
+    return o.reshape(B, Hkv, G, Sq, hd).permute(0, 3, 1, 2, 4).reshape(
+        B, Sq, Hq, hd)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, q_offset=0,
+              kv_pos: Optional[torch.Tensor] = None, chunk: int = 1024,
+              softcap: float = 0.0) -> torch.Tensor:
+    """Grouped-query attention with query chunking.
+
+    q (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd).  `q_offset` is the absolute
+    position of q[0]: an int, a 0-dim tensor, or (B,) when every row sits
+    at its own depth.  `kv_pos` gives the cache slots' absolute positions
+    ((Skv,) or (B, Skv)); it defaults to arange(Skv).  A query length that
+    is a multiple of `chunk` (and longer) runs chunk by chunk, which bounds
+    the logits' memory; a sliding window then also slices the keys."""
+    B, Sq, Hq, hd = q.shape
+    Skv = k.shape[1]
+    dev = q.device
+    if kv_pos is None:
+        kv_pos = torch.arange(Skv, dtype=torch.int32, device=dev)
+    off = torch.as_tensor(q_offset, dtype=torch.int32, device=dev)
+    ar = torch.arange(Sq, dtype=torch.int32, device=dev)
+    q_pos = off[:, None] + ar if off.dim() == 1 else off + ar
+    batched = q_pos.dim() == 2 or kv_pos.dim() == 2
+
+    if Sq <= chunk or Sq % chunk != 0:
+        return _sdpa(q, k, v, q_pos, kv_pos, causal=causal, window=window,
+                     softcap=softcap)
+
+    # the window's key slice needs one start per chunk, so it stays off
+    # when positions are per row
+    use_slice = window > 0 and Skv > window + chunk and causal and not batched
+    kv_span = window + chunk if use_slice else Skv
+    outs = []
+    for i in range(Sq // chunk):
+        qi = q[:, i * chunk:(i + 1) * chunk]
+        qp = q_pos[..., i * chunk:(i + 1) * chunk]
+        if use_slice:
+            start = min(max(int(off) + i * chunk - window + 1, 0),
+                        Skv - kv_span)
+            ki, vi = k[:, start:start + kv_span], v[:, start:start + kv_span]
+            kp = start + torch.arange(kv_span, dtype=torch.int32, device=dev)
+        else:
+            ki, vi, kp = k, v, kv_pos
+        outs.append(_sdpa(qi, ki, vi, qp, kp, causal=causal, window=window,
+                          softcap=softcap))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# attention layer (params + apply)
+# ---------------------------------------------------------------------------
+
+
+def attn_init(gen: torch.Generator, cfg) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    dev = gen.device
+    p = {
+        "Wq": winit(gen, (d, cfg.n_heads * hd)),
+        "Wk": winit(gen, (d, cfg.n_kv * hd)),
+        "Wv": winit(gen, (d, cfg.n_kv * hd)),
+        "Wo": winit(gen, (cfg.n_heads * hd, d)),
+    }
+    for n, dout in (("Wq", cfg.n_heads * hd), ("Wk", cfg.n_kv * hd),
+                    ("Wv", cfg.n_kv * hd), ("Wo", d)):
+        maybe_scale(p, n, cfg.quant, dout, dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), device=dev)
+        p["k_norm"] = torch.zeros((hd,), device=dev)
+    return p
+
+
+def attn_q(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Query projection only."""
+    B, S, _ = x.shape
+    q = scaled(serve_matmul(x, p["Wq"]), p, "Wq", cfg.quant)
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    return q
+
+
+def attn_kv(p: dict, src: torch.Tensor, cfg):
+    """Key/value projections (the cache fill)."""
+    B, S, _ = src.shape
+    k = scaled(serve_matmul(src, p["Wk"]), p, "Wk", cfg.quant)
+    v = scaled(serve_matmul(src, p["Wv"]), p, "Wv", cfg.quant)
+    k = k.reshape(B, S, cfg.n_kv, cfg.hd)
+    v = v.reshape(B, S, cfg.n_kv, cfg.hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"])
+    return k, v
+
+
+def attn_qkv(p: dict, x: torch.Tensor, cfg):
+    """Project x to (q, k, v)."""
+    q = attn_q(p, x, cfg)
+    k, v = attn_kv(p, x, cfg)
+    return q, k, v
+
+
+def attn_out(p: dict, o: torch.Tensor, cfg) -> torch.Tensor:
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, cfg.n_heads * cfg.hd)
+    return scaled(serve_matmul(o, p["Wo"]), p, "Wo", cfg.quant)
+
+
+def attn_apply(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention over a whole sequence (the uncached forward)."""
+    B, S, _ = x.shape
+    q, k, v = attn_qkv(p, x, cfg)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    window = cfg.window if kind == "local" or (
+        kind == "full" and cfg.window and cfg.swa_all) else 0
+    o = attention(q, k, v, causal=cfg.causal, window=window,
+                  chunk=cfg.attn_chunk, softcap=cfg.attn_softcap)
+    return attn_out(p, o, cfg)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen: torch.Generator, cfg) -> dict:
+    """The SwiGLU MLP's weights (the GeLU MLP is the audio family's)."""
+    if cfg.mlp != "swiglu":
+        raise NotImplementedError(
+            f"the {cfg.mlp} MLP (the audio family) waits for ROADMAP Queue 1 "
+            f"item 9")
+    d, ff = cfg.d_model, cfg.d_ff
+    p = {"Wgate": winit(gen, (d, ff)), "Wup": winit(gen, (d, ff)),
+         "Wdown": winit(gen, (ff, d))}
+    for n, dout in (("Wgate", ff), ("Wup", ff), ("Wdown", d)):
+        maybe_scale(p, n, cfg.quant, dout, gen.device)
+    return p
+
+
+def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    g = scaled(serve_matmul(x, p["Wgate"]), p, "Wgate", cfg.quant)
+    u = scaled(serve_matmul(x, p["Wup"]), p, "Wup", cfg.quant)
+    return scaled(serve_matmul(F.silu(g) * u, p["Wdown"]), p, "Wdown",
+                  cfg.quant)

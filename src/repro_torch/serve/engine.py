@@ -1,7 +1,8 @@
 """Continuous-batching serve engine, ported from `repro/serve/engine.py`
-for the paper's RNN family on one device.
+for the paper's RNN family and the dense transformer family on one device.
 
-`ServeEngine` owns a fixed pool of B slots over an `RNNRuntime` and turns
+`ServeEngine` owns a fixed pool of B slots over an `RNNRuntime` or a
+`TransformerRuntime` (serve/recurrent.py) and turns
 the lockstep prefill -> decode loop into mixed-length traffic serving:
 
   * requests are admitted from a priority queue as slots free up;
@@ -18,7 +19,8 @@ the lockstep prefill -> decode loop into mixed-length traffic serving:
     (`Completion.t_first` is the real time to first token); the slot then
     turns live and decodes;
   * slots retire on EOS or on the request's max tokens and are scrubbed
-    (h, c and pos zeroed) before the next occupant prefills into them;
+    (an RNN row's h, c and pos zeroed, a cache row's pos zeroed so its
+    bytes read as unwritten) before the next occupant prefills into them;
   * `submit`, `step` and `cancel(rid)` make the scheduler resumable, as the
     front door (serve/frontdoor.py) drives it; `run()` is a loop over them.
 
@@ -35,26 +37,36 @@ Speculative decoding replaces the tick with a draft-verify-accept round: a
 packed draft runtime with its own slot pool proposes `spec_k` tokens a
 live slot (spec_k + 1 draft ticks), the fp target verifies them in one
 multi-token step, and rejection sampling commits each slot's accepted
-prefix in both pools (a select over the per-step states).  At temperature
-0 the streams are those of plain greedy decoding, byte for byte.
+prefix in both pools (the RNN's a select over its per-step states, a
+transformer's the snapshot's bytes restored past it).  At temperature 0
+the streams are those of plain greedy decoding, byte for byte.
 
 With a `PrefixCache` (serve/prefixcache.py), admission splices the longest
-cached prompt prefix into the slot (two (L, H) row copies) instead of
-prefilling it, and every full chunk that lands offers the slot's state
-back at its chunk-boundary offset.
+cached prompt prefix into the slot (two (L, H) row copies for the RNN, the
+prefix's kv columns for a transformer) instead of prefilling it, and every
+full chunk that lands offers the slot's state back at its chunk-boundary
+offset.
+
+Slot surgery goes through the family's own row helpers: `bnlstm`'s
+`rnn_gather_slot`/`rnn_write_slots`/`rnn_reset_slots` for the RNN state,
+and `tree_gather_slot`/`tree_write_slot`/`tree_reset_slots` below (JAX's
+generic ones, over `AttnCache` nodes) for the transformer caches.
 
 What JAX's engine has and this one does not: jit trace counters
 (`tick_traces`, `prefill_traces`, `spec_traces`, `splice_traces`), since
 PyTorch runs eagerly and traces nothing; in their place `tick_launches`
-counts the fused-tick calls a tick makes (1 on a packed tree, spec_k + 1
-for the draft of a speculative round).  Nor does it pad a prompt's last
+counts the kernel calls a tick makes (1 fused tick on a packed RNN, one
+packed GEMV a projection on a packed transformer; for a speculative round,
+those of its spec_k + 1 draft ticks).  Nor does it pad a prompt's last
 chunk to a power-of-two bucket (`declared_buckets`): JAX pads so that its
 prefill jit traces once per bucket, and here a pad step would be one more
 recurrent step on the device, so every chunk runs at its own length and
 `prefill_steps` counts prompt tokens.  `warm()` runs a chunk and a
 throwaway request before the clock starts.  Refused: a device mesh
-(`mesh=`, with `tick_hlo`) and transformer runtimes, which wait for ROADMAP
-Queue 1 item 9.
+(`mesh=`, with `tick_hlo`) and the transformer pool's other families and
+runtimes with `extras` (cross-attention sources), which wait for ROADMAP
+Queue 1 item 9; a prefix cache over ring (sliding-window) caches, whose
+live window need not start at column 0.
 """
 from __future__ import annotations
 
@@ -68,7 +80,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import bnlstm as BL
+from repro_torch.core.qtensor import tree_map
 from repro_torch.kernels import dispatch
+from repro_torch.serve.kvcache import (AttnCache, cache_gather_slot,
+                                       cache_reset_slots, cache_write_slot)
+from repro_torch.serve.prefixcache import narrow_state, widen_state
 from repro_torch.serve.sampler import DRAFT, sample_slots, spec_accept
 
 
@@ -135,14 +151,53 @@ class _Active:
     cached: int         # tokens a prefix-cache splice made unnecessary
 
 
+# ---------------------------------------------------------------------------
+# generic slot surgery over transformer state trees
+# ---------------------------------------------------------------------------
+
+
+def _cache(node) -> AttnCache:
+    if not isinstance(node, AttnCache):
+        raise TypeError(f"the port's transformer states hold attention "
+                        f"caches only, got {type(node).__name__}")
+    return node
+
+
+def tree_write_slot(pool, sub, slot: int):
+    """Copy a batch-1 state tree into row `slot` of every pool node, in
+    place (`kvcache.cache_write_slot`), and return the pool."""
+    return tree_map(lambda p, s: cache_write_slot(_cache(p), s, slot),
+                    pool, sub)
+
+
+def tree_gather_slot(pool, slot: int):
+    """Row `slot` of every pool node as a batch-1 state tree of views (the
+    read half of in-slot chunked prefill); `tree_write_slot` of it is the
+    identity."""
+    return tree_map(lambda p: cache_gather_slot(_cache(p), slot), pool)
+
+
+def tree_reset_slots(pool, slots: Sequence[int]):
+    """Scrub rows `slots`: every cache keeps its bytes and drops the rows'
+    pos to 0, so a freed slot reads like a fresh one.  In place."""
+    return tree_map(lambda p: cache_reset_slots(_cache(p), slots), pool)
+
+
+def _clone(state):
+    """A copy of a (gathered) state: the pool row changes in place."""
+    return tree_map(lambda x: x._replace(k=x.k.clone(), v=x.v.clone(),
+                                         pos=x.pos.clone())
+                    if isinstance(x, AttnCache) else x.clone(), state)
+
+
 def _tick_calls() -> int:
-    """Fused-tick calls so far: kernel launches on the card, plain-version
-    calls on the CPU."""
-    return dispatch.LAUNCHES["fused_tick"] + dispatch.PLAIN_CALLS["fused_tick"]
+    """Kernel calls so far: launches on the card, plain-version calls on
+    the CPU."""
+    return sum(dispatch.LAUNCHES.values()) + sum(dispatch.PLAIN_CALLS.values())
 
 
 class ServeEngine:
-    """Slotted continuous-batching scheduler over one `RNNRuntime`.
+    """Slotted continuous-batching scheduler over one serving runtime.
 
     eng = ServeEngine(rt, vocab, slots=8, max_context=512, prefill_chunk=32)
     completions, metrics = eng.run(requests)
@@ -176,11 +231,15 @@ class ServeEngine:
             raise NotImplementedError(
                 "a mesh-sharded engine (and tick_hlo) is not ported: it waits "
                 "for ROADMAP Queue 1 item 9")
-        if getattr(rt, "family", None) != "rnn" or getattr(rt, "extras", None):
+        family = getattr(rt, "family", None)
+        if family not in ("rnn", "transformer") or getattr(rt, "extras", None):
             raise NotImplementedError(
-                "the port's engine schedules the RNN family only; "
-                "transformer and cross-attention runtimes wait for ROADMAP "
-                "Queue 1 item 9")
+                "the port's engine schedules the RNN and dense transformer "
+                "families; cross-attention (extras) and other runtimes wait "
+                "for ROADMAP Queue 1 item 9")
+        if prefix_cache is not None and getattr(rt, "ring_caches", False):
+            raise ValueError("a prefix cache needs non-ring caches: a ring's "
+                             "live window need not start at column 0")
         if slots < 1:
             raise ValueError("need at least one slot")
         if prefill_chunk < 1:
@@ -208,6 +267,12 @@ class ServeEngine:
                                  f"{rt.device}")
         self.rt = rt
         self.device = rt.device
+        if family == "rnn":
+            self._gather, self._write, self._reset = (
+                BL.rnn_gather_slot, BL.rnn_write_slots, BL.rnn_reset_slots)
+        else:
+            self._gather, self._write, self._reset = (
+                tree_gather_slot, tree_write_slot, tree_reset_slots)
         self.vocab = int(vocab)
         self.n_slots = int(slots)
         self.max_context = int(max_context)
@@ -246,7 +311,7 @@ class ServeEngine:
         self._t0 = time.perf_counter()
 
         self.ticks = 0
-        self.tick_launches = -1   # fused-tick calls of the last tick
+        self.tick_launches = -1   # kernel calls of the last tick
         self.prefill_chunks = 0   # prompt chunks run
         self.prefill_steps = 0    # prompt tokens they ran
         self._occupancy_sum = 0.0
@@ -464,8 +529,9 @@ class ServeEngine:
              step), proposal k drawn at token counter count + k;
           2. the target verifies all of them in one multi-token step;
           3. `spec_accept` runs the rejection rule per slot;
-          4. both pools commit each slot's accepted prefix (a select over
-             the per-step states).
+          4. both pools commit each slot's accepted prefix (the RNN a
+             select over the per-step states, a transformer's caches the
+             snapshot's bytes restored past it).
 
         Dead slots stay frozen: masked in every tick, accepted count forced
         to 0 (the commit keeps their rows), pending and counter unmoved.
@@ -475,6 +541,7 @@ class ServeEngine:
         samp = dict(temperature=self._temp, top_k=self._topk,
                     vocab=self.vocab)
         calls = _tick_calls()
+        dsnap = self.draft.spec_snapshot(self.draft_pool, K + 1)
         dst, tok = self.draft_pool, pending
         qlg, dtoks, dem = [], [], []
         for k in range(K + 1):
@@ -498,7 +565,7 @@ class ServeEngine:
         n_acc = torch.where(live, n_acc, torch.zeros_like(n_acc))
         self.pool = self.rt.spec_commit(self.pool, vafter, vsnap, vemits,
                                         n_acc)
-        self.draft_pool = self.draft.spec_commit(self.draft_pool, dst, (),
+        self.draft_pool = self.draft.spec_commit(self.draft_pool, dst, dsnap,
                                                  demits, n_acc)
         last = (n_acc.long() - 1).clamp_min(0)[:, None]
         self._pending = torch.where(live, out.gather(1, last)[:, 0], pending)
@@ -510,13 +577,13 @@ class ServeEngine:
         gather the slot row, run the chunk, write the row back.  Returns
         the first-token logits (1, V)."""
         tokens = self._upload(chunk)[None]
-        sub = BL.rnn_gather_slot(self.pool, slot)
+        sub = self._gather(self.pool, slot)
         logits, sub = self.rt.prefill_chunk(tokens, sub)
-        self.rt.write_slots(self.pool, sub, slot)
+        self._write(self.pool, sub, slot)
         if self.spec:
-            dsub = BL.rnn_gather_slot(self.draft_pool, slot)
+            dsub = self._gather(self.draft_pool, slot)
             _, dsub = self.draft.prefill_chunk(tokens, dsub)
-            self.draft.write_slots(self.draft_pool, dsub, slot)
+            self._write(self.draft_pool, dsub, slot)
         self.prefill_chunks += 1
         self.prefill_steps += int(chunk.size)
         return logits
@@ -554,10 +621,12 @@ class ServeEngine:
             if entry is not None and self.spec and entry.draft_state is None:
                 cached, entry = 0, None  # stored by a plain engine: no draft
             if entry is not None:        # half to keep in step
-                self.rt.write_slots(self.pool, entry.state, slot)
+                self._write(self.pool, widen_state(entry.state, self.pool),
+                            slot)
                 if self.spec:
-                    self.draft.write_slots(self.draft_pool,
-                                           entry.draft_state, slot)
+                    self._write(self.draft_pool,
+                                widen_state(entry.draft_state,
+                                            self.draft_pool), slot)
         C = self.prefill_chunk
         chunks = deque(prompt[i:i + C].astype(np.int64)
                        for i in range(cached, prompt.size, C))
@@ -569,14 +638,15 @@ class ServeEngine:
 
     def _offer_snapshot(self, slot: int, act: _Active) -> None:
         """Offer the slot's state at the chunk boundary it just reached to
-        the prefix cache (a copy: the pool row changes in place)."""
+        the prefix cache: a copy (the pool row changes in place) of only the
+        written history (`narrow_state`)."""
         prefix = act.prompt[:act.off]
         if self.prefix_cache.contains(prefix):
             return
-        copy = lambda st: BL.RNNState(*(t.clone() for t in st))
-        sub = copy(BL.rnn_gather_slot(self.pool, slot))
-        dsub = (copy(BL.rnn_gather_slot(self.draft_pool, slot))
-                if self.spec else None)
+        keep = lambda pool: _clone(narrow_state(self._gather(pool, slot),
+                                                act.off))
+        sub = keep(self.pool)
+        dsub = keep(self.draft_pool) if self.spec else None
         self.prefix_cache.insert(prefix, sub, dsub)
 
     def _prefill_step(self):
@@ -626,12 +696,12 @@ class ServeEngine:
         self._live_host[slot] = False
 
     def _scrub(self, slots: Sequence[int]) -> None:
-        """Zero the freed slots' rows (both pools in speculative mode) and
+        """Scrub the freed slots' rows (both pools in speculative mode) and
         clear their device live bits: the next occupant prefills into the
         row, so it must read like a fresh one."""
-        BL.rnn_reset_slots(self.pool, slots)
+        self._reset(self.pool, slots)
         if self.spec:
-            BL.rnn_reset_slots(self.draft_pool, slots)
+            self._reset(self.draft_pool, slots)
         for s in slots:
             self._live[s] = False
 

@@ -1,12 +1,12 @@
 """Prefix-state cache for the serving front door, ported from
-`repro/serve/prefixcache.py` for the RNN family.
+`repro/serve/prefixcache.py`.
 
 Shared-prefix traffic (a system prompt repeated across requests) is where
-the RNN's O(1) carried state pays off hardest: a cached prefix is one
-(L, H) h/c row pair, and resuming from it is one `rnn_write_slots` row copy
-instead of prefilling the prefix again.  (JAX's `narrow_state` and
-`widen_state` trim and refill attention caches; for an RNN state both are
-the identity, so they are gone.)
+carried state pays off: a cached prefix of the RNN is one (L, H) h/c row
+pair, and resuming from it is one row copy instead of prefilling the
+prefix again.  A transformer's cached prefix is its slot's kv caches
+trimmed to the prefix's columns (`narrow_state`); the splice zero-fills
+them back to the pool's capacity (`widen_state`) and copies the row.
 
 The cache is keyed on a digest of the token-id prefix at chunk
 boundaries, the offsets where the engine's chunked prefill holds a whole,
@@ -33,11 +33,17 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.qtensor import tree_map
+from repro_torch.serve.kvcache import AttnCache, cache_narrow, cache_widen
+
 
 def tree_bytes(tree: Any) -> int:
-    """Bytes of every tensor or array in a (nested tuple/list/dict) state."""
+    """Bytes of every tensor or array in a (nested tuple/list/dict) state,
+    attention caches included."""
     if tree is None:
         return 0
+    if isinstance(tree, AttnCache):
+        return tree_bytes((tree.k, tree.v, tree.pos))
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     if isinstance(tree, np.ndarray):
@@ -49,10 +55,32 @@ def tree_bytes(tree: Any) -> int:
     return 0
 
 
+def narrow_state(sub: Any, p: int) -> Any:
+    """Narrow a gathered batch-1 slot state for storage: attention caches
+    keep only their first `p` kv columns (views; the caller copies); the
+    RNN's O(1) leaves are already minimal and pass through."""
+    return tree_map(lambda l: cache_narrow(l, p)
+                    if isinstance(l, AttnCache) else l, sub)
+
+
+def widen_state(sub: Any, pool: Any) -> Any:
+    """Zero-fill narrowed attention caches back to the pool's capacity (the
+    cap axis of `pool`'s matching node), so a splice is the same full-row
+    copy admission uses; other leaves pass through."""
+    def widen(l, ref):
+        if not isinstance(l, AttnCache):
+            return l
+        ax = l.pos.dim()
+        shape = list(l.k.shape)
+        shape[ax] = ref.k.shape[ax]
+        return cache_widen(l, tuple(shape))
+    return tree_map(widen, sub, pool)
+
+
 @dataclasses.dataclass
 class PrefixEntry:
     tokens: np.ndarray          # the exact ids hashed: the poison guard
-    state: Any                  # batch-1 target state (a copy, on device)
+    state: Any                  # narrowed batch-1 target state (a copy)
     draft_state: Optional[Any]  # the draft's (speculative engines)
     nbytes: int
 

@@ -1,26 +1,30 @@
-"""Recurrent serving runtime for the paper's BN-LSTM/GRU, ported from the
-RNN half of `repro/serve/recurrent.py`:
+"""Serving runtimes, ported from `repro/serve/recurrent.py`: one stateful
+prefill/decode interface over the paper's BN-LSTM/GRU and the transformer
+pool's dense family.
 
-    rt = RNNRuntime(cfg, variables)            # on the card by default
-    state = rt.init_state(batch)
+    rt = serving_runtime(cfg, params)          # on the card by default
+    state = rt.init_state(batch, context)
     logits, state = rt.prefill(tokens, state)  # (B, V) last-token logits
     logits, state = rt.decode_step(tok, state) # tok: (B,) int
 
-The runtime moves the variables to its device and builds the decode tables
-once (frozen-BN affines, the BN-folded layer-0 row table, the stacked
-whole-tick artifact), so a packed tree decodes through one fused-kernel
-launch per tick with no per-call preparation.  `drive_session` is the
-canonical prefill -> sample -> decode loop the launcher and the chip smoke
-drive.
+`RNNRuntime` moves the variables to its device and builds the decode
+tables once (frozen-BN affines, the BN-folded layer-0 row table, the
+stacked whole-tick artifact), so a packed tree decodes through one
+fused-kernel launch per tick.  `TransformerRuntime` holds the parameter
+tree (fp masters or a packed export) and prepares its serving tree once
+(`transformer._serve_quant`: quantized, cast to the compute dtype,
+per-layer views), so no step re-casts a weight; its state is the stacked
+kv caches.  `drive_session` is the canonical prefill -> sample -> decode
+loop the launchers and the chip smoke drive.
 
-The runtime also carries the continuous-batching engine's hooks
-(`serve/engine.py`): `init_state(per_slot=True)`, `decode_fn` with a `live`
-mask, `prefill_chunk`, `write_slots`, and the
-speculative `spec_snapshot`/`spec_emit`/`verify`/`spec_commit`.  JAX's
-`jit_prm` (the weights threaded into the engine's jits as an argument, so
-XLA cannot fold them) has no counterpart: PyTorch runs eagerly and folds
-nothing.  `speculative_draft` packs an fp target's own masters into a
-ternary/binary draft runtime.
+Both carry the continuous-batching engine's hooks (`serve/engine.py`):
+`init_state(per_slot=True)`, `decode_fn` with a `live` mask,
+`prefill_chunk`, and the speculative
+`spec_snapshot`/`spec_emit`/`verify`/`spec_commit`.  JAX's `jit_prm` (the
+weights threaded into the engine's jits as an argument, so XLA cannot fold
+them) has no counterpart: PyTorch runs eagerly and folds nothing.
+`speculative_draft` packs an fp target's own masters into a ternary/binary
+draft runtime.
 """
 from __future__ import annotations
 
@@ -32,17 +36,19 @@ import numpy as np
 import torch
 
 from repro_torch.core import bnlstm as BL
-from repro_torch.core.qtensor import (is_qtensor, tree_leaves, tree_nbytes,
-                                      tree_to)
+from repro_torch.core.qtensor import (export_packed, is_qtensor, tree_leaves,
+                                      tree_map, tree_nbytes, tree_to)
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.kernels import dispatch
+from repro_torch.models import transformer as T
+from repro_torch.serve.kvcache import cache_spec_commit, cache_spec_snapshot
+from repro_torch.serve.prefixcache import tree_bytes
 from repro_torch.serve.sampler import SAMPLE, draw_batch, gumbel, sample
 
 
 def state_nbytes(state: Any) -> int:
-    """Bytes a session's recurrent state occupies."""
-    return sum(t.numel() * t.element_size() for t in tree_leaves(state)
-               if isinstance(t, torch.Tensor))
+    """Bytes a session's state occupies (h/c vectors or kv caches)."""
+    return tree_bytes(state)
 
 
 class RNNRuntime:
@@ -94,9 +100,6 @@ class RNNRuntime:
         return BL.rnn_prefill_chunk(self.variables, tokens, self.cfg, state,
                                     tables=self.tables)
 
-    def write_slots(self, state: BL.RNNState, sub: BL.RNNState, slots):
-        return BL.rnn_write_slots(state, sub, slots)
-
     # Rollback is the O(1) state again: each step of a draft or verify span
     # emits its (h, c), and committing n tokens selects from the stack, so
     # there is nothing to snapshot.
@@ -125,38 +128,120 @@ class RNNRuntime:
         return tree_nbytes(self.variables["params"])
 
 
-def serving_runtime(cfg, variables: dict, **kw) -> RNNRuntime:
+class TransformerRuntime:
+    """Serving session of the transformer pool's dense family (llama3,
+    qwen3, gemma3).  `params` is the model's tree, fp masters or a packed
+    export (`core.qtensor.export_packed`); the state is the stacked kv
+    caches of `transformer.init_caches`."""
+
+    family = "transformer"
+
+    def __init__(self, cfg, params: dict, *,
+                 device: Optional[str | torch.device] = None):
+        T.check_dense(cfg)
+        self.cfg = cfg
+        self.device = dispatch.resolve_device(device)
+        self.params = tree_to(params, self.device)
+        self.served = T._serve_quant(self.params, cfg)
+        # every dense kind's math is per token given the cache, so any
+        # split of a prompt into chunks is exact.  Ring (sliding-window)
+        # caches recycle columns, so neither a rejected speculative span
+        # nor a prefix snapshot can be cut back out of them.
+        pat, _, tail = T.expand_pattern(cfg)
+        self.ring_caches = cfg.swa_all or "local" in set(pat + tail)
+        self.spec_capable = not self.ring_caches
+
+    def init_state(self, batch: int, context: int, *,
+                   per_slot: bool = False) -> dict:
+        return T.init_caches(self.cfg, batch, context, per_slot=per_slot,
+                             device=self.device)
+
+    def prefill(self, tokens: torch.Tensor, state: dict):
+        return T.prefill(self.served, tokens.to(self.device), state,
+                         self.cfg)
+
+    def decode_step(self, tok: torch.Tensor, state: dict):
+        return T.decode_step(self.served, tok, state, self.cfg)
+
+    # -- the engine's hooks ---------------------------------------------------
+
+    def decode_fn(self, tok: torch.Tensor, state: dict,
+                  live: Optional[torch.Tensor] = None):
+        """The engine's tick body: `live` (B,) freezes dead rows' cache
+        bytes and pos bit for bit (a dead row may be mid-prefill)."""
+        return T.decode_step(self.served, tok, state, self.cfg, live=live)
+
+    def prefill_chunk(self, tokens: torch.Tensor, state: dict):
+        """One prompt chunk (B, T) against the carried caches; returns its
+        last token's logits (B, V) and the caches."""
+        return T.prefill(self.served, tokens, state, self.cfg)
+
+    # Rollback is byte surgery on the caches: snapshot the span of k/v a
+    # draft or verify is about to overwrite; commit restores the rejected
+    # suffix and rewinds each slot's pos.
+
+    def spec_snapshot(self, state: dict, span: int):
+        return tree_map(lambda c: cache_spec_snapshot(c, span), state)
+
+    def spec_emit(self, state: dict):
+        del state  # the snapshot carries all rollback material
+        return ()
+
+    def verify(self, tokens: torch.Tensor, state: dict,
+               live: Optional[torch.Tensor] = None):
+        """(B, T) tokens -> (logits (B, T, V), caches, ()): each position
+        through the decode step's head shape."""
+        logits, state = T.verify_step(self.served, tokens, state, self.cfg,
+                                      live=live)
+        return logits, state, ()
+
+    def spec_commit(self, state0: dict, state_after: dict, snap, emits,
+                    n: torch.Tensor) -> dict:
+        del state0, emits
+        return tree_map(lambda c, s: cache_spec_commit(c, s, n),
+                        state_after, snap)
+
+    def param_nbytes(self) -> tuple[int, int]:
+        return tree_nbytes(self.params)
+
+
+def serving_runtime(cfg, params: dict, **kw):
     """The one constructor: an RNNConfig gives an `RNNRuntime` over the
-    {'params', 'state'} variables.  The transformer pool is not ported
-    (ROADMAP Queue 1 item 9)."""
-    if not isinstance(cfg, BL.RNNConfig):
-        raise NotImplementedError(
-            "the port serves the paper's RNN family only; transformer "
-            "runtimes wait for ROADMAP Queue 1 item 9")
-    return RNNRuntime(cfg, variables, **kw)
+    {'params', 'state'} variables, a ModelConfig a `TransformerRuntime`
+    (dense family; the others wait for ROADMAP Queue 1 item 9)."""
+    if isinstance(cfg, BL.RNNConfig):
+        return RNNRuntime(cfg, params, **kw)
+    return TransformerRuntime(cfg, params, **kw)
 
 
-def speculative_draft(rt: RNNRuntime, mode: str = "ternary") -> RNNRuntime:
+def speculative_draft(rt, mode: str = "ternary"):
     """Self-speculation: pack the fp target runtime's own masters into a
     binary/ternary draft runtime on the same device, sharing the target's
-    config dims and frozen BN statistics.  The draft decodes through the
-    fused tick (on the card, the kernel; on the CPU, its plain version),
-    where JAX's `dense` switch could expand it into dense tables."""
-    if not isinstance(rt, RNNRuntime):
+    config dims (and, for the RNN, its frozen BN statistics).  An RNN draft
+    decodes through the fused tick, where JAX's `dense` switch could expand
+    it into dense tables; a transformer draft's projections run the packed
+    GEMV and GEMM."""
+    packed_msg = ("speculative pairing packs the target's fp masters; this "
+                  "runtime already serves a packed tree: build the pair from "
+                  "the master weights instead")
+    if isinstance(rt, RNNRuntime):
+        if is_qtensor(rt.variables["params"]["layers"][0]["wx"]):
+            raise ValueError(packed_msg)
+        dcfg = dataclasses.replace(rt.cfg, quant=QuantSpec(mode=mode,
+                                                           norm="batch"))
+        packed = BL.export_packed_rnn(rt.variables["params"], dcfg)
+        return RNNRuntime(dcfg, {"params": packed,
+                                 "state": rt.variables["state"]},
+                          device=rt.device)
+    if not isinstance(rt, TransformerRuntime):
         raise NotImplementedError(
-            "speculative pairing is ported for the RNN family only; "
-            "transformer runtimes wait for ROADMAP Queue 1 item 9")
-    if is_qtensor(rt.variables["params"]["layers"][0]["wx"]):
-        raise ValueError(
-            "speculative pairing packs the target's fp masters; this "
-            "runtime already serves a packed tree: build the pair from the "
-            "master weights instead")
-    dcfg = dataclasses.replace(rt.cfg, quant=QuantSpec(mode=mode,
-                                                       norm="batch"))
-    packed = BL.export_packed_rnn(rt.variables["params"], dcfg)
-    return RNNRuntime(dcfg, {"params": packed,
-                             "state": rt.variables["state"]},
-                      device=rt.device)
+            f"speculative pairing of a {getattr(rt, 'family', type(rt))} "
+            f"runtime waits for ROADMAP Queue 1 item 9")
+    if any(is_qtensor(l) for l in tree_leaves(rt.params)):
+        raise ValueError(packed_msg)
+    dcfg = rt.cfg.with_quant(QuantSpec(mode=mode, norm="channel"))
+    return TransformerRuntime(dcfg, export_packed(rt.params, dcfg.quant),
+                              device=rt.device)
 
 
 def _sync(device: torch.device) -> None:
@@ -164,9 +249,10 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def drive_session(rt: RNNRuntime, prompt: torch.Tensor, vocab: int, *,
+def drive_session(rt, prompt: torch.Tensor, vocab: int, *,
                   gen: int, temperature: float = 0.8, top_k: int = 0,
-                  seed: int = 0, warmup: bool = False):
+                  seed: int = 0, warmup: bool = False,
+                  context: Optional[int] = None):
     """The canonical prefill -> sample -> decode session, timed.
 
     Row b samples as a request of seed `seed + b`: token i draws from the
@@ -174,12 +260,16 @@ def drive_session(rt: RNNRuntime, prompt: torch.Tensor, vocab: int, *,
     engine draws a request's token i from, so a request's stream is the
     same here and in the engine.  The session's noise is drawn at once,
     before its first step.  With `warmup` an untimed prefill and decode
-    step run first on their own state.  Returns (generated (B, gen) int
+    step run first on their own state.  `context` is the provisioned
+    context (a transformer's cache capacity less its margin), S + gen by
+    default: an engine parity check passes the engine's `max_context`, so
+    both attend over caches of one size.  Returns (generated (B, gen) int
     numpy array, metrics with prefill/decode seconds, tok/s, the state
     bytes and `last_logits`, the logits the session ended on)."""
     dev = rt.device
     prompt = prompt.to(dev)
     B, S = prompt.shape
+    context = context or (S + gen)
     seeds = seed + torch.arange(B, device=dev)
 
     def session_sampler(logits):
@@ -192,14 +282,14 @@ def drive_session(rt: RNNRuntime, prompt: torch.Tensor, vocab: int, *,
                                         top_k=top_k, vocab=vocab)
 
     if warmup:
-        lg_w, st_w = rt.prefill(prompt, rt.init_state(B))
+        lg_w, st_w = rt.prefill(prompt, rt.init_state(B, context))
         nxt_w = session_sampler(lg_w)(lg_w, 0) if gen else None
         if nxt_w is not None:
             rt.decode_step(nxt_w, st_w)
         _sync(dev)
         del lg_w, st_w, nxt_w
 
-    state = rt.init_state(B)
+    state = rt.init_state(B, context)
     _sync(dev)
     t0 = time.perf_counter()
     logits, state = rt.prefill(prompt, state)

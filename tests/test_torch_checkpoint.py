@@ -203,7 +203,7 @@ def test_launcher_trains_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,queue", [
-    (["--pipeline"], "waits only for its own PR"),
+    (["--pipeline", "--compress-grads"], "Queue 1 item 9"),
     (["--compress-grads"], "Queue 1 item 9"),
     (["--mesh-model", "2"], "Queue 1 item 9")])
 def test_launcher_refuses_what_is_not_ported(flag, queue):

@@ -581,3 +581,97 @@ def test_two_layer_engine_on_the_card(card, chunk):
         torch.testing.assert_close(st.h, whole.h, rtol=0, atol=1e-5)
         torch.testing.assert_close(st.c, whole.c, rtol=0, atol=1e-5)
     assert _engine_vs_alone(card, 2, chunk, seed=1) == []
+
+
+# ---------------------------------------------------------------------------
+# the transformer pool's dense serving path (qwen3-0.6B's projections)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8, 512])
+@pytest.mark.parametrize("K,N", [(1024, 2048), (1024, 1024), (2048, 1024),
+                                 (1024, 3072), (3072, 1024)])
+def test_qwen3_projection_shapes_match_plain(card, K, N, rows):
+    """qwen3-0.6B's seven projections (Wq 1024->2048, Wk/Wv 1024->1024,
+    Wo 2048->1024, Wgate/Wup 1024->3072, Wdown 3072->1024) at decode rows
+    (the GEMV) and a B = 4, prompt-128 prefill (the GEMM, M = 512), with
+    the codes a layer's slice of stacked (L, K/16, N) codes, as the
+    transformer serves them: held to the fp64 product, two launches bit
+    for bit."""
+    rng = np.random.default_rng(K + N + rows)
+    stacked = _codes(rng, 3 * (K // 16), N).reshape(3, K // 16, N).to(card)
+    codes = stacked[1]
+    assert codes.is_contiguous() and codes.data_ptr() % 16 == 0
+    x = torch.from_numpy(np.tanh(rng.normal(size=(rows, K))).astype(
+        np.float32)).to(card)
+    fn = PK.packed_gemv if rows <= 8 else PK.packed_matmul
+    got = fn(x, codes, mode="ternary")
+    again = fn(x, codes, mode="ternary")
+    want = PK.packed_matmul_plain(x, codes, mode="ternary")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    _assert_summation_close(got, want, x, codes, "ternary")
+    assert dispatch.LAUNCHES[fn.__name__] == 2
+
+
+def _qwen_runtime(device, mode="ternary", dtype="bfloat16"):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import export_packed
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.recurrent import TransformerRuntime
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), dtype=dtype)
+    cfg = cfg.with_quant(QuantSpec(mode=mode, norm="channel"))
+    params = export_packed(T.model_init(torch.Generator().manual_seed(0),
+                                        cfg), cfg.quant)
+    return TransformerRuntime(cfg, params, device=device)
+
+
+def test_transformer_runtime_on_the_card_matches_the_cpu(card):
+    """A reduced qwen3 in fp32 compute: the card's logits (packed kernels,
+    cuBLAS attention) against the CPU's plain versions within 1e-4, one
+    GEMM a projection for a 24-row prefill and one GEMV a projection for a
+    2-row decode step."""
+    from repro_torch.serve.recurrent import drive_session
+    on_card = _qwen_runtime(card, dtype="float32")
+    on_cpu = _qwen_runtime("cpu", dtype="float32")
+    prompt = torch.randint(0, 256, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    a, sa = on_card.prefill(prompt, on_card.init_state(2, 16))
+    b, sb = on_cpu.prefill(prompt, on_cpu.init_state(2, 16))
+    L = on_card.cfg.n_layers
+    assert dispatch.LAUNCHES["packed_matmul"] == 7 * L
+    torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    tok = torch.argmax(b[:, :256], -1)
+    a, _ = on_card.decode_step(tok.to(card), sa)
+    b, _ = on_cpu.decode_step(tok, sb)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["packed_gemv"] == 7 * L
+    torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    out, m = drive_session(on_card, prompt, 256, gen=4, temperature=0.0)
+    assert out.shape == (2, 4) and torch.isfinite(m["last_logits"]).all()
+
+
+def test_transformer_engine_on_the_card(card):
+    """The engine over a packed bf16 qwen3 (reduced): every tick is one
+    GEMV a projection, the run completes, and the streams that equal
+    drive_session(B=1) are counted (cuBLAS attention and the tied head may
+    round by the row count, so byte parity is reported, not held)."""
+    import dataclasses
+    from repro_torch.launch.serve import synth_traffic
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.recurrent import drive_session
+    rt = _qwen_runtime(card)
+    reqs = synth_traffic(256, requests=8, rate=1e3, prompt_len=40, gen=8,
+                         temperature=0.8, top_k=5, seed=2)
+    eng = ServeEngine(rt, 256, slots=4, max_context=48, prefill_chunk=16)
+    comps, m = eng.run([dataclasses.replace(r) for r in reqs],
+                       realtime=False)
+    assert m["requests"] == 8 and m["tick_launches"] == 7 * rt.cfg.n_layers
+    by = {c.rid: c.tokens for c in comps}
+    equal = sum(by[r.rid] == drive_session(
+        rt, torch.as_tensor(np.asarray(r.prompt, np.int64))[None], 256,
+        gen=r.max_tokens, temperature=r.temperature, top_k=r.top_k,
+        seed=r.seed, context=48)[0][0].tolist() for r in reqs)
+    print(f"transformer engine on the card: {equal}/8 streams == "
+          f"drive_session(B=1)")

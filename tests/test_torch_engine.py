@@ -556,10 +556,15 @@ def test_engine_refuses_bad_requests_and_unported_modes():
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ServeEngine(trt, VOCAB, slots=2, max_context=8, mesh=object())
 
-    class Transformer:
-        family = "transformer"
+    class CrossAttention:  # a transformer with a cross-attention source
+        family, extras = "transformer", {"img": None}
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ServeEngine(Transformer(), VOCAB, slots=2, max_context=8)
+        ServeEngine(CrossAttention(), VOCAB, slots=2, max_context=8)
+
+    class Moe:
+        family = "moe"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        ServeEngine(Moe(), VOCAB, slots=2, max_context=8)
     with pytest.raises(ValueError, match="BOTH"):
         ServeEngine(trt, VOCAB, slots=2, max_context=8, spec_k=2)
 
@@ -576,7 +581,7 @@ def test_launcher_traffic_and_refusals(capsys, monkeypatch):
     assert "speculative: k=4" in capsys.readouterr().out
     assert m["requests"] == 8 and m["tick_launches"] == 5
     for argv, what in ((["--mesh", "data=4", "--traffic"], "--mesh"),
-                       (["--arch", "qwen3-0.6b"], "--arch qwen3")):
+                       (["--arch", "mixtral-8x7b"], "--arch mixtral")):
         with pytest.raises(SystemExit, match=f"not ported yet: {what}"):
             serve.main(["--device", "cpu"] + argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
