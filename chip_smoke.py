@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's BN-LSTM serving and training paths, its
 train -> restart -> export -> serve pipeline, and the transformer pool's
-dense serving path (qwen3-0.6B at full width) on one NVIDIA card.
+dense, MoE and RWKV6 serving paths (qwen3-0.6B, qwen3-moe-30b-a3b and
+rwkv6-7b at full width, mixtral-8x7b at its widths) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -106,7 +107,41 @@ Phases, in order; any failure exits non-zero before the last line:
                 greedy requests: accept rate, streams equal to the plain
                 engine's); 8 requests behind a 64-token prefix (at least 7
                 prefix-cache hits);
-  10. result  — the kernels JSON line (each kernel's launches on every
+  10. pool    — the transformer pool's MoE and RWKV6 families, ternary with
+                channel scales, bf16, random weights from a seed, each tree
+                drawn a layer at a time on the card and exported as it is
+                drawn (`model_init(packed=True)`: the fp32 expert masters of
+                qwen3-moe alone are 116 GB): qwen3-moe-30b-a3b at full width
+                (48 layers, d 2048, 32/4 heads of 128, 128 experts of d_ff
+                768, top-8, vocab 151,936): packed_gemv at 1, 4 and 8 rows
+                and packed_matmul at M = 40 (the prefill's capacity) on an
+                expert's slice of layer 0's Wgate and Wdown, packed_matmul at
+                M = 512 on Wq and Wk, held as in phase 9; the tree's bytes;
+                packed against dequantized logits on a 2-layer cut (relative
+                L2 within 1e-4 in fp32, reported in bf16); then, counted:
+                lockstep B = 4, prompt 128, gen 32 with a decode step and a
+                prefill profiled (host, device busy, idle share, GEMV and
+                GEMM launches, experts run a layer), and the engine at 8
+                slots over 8 requests of synth_traffic(seed=0) (prompts
+                U[1, 128], gen U[1, 16]: host-bound steps cut the count),
+                one prefill chunk a prompt, its sampled streams against
+                drive_session(B=1) counted, its greedy streams held to
+                diverge only at top-2 gaps below 0.1 as in phase 9,
+                speculation and a prefix cache refused with JAX's messages;
+                mixtral-8x7b at its widths (d 4096, 8 experts of 14336,
+                top-2, window 4096 on every layer) and 2 layers: the GEMV at
+                4 rows and the GEMM at 40 on its two expert shapes, packed
+                against dequantized logits, a short lockstep run; rwkv6-7b
+                at full width (32 layers, d 4096, 64 heads of 64, d_ff
+                14336, vocab 65,536): bytes, the GEMV at 1, 4 and 8 rows and
+                the GEMM at 512 on Wr, the GEMM at 512 on Wck and Wcv,
+                packed against dequantized logits on a 2-layer cut,
+                wkv6_chunked over a 4,096-token prompt (peak memory within
+                32 inputs, the first 256 outputs against the unrolled
+                step), then lockstep and the engine as for qwen3-moe, over
+                16 requests of gen U[1, 32].  Launches counted for the MoE
+                runs and the rwkv runs apart;
+  11. result  — the kernels JSON line (each kernel's launches on every
                 path), the card line, and {"ok": true, "device": {...}}
                 last.
 
@@ -1383,63 +1418,68 @@ def summation_check(name: str, got, want, x, w) -> float:
     return (got - want).abs().max().item()
 
 
-def qwen_kernel_rows(packed: dict) -> list:
-    """packed_gemv at 1, 4 and 8 rows and packed_matmul at M = 512 (B = 4,
-    prompt 128) on layer 0's seven projections of the exported model, each
-    launched twice and bit-equal, against its plain version, timed beside
-    its bound (on the unpadded function) and torch.matmul on the
-    dequantized weight."""
+def layer_kernel_rows(label: str, packed: dict, plan) -> list:
+    """packed_gemv (<= 8 rows) and packed_matmul (more) on layer 0's codes
+    of each (block, weight, row counts) of `plan` (a stacked expert leaf:
+    its last expert's slice, as the MoE layer serves it), each launched
+    twice and bit-equal, held with its plain version to the fp64 product
+    within 1e-5 of |x| @ |w|, timed beside its bound (on the unpadded
+    function) and torch.matmul on the dequantized weight."""
     import torch
     from repro_torch.core.qtensor import QTensor
     from repro_torch.kernels import packed_matmul as PK
 
     g = torch.Generator().manual_seed(1)
     rows = []
-    for blk, name in QWEN_PROJECTIONS:
+    for blk, name, counts in plan:
         qt = packed["stack"][0][blk][name]
-        codes = qt.codes[0]          # layer 0 of the stacked codes
+        expert = qt.codes.dim() == 4     # (layer, expert, K/G, N)
+        codes = qt.codes[0, -1] if expert else qt.codes[0]
         if not codes.is_contiguous() or codes.data_ptr() % 16:
-            fail(f"{name}: layer 0's codes are not a contiguous, 16-byte "
-                 f"aligned slice")
+            fail(f"{label} {name}: layer 0's codes are not a contiguous, "
+                 f"16-byte aligned slice")
         one = QTensor(codes=codes, k=qt.k, mode=qt.mode, alpha=qt.alpha)
         K, N = qt.k, codes.shape[1]
         w = one.dequantize() / qt.alpha
-        for M in (1, 4, 8, 512):
+        for M in counts:
             fn = PK.packed_gemv if M <= 8 else PK.packed_matmul
             plain = PK.packed_gemv_plain if M <= 8 else PK.packed_matmul_plain
             x = torch.tanh(torch.randn(M, K, generator=g)).cuda()
             got = fn(x, codes, mode=qt.mode)
             again = fn(x, codes, mode=qt.mode)
             want = plain(x, codes, mode=qt.mode)
-            err = summation_check(f"{fn.__name__} {name} M={M}", got, want,
-                                  x, w)
+            err = summation_check(f"{fn.__name__} {label} {name} M={M}", got,
+                                  want, x, w)
             if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
-                fail(f"{fn.__name__} {name} M={M}: two launches differ")
-            if M <= 8:
-                plan = PK.gemv_plan(M, K, N, mode=qt.mode)
-                shape = (f"qwen3 {name} x({M},{K}) codes{tuple(codes.shape)} "
-                         f"{plan['blocks']} blocks, cluster {plan['cluster']}")
-                b_ms, b_by = packed_bound(one, M)
-            else:
-                plan = PK.matmul_plan(M, K, N, mode=qt.mode)
-                shape = (f"qwen3 {name} x({M},{K}) codes{tuple(codes.shape)} "
-                         f"{plan['blocks']} blocks, cluster {plan['cluster']}")
-                b_ms, b_by = gemm_bound(one, M)
+                fail(f"{fn.__name__} {label} {name} M={M}: two launches "
+                     f"differ")
+            plan_ = (PK.gemv_plan(M, K, N, mode=qt.mode) if M <= 8
+                     else PK.matmul_plan(M, K, N, mode=qt.mode))
+            b_ms, b_by = (packed_bound if M <= 8 else gemm_bound)(one, M)
             rows.append(timed_row(
-                fn.__name__, shape, err,
+                fn.__name__, f"{label} {name} x({M},{K}) "
+                f"{'expert ' if expert else ''}codes{tuple(codes.shape)} "
+                f"{plan_['blocks']} blocks, cluster {plan_['cluster']}", err,
                 lambda: fn(x, codes, mode=qt.mode),
                 lambda: plain(x, codes, mode=qt.mode),
                 lambda: torch.matmul(x, w), b_ms, b_by, reps=100,
                 plain_reps=3))
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
-    print("  qwen3-0.6B projections (layer 0), ternary: kernel == plain "
-          "within 1e-5 of |x| @ |w|, two launches bit-equal", flush=True)
+    print(f"  {label} layer 0, ternary: kernel == plain within 1e-5 of "
+          f"|x| @ |w|, two launches bit-equal", flush=True)
     for r in rows:
-        print(f"    {r['name']:14s} {r['shape']:58s} {r['max_abs_err']:.1e}  "
+        print(f"    {r['name']:14s} {r['shape']:66s} {r['max_abs_err']:.1e}  "
               f"{us(r['ms'])} us ({us(r['wall_ms'])})  plain {us(r['plain_ms'])}"
               f"  matmul {us(r['library_ms'])}  bound {r['bound_ms'] * 1e3:.2f}"
               f" ({r['bound_by']})", flush=True)
     return rows
+
+
+def qwen_kernel_rows(packed: dict) -> list:
+    """packed_gemv at 1, 4 and 8 rows and packed_matmul at M = 512 (B = 4,
+    prompt 128) on layer 0's seven projections of the exported model."""
+    return layer_kernel_rows("qwen3", packed, [
+        (blk, name, (1, 4, 8, 512)) for blk, name in QWEN_PROJECTIONS])
 
 
 def first_divergence(rt, req, tokens: list, ctx: int):
@@ -1724,6 +1764,443 @@ def transformer_phase(report: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the pool's MoE and RWKV6 serving paths
+# ---------------------------------------------------------------------------
+
+# phase 10's engine runs, 8 slots over synth_traffic(seed=0) with prompts
+# U[1, 128]: (requests, gen U[1, G]) by arch.  qwen3-moe's steps are
+# host-bound (about 0.85 s a decode step at B = 4, PERF.md), so its run is
+# cut to 8 requests of at most 16 tokens to keep the phase near 300 s
+POOL_PROMPT = 128
+POOL_ENGINE = {"qwen3-moe": (8, 16), "rwkv6-7b": (16, 32)}
+
+
+def pool_config(arch: str, **over):
+    """A pool arch at its published widths (ternary, channel scales, bf16),
+    checked against the widths phase 10 claims; `over` cuts depth."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    want = {"qwen3-moe-30b-a3b": (48, 2048, 32, 4, 128, 768, 151936, 128, 8),
+            "mixtral-8x7b": (32, 4096, 32, 8, 128, 14336, 32000, 8, 2),
+            "rwkv6-7b": (32, 4096, 64, 64, 64, 14336, 65536, 0, 0)}[arch]
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+           cfg.d_ff, cfg.vocab, cfg.n_experts, cfg.topk)
+    if got != want or (cfg.quant.mode, cfg.quant.norm, cfg.dtype) != (
+            "ternary", "channel", "bfloat16"):
+        fail(f"{arch} is not at its published width: {cfg}")
+    return dataclasses.replace(cfg, **over)
+
+
+def pool_build(cfg, seed: int = 0) -> dict:
+    """The packed tree, drawn a layer at a time on the card and exported as
+    it is drawn (`model_init(packed=True)`: one layer's fp32 masters alive
+    at a time), with the channel scales moved off init."""
+    import torch
+    from repro_torch.core.qtensor import tree_map_with_path
+    from repro_torch.models import transformer as T
+    packed = T.model_init(torch.Generator("cuda").manual_seed(seed), cfg,
+                          packed=True)
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    return tree_map_with_path(
+        lambda path, l: (l * (1.0 + 0.1 * torch.randn(l.shape, generator=g,
+                                                      device="cuda"))
+                         if path[-1].startswith("s")
+                         and isinstance(l, torch.Tensor) else l), packed)
+
+
+def pool_bytes(label: str, packed: dict, rt) -> dict:
+    """The paper's memory claim on the tree: projection weights, their codes
+    and their fp32 size, and the whole tree packed against fp32."""
+    import numpy as np
+    from repro_torch.core.qtensor import QTensor, tree_leaves
+    codes = [l for l in tree_leaves(packed) if isinstance(l, QTensor)]
+    n_proj = sum(int(np.prod(q.shape)) for q in codes)
+    fp, real = rt.param_nbytes()
+    b = {"projection_weights": n_proj,
+         "codes_bytes": sum(q.nbytes for q in codes),
+         "projection_fp32_bytes": 4 * n_proj,
+         "packed_tree_bytes": real, "fp32_tree_bytes": fp}
+    print(f"  {label} ternary: {n_proj / 1e9:.2f} B projection weights in "
+          f"{b['codes_bytes'] / 1e9:.2f} GB of codes (fp32 "
+          f"{b['projection_fp32_bytes'] / 1e9:.1f} GB); whole tree "
+          f"{real / 1e9:.2f} GB vs fp32 {fp / 1e9:.1f} GB", flush=True)
+    return b
+
+
+def dequantized(tree):
+    """An fp tree of the same function as a packed one: every packed leaf
+    dequantized with its channel scale (the `s<W>` companion, which an fp
+    tree does not apply) folded into its output columns."""
+    from repro_torch.core.qtensor import QTensor
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(dequantized(v) for v in tree)
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, QTensor):
+            w, sc = v.dequantize(), tree.get("s" + k[1:])
+            if sc is not None:
+                w = w * sc.reshape(sc.shape[:-1] + (1,) * (w.dim() - sc.dim())
+                                   + sc.shape[-1:])
+            out[k] = w
+        else:
+            out[k] = dequantized(v)
+    return out
+
+
+def packed_vs_dequantized(label: str, cfg, packed: dict) -> dict:
+    """The first decode step's logits after a 16-token prompt at B = 4,
+    packed against the same weights dequantized into an fp tree: held
+    within 1e-4 relative L2 in fp32 compute (the two differ by summation
+    order, and the router sees the same logits to fp32 rounding), reported
+    in bf16."""
+    import dataclasses
+    import torch
+    from repro_torch.core.quantize import QuantSpec
+    from repro_torch.serve.recurrent import TransformerRuntime
+
+    deq = dequantized(packed)
+    prompt = torch.randint(0, cfg.vocab, (4, 16),
+                           generator=torch.Generator().manual_seed(2)).cuda()
+    out = {}
+    for dtype, limit in (("float32", 1e-4), ("bfloat16", None)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        a = TransformerRuntime(c, packed, device="cuda")
+        f = TransformerRuntime(c.with_quant(QuantSpec(mode="none")), deq,
+                               device="cuda")
+        lp, sp = a.prefill(prompt, a.init_state(4, 32))
+        lf, sf = f.prefill(prompt, f.init_state(4, 32))
+        nxt = torch.argmax(lf[:, :cfg.vocab], -1)
+        lp, _ = a.decode_step(nxt, sp)
+        lf, _ = f.decode_step(nxt, sf)
+        lp, lf = lp[:, :cfg.vocab], lf[:, :cfg.vocab]
+        rel = ((lp - lf).norm() / lf.norm()).item()
+        agree = int((lp.argmax(-1) == lf.argmax(-1)).sum())
+        out[dtype] = {"rel_l2": rel, "limit": limit, "greedy_agree_of_4": agree,
+                      "max_abs": (lp - lf).abs().max().item()}
+        if limit is not None and not rel <= limit:
+            fail(f"{label} packed vs dequantized {dtype} decode logits: "
+                 f"relative L2 {rel} (limit {limit})")
+        print(f"  {label} packed vs fp-dequantized ({cfg.n_layers} layers), "
+              f"{dtype}: relative L2 {rel:.2e} (limit "
+              f"{'reported' if limit is None else f'{limit:.0e}'}), greedy "
+              f"agree {agree}/4", flush=True)
+        del a, f
+    return out
+
+
+def packed_launches(delta: dict) -> int:
+    return delta.get("packed_gemv", 0) + delta.get("packed_matmul", 0)
+
+
+def pool_lockstep(label: str, rt, B: int, S: int, GEN: int,
+                  attn_proj: int) -> dict:
+    """drive_session at B x S + GEN, then a decode step and a prefill alone,
+    timed on the host and under torch.profiler: tok/s, a step's host time,
+    device busy time, idle share, device launches, packed launches (and
+    for an MoE arch, the experts run a layer, from the packed launches
+    beyond the `attn_proj` projections a layer)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve.recurrent import drive_session
+    cfg = rt.cfg
+    L = cfg.n_layers
+    prompt = torch.randint(0, cfg.vocab, (B, S),
+                           generator=torch.Generator().manual_seed(3))
+    before = dict(dispatch.LAUNCHES)
+    toks, m = drive_session(rt, prompt, cfg.vocab, gen=GEN, temperature=0.8,
+                            top_k=40, seed=0, warmup=True)
+    delta = {k: v - before.get(k, 0) for k, v in dispatch.LAUNCHES.items()}
+    lg = m.pop("last_logits")
+    if not torch.isfinite(lg).all() or toks.shape != (B, GEN) or not \
+            packed_launches(delta):
+        fail(f"{label} lockstep: launches {delta}, tokens {toks.shape}")
+    out = dict(m, launches=delta)
+    print(f"  {label} lockstep B={B}, prompt {S}, gen {GEN}: prefill "
+          f"{m['prefill_tok_s']:.0f} tok/s, decode {m['decode_tok_s']:.2f} "
+          f"tok/s, state {m['state_nbytes'] / 1e6:.1f} MB", flush=True)
+    st = rt.init_state(B, S + GEN)
+    lg, st = rt.prefill(prompt.cuda(), st)
+    box = [lg, st]
+
+    def step():
+        box[0], box[1] = rt.decode_step(
+            torch.argmax(box[0][:, :cfg.vocab], -1), box[1])
+    step()
+    prof = {}
+    for name, fn in (("decode_step", step), ("prefill", lambda: rt.prefill(
+            prompt.cuda(), rt.init_state(B, S + GEN)))):
+        before = dict(dispatch.LAUNCHES)
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t1
+        d = {k: v - before.get(k, 0) for k, v in dispatch.LAUNCHES.items()}
+        counts: dict = {}
+        by_name, wall = device_profile(fn, 1, counts=counts)
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        r = prof[name] = {
+            "host_us": host * 1e6, "wall_us": wall * 1e6,
+            "device_busy_us": busy, "idle_share": 1.0 - busy / (wall * 1e6),
+            "device_launches": sum(counts.values()),
+            "packed_gemv": d.get("packed_gemv", 0),
+            "packed_matmul": d.get("packed_matmul", 0),
+            "top": [(k[:48], v) for k, v in top]}
+        if cfg.n_experts:
+            r["experts_a_layer"] = (packed_launches(d) - attn_proj * L) / 3 / L
+        if name == "decode_step" and (
+                r["packed_matmul"] or cfg.n_experts and
+                r["experts_a_layer"] > min(cfg.n_experts, B * cfg.topk)):
+            fail(f"{label} decode step: {r['packed_gemv']} GEMVs, "
+                 f"{r['packed_matmul']} GEMMs for {B} rows")
+        print(f"    {name:11s}: host {host * 1e3:9.1f} ms (profiled "
+              f"{wall * 1e3:9.1f})  device busy {busy / 1e3:8.2f} ms  idle "
+              f"{r['idle_share']:.3f}  {r['device_launches']} device launches,"
+              f" {r['packed_gemv']} GEMVs, {r['packed_matmul']} GEMMs"
+              + (f", {r['experts_a_layer']:.1f} experts a layer"
+                 if cfg.n_experts else "") + "  top "
+              + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in r["top"]),
+              flush=True)
+    out["profile"] = prof
+    return out
+
+
+def pool_engine(label: str, rt) -> dict:
+    """The engine at 8 slots over POOL_ENGINE[label] requests of
+    synth_traffic(seed=0) (prompts U[1, POOL_PROMPT], gen U[1, G], T 0.8,
+    top-k 40), each prompt one prefill chunk: tok/s, ticks,
+    occupancy; the sampled streams equal to drive_session(B=1) counted,
+    then the same requests greedy, each divergence's top-2 logit gap
+    reported; and JAX's refusals of speculation and a prefix cache."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import synth_traffic
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.prefixcache import PrefixCache
+    from repro_torch.serve.recurrent import drive_session
+    cfg = rt.cfg
+    n_req, G = POOL_ENGINE[label]
+    P = POOL_PROMPT
+    for kw, what in ((dict(draft=rt, spec_k=4), "MoE and rwkv/mamba"),
+                     (dict(prefix_cache=PrefixCache(1 << 20)),
+                      "token-granularity")):
+        try:
+            ServeEngine(rt, cfg.vocab, slots=8, max_context=P + G, **kw)
+            fail(f"{label}: the engine took {sorted(kw)}")
+        except NotImplementedError as e:
+            if what not in str(e):
+                fail(f"{label}: refused {sorted(kw)} with {e}")
+    reqs = synth_traffic(cfg.vocab, requests=n_req, rate=1e3,
+                         prompt_len=P, gen=G, temperature=0.8, top_k=40,
+                         seed=0)
+    eng = ServeEngine(rt, cfg.vocab, slots=8, max_context=P + G,
+                      prefill_chunk=32)
+    comps, em = eng.run([dataclasses.replace(r) for r in reqs],
+                        realtime=False)
+    n_prompt = sum(np.asarray(r.prompt).size for r in reqs)
+    chunks = eng.prefill_chunks
+    if (chunks != len(reqs) or eng.prefill_steps != n_prompt
+            or em["max_decode_stall_ticks"] > 1):
+        fail(f"{label} engine: {eng.prefill_chunks} chunks for {len(reqs)} "
+             f"prompts, stall {em['max_decode_stall_ticks']}")
+    alone = lambda r: drive_session(
+        rt, torch.as_tensor(np.asarray(r.prompt, np.int64))[None], cfg.vocab,
+        gen=r.max_tokens, temperature=r.temperature, top_k=r.top_k,
+        seed=r.seed, context=P + G)[0][0].tolist()
+    by = {c.rid: c.tokens for c in comps}
+    equal = sum(by[r.rid] == alone(r) for r in reqs)
+    greedy = [dataclasses.replace(r, temperature=0.0, top_k=0) for r in reqs]
+    gcomps, _ = eng.run([dataclasses.replace(r) for r in greedy],
+                        realtime=False)
+    gby = {c.rid: c.tokens for c in gcomps}
+    gaps = []
+    for r in greedy:
+        d = first_divergence(rt, r, gby[r.rid], P + G)
+        if d is not None:
+            gaps.append({"rid": r.rid, "step": d[0], "gap": d[1]})
+    if any(g["gap"] > GAP_TOL for g in gaps):
+        fail(f"{label} engine: a greedy stream left drive_session(B=1) at a "
+             f"top-2 gap above {GAP_TOL}: {gaps}")
+    out = dict(em, sampled_streams_equal=equal, requests=len(reqs),
+               prefill_chunks=chunks, greedy_divergences=gaps)
+    print(f"  {label} engine, slots 8, whole-prompt chunks, {len(reqs)} "
+          f"requests (prompts U[1,{P}], gen U[1,{G}], T 0.8, top-k 40): "
+          f"{em['agg_tok_s']:.1f} tok/s, {em['ticks']} ticks, occupancy "
+          f"{em['occupancy']:.2f}, {em['tick_launches']} packed calls the "
+          f"last tick, {chunks} chunks; {equal}/{len(reqs)} "
+          f"sampled streams == drive_session(B=1); greedy "
+          f"{len(reqs) - len(gaps)}/{len(reqs)} equal, divergences at top-2 "
+          f"gaps {[round(g['gap'], 4) for g in gaps]} (limit {GAP_TOL}); "
+          f"speculation and the "
+          f"prefix cache refused", flush=True)
+    return out
+
+
+def wkv_long_prompt(cfg, T: int = 4096, held: int = 256) -> dict:
+    """wkv6_chunked over one T-token prompt at the config's heads and
+    chunk: its peak memory above its inputs, held to 32 times one input (a
+    pairwise (Q, Q, N) decay takes Q = 64 times in one temporary), finite,
+    and its first `held` outputs within 1e-5 of their largest magnitude of
+    the one-token recurrence unrolled; timed."""
+    import torch
+    from repro_torch.models import rwkv6 as R
+    g = torch.Generator("cuda").manual_seed(4)
+    N = cfg.hd
+    H = cfg.d_model // N
+    rand = lambda *s: torch.randn(s, generator=g, device="cuda")
+    r, k, v = (rand(1, T, H, N) * 0.5 for _ in range(3))
+    logw = -torch.exp(rand(1, T, H, N) * 0.3 - 1.0)
+    u = rand(H, N) * 0.3
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y, S = R.wkv6_chunked(r, k, v, logw, u, cfg.ssm_chunk)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    one = r.nbytes
+    St = torch.zeros((1, H, N, N), device="cuda")
+    ys = []
+    for t in range(held):
+        yt, St = R.wkv6_step(r[:, t], k[:, t], v[:, t], logw[:, t], u, St)
+        ys.append(yt)
+    err = (y[:, :held] - torch.stack(ys, 1)).abs().max().item()
+    lim = 1e-5 * y[:, :held].abs().max().item()
+    out = {"tokens": T, "peak_bytes": peak, "input_bytes": one,
+           "limit_bytes": 32 * one, "ms": ms, "step_err": err,
+           "step_limit": lim}
+    if not (torch.isfinite(y).all() and torch.isfinite(S).all()) \
+            or peak > 32 * one or not err <= lim:
+        fail(f"wkv6_chunked over {T} tokens: {out}")
+    print(f"  wkv6_chunked, one {T}-token prompt, {H} heads of {N}, chunk "
+          f"{cfg.ssm_chunk}: peak {peak / 1e6:.0f} MB above its inputs "
+          f"({peak / one:.1f} x one input, limit 32), {ms:.1f} ms; first "
+          f"{held} outputs off the unrolled step by {err:.1e} (limit "
+          f"{lim:.1e})", flush=True)
+    return out
+
+
+def pool_phase(report: dict) -> tuple:
+    """qwen3-moe-30b-a3b and rwkv6-7b at full width, mixtral-8x7b at its
+    widths and 2 layers (ternary, bf16, random weights from a seed): the
+    kernels at each arch's shapes and packed against dequantized logits
+    first, then the counted serving runs.  Returns the launches of the MoE
+    runs (qwen3-moe's lockstep and engine, mixtral's lockstep) and of the
+    rwkv runs, each counted from 0 just before and read just after."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve.recurrent import TransformerRuntime
+
+    out = {"qwen3_moe": {}, "mixtral": {}, "rwkv6": {}}
+    q, x, w = out["qwen3_moe"], out["mixtral"], out["rwkv6"]
+    t_phase = time.perf_counter()
+    def secs(t):
+        torch.cuda.synchronize()
+        return round(time.perf_counter() - t, 1)
+
+    # qwen3-moe-30b-a3b at full width: build, kernels, bytes, logits
+    t0 = time.perf_counter()
+    qcfg = pool_config("qwen3-moe-30b-a3b")
+    torch.cuda.reset_peak_memory_stats()
+    qpacked = pool_build(qcfg)
+    torch.cuda.synchronize()
+    q["build_s"] = secs(t0)
+    q["build_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  qwen3-moe-30b-a3b built a layer at a time in {q['build_s']} s "
+          f"(peak {q['build_peak_gb']:.1f} GB allocated)", flush=True)
+    q["kernel_rows"] = layer_kernel_rows("qwen3-moe", qpacked, [
+        ("moe", "Wgate", (1, 4, 8, 40)), ("moe", "Wdown", (1, 4, 8, 40)),
+        ("attn", "Wq", (512,)), ("attn", "Wk", (512,))])
+    qrt = TransformerRuntime(qcfg, qpacked, device="cuda")
+    q["bytes"] = pool_bytes("qwen3-moe-30b-a3b", qpacked, qrt)
+    cut = pool_config("qwen3-moe-30b-a3b", n_layers=2)
+    q["packed_vs_dequantized"] = packed_vs_dequantized(
+        "qwen3-moe", cut, pool_build(cut))
+    q["checks_s"] = secs(t0)
+
+    # mixtral-8x7b at its widths, 2 layers: build, kernels, logits
+    t0 = time.perf_counter()
+    xcfg = pool_config("mixtral-8x7b", n_layers=2)
+    xpacked = pool_build(xcfg)
+    x["kernel_rows"] = layer_kernel_rows("mixtral", xpacked, [
+        ("moe", "Wgate", (4, 40)), ("moe", "Wdown", (4, 40))])
+    x["packed_vs_dequantized"] = packed_vs_dequantized("mixtral", xcfg,
+                                                       xpacked)
+    xrt = TransformerRuntime(xcfg, xpacked, device="cuda")
+    x["checks_s"] = secs(t0)
+    torch.cuda.empty_cache()
+
+    # ---- the counted MoE run starts here ----
+    dispatch.reset_counts()
+    t0 = time.perf_counter()
+    q["lockstep"] = pool_lockstep("qwen3-moe", qrt, 4, 128, 32, attn_proj=4)
+    q["lockstep_s"] = secs(t0)
+    t0 = time.perf_counter()
+    q["engine"] = pool_engine("qwen3-moe", qrt)
+    q["engine_s"] = secs(t0)
+    t0 = time.perf_counter()
+    x["lockstep"] = pool_lockstep("mixtral", xrt, 4, 32, 8, attn_proj=4)
+    x["lockstep_s"] = secs(t0)
+    moe, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN_CALLS)
+    # ---- the counted MoE run ends here ----
+    del qrt, qpacked, xrt, xpacked
+    torch.cuda.empty_cache()
+
+    # rwkv6-7b at full width
+    t0 = time.perf_counter()
+    wcfg = pool_config("rwkv6-7b")
+    wpacked = pool_build(wcfg)
+    wrt = TransformerRuntime(wcfg, wpacked, device="cuda")
+    w["bytes"] = pool_bytes("rwkv6-7b", wpacked, wrt)
+    w["build_s"] = secs(t0)
+    t0 = time.perf_counter()
+    w["kernel_rows"] = layer_kernel_rows("rwkv6-7b", wpacked, [
+        ("mix", "Wr", (1, 4, 8, 512)), ("mix", "Wck", (512,)),
+        ("mix", "Wcv", (512,))])
+    cut = pool_config("rwkv6-7b", n_layers=2)
+    w["packed_vs_dequantized"] = packed_vs_dequantized(
+        "rwkv6-7b", cut, pool_build(cut))
+    w["wkv_long_prompt"] = wkv_long_prompt(wcfg)
+    w["checks_s"] = secs(t0)
+    # ---- the counted rwkv run starts here ----
+    dispatch.reset_counts()
+    t0 = time.perf_counter()
+    w["lockstep"] = pool_lockstep("rwkv6-7b", wrt, 4, 128, 32, attn_proj=8)
+    w["lockstep_s"] = secs(t0)
+    t0 = time.perf_counter()
+    w["engine"] = pool_engine("rwkv6-7b", wrt)
+    w["engine_s"] = secs(t0)
+    rwkv = dict(dispatch.LAUNCHES)
+    plain.update(dispatch.PLAIN_CALLS)
+    # ---- the counted rwkv run ends here ----
+    del wrt, wpacked
+    torch.cuda.empty_cache()
+
+    for label, launches in (("MoE", moe), ("rwkv", rwkv)):
+        for k in ("packed_gemv", "packed_matmul"):
+            if not launches.get(k):
+                fail(f"kernel {k} was never launched on the {label} path")
+    if plain:
+        fail(f"plain versions ran on the pool path: {plain}")
+    out["moe_launches"], out["rwkv_launches"] = moe, rwkv
+    out["wall_s"] = secs(t_phase)
+    report["pool"] = out
+    print(f"  pool phase: {out['wall_s']} s (qwen3-moe checks "
+          f"{q['checks_s']} s, lockstep {q['lockstep_s']} s, engine "
+          f"{q['engine_s']} s; mixtral checks {x['checks_s']} s, lockstep "
+          f"{x['lockstep_s']} s; rwkv6 build {w['build_s']} s, checks "
+          f"{w['checks_s']} s, lockstep "
+          f"{w['lockstep_s']} s, engine {w['engine_s']} s); MoE launches "
+          f"{moe}, rwkv launches {rwkv}", flush=True)
+    return moe, rwkv
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1793,9 +2270,17 @@ def main() -> int:
     # 9. the transformer pool: qwen3-0.6B at full width
     print("transformer:", flush=True)
     transformer_launches = transformer_phase(report)
-    all_rows = rows + report["transformer"]["kernel_rows"]
 
-    # 10. result
+    # 10. the pool's MoE and RWKV6 families
+    print("pool:", flush=True)
+    moe_launches, rwkv_launches = pool_phase(report)
+    pool = report["pool"]
+    all_rows = (rows + report["transformer"]["kernel_rows"]
+                + pool["qwen3_moe"]["kernel_rows"]
+                + pool["mixtral"]["kernel_rows"]
+                + pool["rwkv6"]["kernel_rows"])
+
+    # 11. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
@@ -1813,6 +2298,8 @@ def main() -> int:
                         "pipeline_launches": pipeline_launches.get(name, 0),
                         "transformer_launches":
                             transformer_launches.get(name, 0),
+                        "moe_launches": moe_launches.get(name, 0),
+                        "rwkv_launches": rwkv_launches.get(name, 0),
                         "max_abs_err": max(x["max_abs_err"] for x in all_rows
                                            if x["name"] == name),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],

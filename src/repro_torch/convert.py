@@ -6,8 +6,10 @@ transformer tree's `stack` and `tail` tuples of layer-stacked leaves and
 its `s<W>` channel-scale companions included), a packed leaf arrives as
 `{"codes": uint32 ndarray, "k", "mode", "alpha", "scale"}` and becomes a
 `QTensor` whose int32 codes hold the same words (a stacked leaf's codes
-keep their layer axis), and a NamedTuple with the fields of `BNParams` or
-`BNState` (or a dict with those keys) becomes the port's.  Fed the same
+keep their layer axis, an MoE layer's their expert axis too), and a
+NamedTuple with the fields of `BNParams`, `BNState` or `RWKVState` (or a
+dict with those keys) becomes the port's, so an rwkv layer's serving state
+carries across as well as its parameters.  Fed the same
 weights, both packages compute the same function.
 
 A JAX `TrainState` (params, opt, rng, bn_state, residual) becomes the
@@ -34,13 +36,14 @@ import torch
 from repro_torch.core.qtensor import QTensor, tree_to
 from repro_torch.core.recurrent_bn import BNParams, BNState
 from repro_torch.kernels import dispatch
+from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.train.optimizer import OptState
 from repro_torch.train.train_step import TrainState
 
 _QT_KEYS = {"codes", "k", "mode", "alpha", "scale"}
 _JAX_TRAIN_STATE = frozenset(("params", "opt", "rng", "bn_state", "residual"))
-_NAMED = {frozenset(BNParams._fields): BNParams,
-          frozenset(BNState._fields): BNState}
+_NAMED = {frozenset(cls._fields): cls
+          for cls in (BNParams, BNState, RWKVState)}
 
 
 def _tensor(a) -> torch.Tensor:

@@ -71,8 +71,9 @@ class QTensor:
         pad = (-K) % group
         qv = torch.nn.functional.pad(qv, (0, 0, 0, pad))
         pack = Q.pack_ternary if mode == "ternary" else Q.pack_binary
-        flat = qv.reshape(-1, K + pad, N)
-        codes = torch.stack([pack(m) for m in flat])
+        # every matrix's K + pad is a multiple of the group, so no word
+        # straddles two matrices: the stacked rows pack in one call
+        codes = pack(qv.reshape(-1, N))
         codes = codes.reshape(*lead, (K + pad) // group, N)
         return cls(codes=codes, scale=scale, k=K, mode=mode, alpha=alpha)
 

@@ -1,10 +1,13 @@
 """Serving launcher, ported from `repro/launch/serve.py`: the paper's
-BN-LSTM and the transformer pool's dense family (llama3, qwen3, gemma3).
+BN-LSTM and the transformer pool's dense (llama3, qwen3, gemma3), MoE
+(mixtral, qwen3-moe) and RWKV6 families.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rnn-paper --full
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --reduced --device cpu [--traffic [--spec-k 2]]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --reduced --device cpu [--traffic]
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --traffic \\
       --requests 8 --slots 3 [--spec-k 4]
   PYTHONPATH=src python -m repro_torch.launch.serve --listen --port 8700
@@ -18,13 +21,19 @@ are random, drawn from --seed.  It runs on the card unless --device cpu is
 given.  A transformer arch builds random weights from --seed too
 (`models/transformer.model_init`), exported packed with
 --quant binary|ternary: every projection then runs the packed GEMV (at
-most 8 rows: decode) or GEMM (prefill); --reduced shrinks it to the
-family's smoke size, --full keeps the published widths.
+most 8 rows: decode) or GEMM (prefill), an MoE layer's per expert;
+--reduced shrinks it to the family's smoke size, --full keeps the
+published widths.  A packed tree is drawn a layer at a time, each layer
+exported as it is drawn (`model_init(packed=True)`), so a full-width MoE
+arch serves from one card; with --quant none its fp32 expert masters
+(qwen3-moe-30b-a3b 116 GB, mixtral-8x7b 180 GB) are checked against the
+device's memory before anything is allocated.
 
 --traffic replays a synthetic Poisson workload with mixed prompt and
 generation lengths through the continuous-batching engine
 (serve/engine.py) and reports aggregate tok/s, slot occupancy and p50/p95
-latency and time to first token.
+latency and time to first token.  MoE and rwkv archs prefill each prompt
+as one chunk (their runtime's `chunk_granularity` is "whole").
 
 --spec-k N adds speculative decoding to --traffic or --listen: the fp
 masters are the target and their own packed --quant export the draft,
@@ -32,15 +41,18 @@ which proposes N tokens a round; the report adds the accept rate.
 
 --listen serves the warmed engine over HTTP/SSE (serve/frontdoor.py:
 POST /v1/generate, GET /v1/stats), with hangups cancelling and a
-prefix-state cache of --prefix-cache-mb.
+prefix-state cache of --prefix-cache-mb where the runtime supports one
+(token-granularity chunks, non-ring caches; otherwise it serves without).
 
-Refused: --mesh and the transformer pool's moe, ssm, hybrid, audio and
-vlm families, which wait for ROADMAP Queue 1 item 9.
+Refused: --mesh and the transformer pool's hybrid, audio and vlm
+families, which wait for ROADMAP Queue 1 item 9; speculation on MoE,
+rwkv and ring-cache archs (the engine's refusal).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -48,7 +60,6 @@ import torch
 from repro_torch.configs import (ARCH_IDS, RNN_ARCH_IDS, get_config,
                                   get_rnn_config, rnn_paper)
 from repro_torch.core import bnlstm as BL
-from repro_torch.core.qtensor import export_packed
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as T
@@ -59,9 +70,10 @@ from repro_torch.serve.recurrent import (RNNRuntime, TransformerRuntime,
 NOT_PORTED = {
     "mesh": "--mesh (a mesh-sharded engine) waits for ROADMAP Queue 1 "
             "item 9",
-    "arch": "the transformer pool's moe, ssm, hybrid, audio and vlm "
-            "families wait for ROADMAP Queue 1 item 9",
+    "arch": "the transformer pool's hybrid, audio and vlm families wait "
+            "for ROADMAP Queue 1 item 9",
 }
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def _report_bytes(rt, quant: str) -> None:
@@ -90,22 +102,42 @@ def build_rnn(args):
     return cfg, rt
 
 
+def expert_master_bytes(cfg) -> int:
+    """Bytes of an MoE config's fp32 expert masters (3 matrices of d x d_ff
+    an expert a layer); 0 without experts."""
+    return 4 * 3 * cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff
+
+
+def device_memory(device: torch.device) -> int:
+    """The card's memory, or the host's for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
 def build_transformer(args):
-    """A dense transformer-pool arch with random weights from --seed,
-    exported packed unless --quant none, behind the serving runtime."""
+    """A transformer-pool arch with random weights from --seed, drawn and
+    exported packed a layer at a time unless --quant none, behind the
+    serving runtime.  Unpacked, an MoE arch whose fp32 expert masters
+    exceed the device's memory is refused first."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    packed = args.quant != "none"
     cfg = cfg.with_quant(QuantSpec(mode=args.quant, norm="channel")
-                         if args.quant != "none" else QuantSpec(mode="none"))
+                         if packed else QuantSpec(mode="none"))
     device = dispatch.resolve_device(args.device)
+    need, have = expert_master_bytes(cfg), device_memory(device)
+    if not packed and need > have:
+        raise SystemExit(
+            f"--arch {args.arch} --quant none: its fp32 expert masters "
+            f"alone take {need / 1e9:.0f} GB, more than the {have / 1e9:.0f}"
+            f" GB of {device}; serve it packed (--quant ternary|binary) or "
+            f"--reduced")
     params = T.model_init(torch.Generator(device).manual_seed(args.seed),
-                          cfg)
-    if args.quant != "none":
-        # the train -> serve handoff: masters -> packed QTensors, once
-        params = export_packed(params, cfg.quant)
+                          cfg, packed=packed)
     rt = TransformerRuntime(cfg, params, device=device)
-    if args.quant != "none":
+    if packed:
         _report_bytes(rt, args.quant)
     return cfg, rt
 
@@ -178,8 +210,15 @@ def run_listen(cfg, rt, args, draft=None) -> None:
     from repro_torch.serve.prefixcache import PrefixCache
 
     ctx = args.prompt_len + args.gen
-    cache = (PrefixCache(args.prefix_cache_mb << 20)
-             if args.prefix_cache_mb > 0 else None)
+    cache = None
+    if args.prefix_cache_mb > 0:
+        if (getattr(rt, "chunk_granularity", "token") == "token"
+                and not getattr(rt, "ring_caches", False)):
+            cache = PrefixCache(args.prefix_cache_mb << 20)
+        else:
+            print("prefix cache: unsupported for this runtime (needs "
+                  "token-granularity chunking; non-ring caches): serving "
+                  "without it")
     eng = ServeEngine(rt, cfg.vocab, slots=args.slots, max_context=ctx,
                       prefill_chunk=args.prefill_chunk,
                       draft=draft, spec_k=args.spec_k if draft else 0,
@@ -252,7 +291,8 @@ def main(argv=None):
 
     if args.mesh:
         raise SystemExit(f"not ported yet: {NOT_PORTED['mesh']}")
-    if args.arch in ARCH_IDS and get_config(args.arch).family != "dense":
+    if (args.arch in ARCH_IDS
+            and get_config(args.arch).family not in PORTED_FAMILIES):
         raise SystemExit(f"not ported yet: --arch {args.arch}: "
                          f"{NOT_PORTED['arch']}")
     build = build_rnn if args.arch in RNN_ARCH_IDS else build_transformer

@@ -1,0 +1,215 @@
+"""Mixture-of-Experts FFN (mixtral / qwen3-moe style), ported from
+`repro/models/moe.py`: grouped, capacity-based routing over SwiGLU
+experts.
+
+Routing is JAX's, step for step:
+  * the router product runs in fp32 (`router` stays a full-precision leaf;
+    on the card `dispatch.resolve_device` has turned TF32 off, which would
+    flip top-k choices);
+  * top-k with ties to the lower expert index (`jax.lax.top_k`'s order: a
+    stable descending sort, since `torch.topk` does not promise it), then
+    a softmax over the k gates;
+  * queue positions by a k-major cumulative sum (every token's first
+    choice is queued before any second choice), `keep = pos < cap`;
+  * tokens split into groups of `GROUP_SIZE` (one group unless T is a
+    multiple), capacity rounded up to `CAP_ALIGN` only when
+    T >= CAP_ALIGN * E, and `no_drop` (the decode step) makes cap = Tg;
+  * the aux loss E * sum(frac_tokens * frac_probs) over the first choices.
+
+Dispatch and combine are index gathers and a sum over k where JAX has
+one-hot einsums: they select the same rows and gates, and only the
+combine's summation order differs (fp32, over a token's k kept choices,
+then one cast to the compute dtype, as JAX's einsum on the gates it cast
+to that dtype).  `route` still returns JAX's dense (T, E, C) dispatch and
+combine tensors, built from the same slots.
+
+The experts: fp masters take one batched product a weight over every
+expert's C capacity slots, as JAX's einsum does (row by row on the CPU,
+where a row's bits must not depend on its neighbours).  A packed tree runs
+the kernels expert by expert through `ops.qmatmul` (the GEMV at <= 8 rows,
+the GEMM above), and only the experts with at least one kept row: JAX
+runs all E over their capacity slots, and every other expert's output
+meets a combine weight of exactly 0, so skipping it changes no bit.
+Finding the non-empty experts costs one device-to-host read a layer (the
+per-expert row counts); a CUDA graph over a step would have to remove it.
+
+The channel scales `sgate`/`sup`/`sdown` (one per layer, shared by the
+experts) apply after each product in JAX's order: fp32 kernel sum, alpha,
+the cast to the compute dtype, then the scale (`qlinear.scaled`).
+
+Not ported: the mesh `constrain` calls and the expert/capacity sharding
+choice (`current_mesh`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.qlinear import maybe_scale, scaled, winit
+from repro_torch.core.qtensor import QTensor
+from repro_torch.kernels.ops import qmatmul, serve_matmul
+
+GROUP_SIZE = 4096  # tokens per routing group
+CAP_ALIGN = 128    # capacity rounded up to this at large token counts
+
+
+def moe_init(gen: torch.Generator, cfg) -> dict:
+    """One layer's router and stacked expert weights, drawn from `gen` on
+    its device (the numbers differ from `jax.random`'s)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dev = gen.device
+    p = {
+        "router": torch.randn((d, e), generator=gen, device=dev) * d ** -0.5,
+        "Wgate": winit(gen, (e, d, f)),
+        "Wup": winit(gen, (e, d, f)),
+        "Wdown": winit(gen, (e, f, d)),
+    }
+    for n, dout in (("Wgate", f), ("Wup", f), ("Wdown", d)):
+        maybe_scale(p, n, cfg.quant, dout, dev)
+    return p
+
+
+def capacity(n_tokens: int, cfg, align: int = 1) -> int:
+    c = int(math.ceil(cfg.topk * n_tokens / cfg.n_experts * cfg.capacity_factor))
+    c = max(c, cfg.topk)  # at least topk slots so tiny tests route
+    return (c + align - 1) // align * align
+
+
+def top_k(logits: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last axis, ties to the
+    lower index, as `jax.lax.top_k`."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route_slots(logits: torch.Tensor, cfg, cap: int):
+    """logits (T, E) fp32 -> (idx (T, k) expert of each choice, gates
+    (T, k) fp32, pos (T, k) its queue position in that expert, keep (T, k)
+    pos < cap, aux)."""
+    T, E = logits.shape
+    k = cfg.topk
+    gates, idx = top_k(logits, k)
+    gates = torch.softmax(gates, dim=-1)               # normalize over k
+    onehot = F.one_hot(idx, E)                         # (T, k, E) int64
+    oh_kt = onehot.transpose(0, 1).reshape(k * T, E)   # k-major priority
+    pos_kt = torch.cumsum(oh_kt, dim=0) - oh_kt
+    pos = pos_kt.reshape(k, T, E).transpose(0, 1).gather(
+        -1, idx[..., None])[..., 0]
+    keep = pos < cap
+    probs = torch.softmax(logits, dim=-1)
+    frac_tokens = onehot[:, 0, :].float().mean(dim=0)
+    aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
+    return idx, gates, pos, keep, aux
+
+
+def route(logits: torch.Tensor, cfg, cap: int):
+    """JAX's form: logits (T, E) fp32 -> (dispatch (T, E, C), combine
+    (T, E, C), aux), dense one-hot tensors built from `route_slots`."""
+    T, E = logits.shape
+    idx, gates, pos, keep, aux = route_slots(logits, cfg, cap)
+    t = torch.arange(T, device=logits.device)[:, None].expand_as(idx)
+    at = (t[keep], idx[keep], pos[keep])
+    disp = torch.zeros((T, E, cap), device=logits.device)
+    comb = torch.zeros((T, E, cap), device=logits.device)
+    disp[at] = 1.0
+    comb[at] = gates[keep]
+    return disp, comb, aux
+
+
+def _expert(w: QTensor, e: int) -> QTensor:
+    """Expert e of a stacked (E, K/G, N) QTensor: a contiguous slice."""
+    return dataclasses.replace(
+        w, codes=w.codes[e], scale=None if w.scale is None else w.scale[e])
+
+
+def _ffn(p: dict, x: torch.Tensor, cfg, mm) -> torch.Tensor:
+    """SwiGLU with the channel scales; `mm(x, name)` is one product."""
+    g = scaled(mm(x, "Wgate"), p, "Wgate", cfg.quant)
+    u = scaled(mm(x, "Wup"), p, "Wup", cfg.quant)
+    return scaled(mm(F.silu(g) * u, "Wdown"), p, "Wdown", cfg.quant)
+
+
+def _batched_mm(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, M, d) @ fp (E, d, f): one batched product on the card, row by
+    row on the CPU (`ops.serve_matmul`)."""
+    if xe.device.type == "cpu":
+        return torch.stack([serve_matmul(xe[e], w[e])
+                            for e in range(xe.shape[0])])
+    return torch.bmm(xe, w)
+
+
+def _experts_over_slots(p: dict, xt: torch.Tensor, slot: torch.Tensor,
+                        n_slots: int, cfg) -> torch.Tensor:
+    """JAX's formulation for fp masters: every expert over its capacity
+    slots (rows `slot` of an (E * G * C, d) buffer hold the kept tokens,
+    the rest zeros) in one batched product a weight, then the kept rows'
+    outputs read back."""
+    E = cfg.n_experts
+    xe = xt.new_zeros((n_slots, xt.shape[1]))
+    xe[slot] = xt
+    xe = xe.reshape(E, n_slots // E, -1)
+    ye = _ffn(p, xe, cfg, lambda x, n: _batched_mm(x, p[n]))
+    return ye.reshape(n_slots, -1)[slot]
+
+
+def _kept_experts(p: dict, rows: torch.Tensor, expert: torch.Tensor,
+                  cfg) -> torch.Tensor:
+    """The packed experts with at least one kept row, each on its kept rows
+    only.  rows (n, d) with their experts (n,) -> outputs (n, d)."""
+    order = torch.argsort(expert, stable=True)
+    counts = torch.bincount(expert, minlength=cfg.n_experts).tolist()
+    xs = rows[order]
+    outs, off = [], 0
+    for e, n in enumerate(counts):
+        if n:
+            outs.append(_ffn(p, xs[off:off + n], cfg,
+                             lambda x, name: qmatmul(x, _expert(p[name], e))))
+            off += n
+    out = torch.empty((rows.shape[0], outs[0].shape[1]), dtype=outs[0].dtype,
+                      device=rows.device)
+    out[order] = torch.cat(outs)
+    return out
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg, *, no_drop: bool = False,
+              group_size: int = GROUP_SIZE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y, aux loss).  SwiGLU experts, grouped routing.
+    A packed tree runs only its experts with kept rows, where JAX runs
+    every expert over its capacity slots (the tests hold the two
+    bit-equal)."""
+    B, S, d = x.shape
+    T = B * S
+    E = cfg.n_experts
+    Tg = min(group_size, T)
+    if T % Tg:
+        Tg = T  # odd tiny shapes: single group
+    G = T // Tg
+    align = CAP_ALIGN if T >= CAP_ALIGN * E else 1
+    cap = Tg if no_drop else capacity(Tg, cfg, align)
+
+    xt = x.reshape(T, d)
+    logits = serve_matmul(xt.float(), p["router"]).reshape(G, Tg, E)
+    routes = [route_slots(logits[g], cfg, cap) for g in range(G)]
+    idx, gates, pos, keep = (torch.cat([r[i] for r in routes])
+                             for i in range(4))
+    aux = torch.stack([r[4] for r in routes]).mean()
+
+    # the kept (token, choice) pairs, in token-major order
+    tok = torch.arange(T, device=x.device)[:, None].expand_as(idx)[keep]
+    expert = idx[keep]
+    if isinstance(p["Wgate"], QTensor):
+        ye = _kept_experts(p, xt[tok], expert, cfg)
+    else:
+        group = tok // Tg
+        slot = (expert * G + group) * cap + pos[keep]
+        ye = _experts_over_slots(p, xt[tok], slot, E * G * cap, cfg)
+
+    # combine: JAX casts the gates to the compute dtype, sums in fp32
+    out = torch.zeros((T, cfg.topk, d), dtype=torch.float32, device=x.device)
+    out[keep] = ye.float() * gates.to(x.dtype)[keep].float()[:, None]
+    y = out.sum(dim=1).to(x.dtype)
+    return y.reshape(B, S, d), aux.float()

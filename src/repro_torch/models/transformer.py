@@ -1,6 +1,9 @@
-"""The transformer pool's dense family (llama3, qwen3, gemma3), ported
-from `repro/models/transformer.py`: layer kinds `full`, `global` and
-`local` (a sliding window over a ring cache).
+"""The transformer pool's dense, MoE and RWKV6 families, ported from
+`repro/models/transformer.py`: layer kinds `full`, `global` and `local`
+(a sliding window over a ring cache) with a SwiGLU MLP or a
+mixture-of-experts FFN (`models/moe.py`: mixtral, qwen3-moe), and the
+attention-free `rwkv` kind (`models/rwkv6.py`), whose cache is an
+`RWKVState`.
 
 Parameters keep the JAX tree: `embed`, `final_norm`, `head` (untied
 only), `stack` (one dict per pattern position, every leaf stacked over
@@ -12,15 +15,22 @@ loop runs layer by layer over per-layer views.
 The paper's technique enters once per call through `quantize_tree`; an
 exported tree's packed `QTensor` leaves pass through it and every weight
 matmul dispatches in `kernels.ops` (the packed GEMV for at most 8 rows,
-the GEMM for more).  `_serve_quant` prepares a tree for serving once: the
-masters quantized and cast to the compute dtype, the embedding cast (the
-tied head reads it transposed), and per-layer views taken.  Handed a tree
-it prepared, it returns it as it is, so a runtime casts once and every
-step reads the prepared tree; the bits are those of JAX's per-call cast.
+the GEMM for more; an MoE layer per expert).  `_serve_quant` prepares a
+tree for serving once: the masters quantized and cast to the compute
+dtype, the embedding cast (the tied head reads it transposed), and
+per-layer views taken (an expert stack's view is (E, K/G, N)).  Handed a
+tree it prepared, it returns it as it is, so a runtime casts once and
+every step reads the prepared tree; the bits are those of JAX's per-call
+cast.
 
-Other families and kinds (`moe`, `mamba`, `rwkv`, `cross`, `selfcross`,
-`shared`) are refused by `check_dense`: they wait for ROADMAP Queue 1
-item 9.
+An MoE layer routes without drops (capacity = its token count) exactly
+when the call carries one token a row (S = 1, a decode step), as JAX's
+`no_drop=x.shape[1] == 1`.  A dead continuous-batching row's RWKV state
+is frozen bit for bit under `live` (`_freeze_dead`).
+
+The hybrid, audio and VLM families (kinds `mamba`, `shared`, `cross`,
+`selfcross`, `enc`) are refused by `check_ported`: they wait for ROADMAP
+Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -30,24 +40,29 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.qlinear import quantize_tree, winit
-from repro_torch.core.qtensor import QTensor, is_qtensor, tree_map
+from repro_torch.core.qtensor import (QTensor, export_packed, is_qtensor,
+                                      tree_map)
 from repro_torch.kernels.ops import serve_matmul
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R
 from repro_torch.serve.kvcache import (AttnCache, cache_init,
                                        cache_positions, cache_update)
 
-DENSE_KINDS = ("full", "global", "local")
+ATTN_KINDS = ("full", "global", "local")
 DECODE_MARGIN = 128  # extra cache slots beyond the spec'd context length
 
 
-def check_dense(cfg) -> None:
-    """Refuse a config outside the ported dense family."""
+def check_ported(cfg) -> None:
+    """Refuse a config outside the ported families: dense and MoE over the
+    attention kinds, and the SSM family's rwkv kind."""
     pat, _, tail = expand_pattern(cfg)
-    if (cfg.family != "dense" or cfg.n_experts > 0
-            or set(pat + tail) - set(DENSE_KINDS)):
+    kinds = set(pat + tail)
+    attn = cfg.family in ("dense", "moe") and kinds <= set(ATTN_KINDS)
+    if not (attn or (cfg.family == "ssm" and kinds == {"rwkv"})):
         raise NotImplementedError(
             f"{cfg.name} (the {cfg.family} family) waits for ROADMAP Queue "
-            f"1 item 9; the port serves the dense family")
+            f"1 item 9; the port serves the dense, moe and rwkv families")
 
 
 # ---------------------------------------------------------------------------
@@ -75,22 +90,49 @@ def expand_pattern(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
 
 
 def block_init(gen: torch.Generator, cfg, kind: str) -> dict:
-    """One dense block's parameters (every dense kind has the same)."""
+    """One block's parameters: an rwkv mixer, or attention with an MLP
+    (`moe` in its place when the config has experts)."""
     d, dev = cfg.d_model, gen.device
-    return {"norm1": torch.zeros((d,), device=dev),
-            "norm2": torch.zeros((d,), device=dev),
-            "attn": L.attn_init(gen, cfg), "mlp": L.mlp_init(gen, cfg)}
+    if kind == "rwkv":
+        return {"ln1": torch.zeros((d,), device=dev),
+                "ln2": torch.zeros((d,), device=dev),
+                "mix": R.rwkv6_init(gen, cfg)}
+    p = {"norm1": torch.zeros((d,), device=dev),
+         "norm2": torch.zeros((d,), device=dev),
+         "attn": L.attn_init(gen, cfg)}
+    if cfg.n_experts > 0:
+        p["moe"] = MOE.moe_init(gen, cfg)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg)
+    return p
 
 
-def _stacked_init(gen: torch.Generator, cfg, kind: str, n: int) -> dict:
-    blocks = [block_init(gen, cfg, kind) for _ in range(n)]
-    return tree_map(lambda *ls: torch.stack(ls), blocks[0], *blocks[1:])
+def _stack(*leaves):
+    """Stack one leaf of every layer: tensors, or exported QTensors (whose
+    scale is None) by their codes."""
+    if not is_qtensor(leaves[0]):
+        return torch.stack(leaves)
+    return dataclasses.replace(leaves[0],
+                               codes=torch.stack([q.codes for q in leaves]))
 
 
-def model_init(gen: torch.Generator, cfg) -> dict:
+def _stacked_init(gen: torch.Generator, cfg, kind: str, n: int,
+                  post=lambda block: block) -> dict:
+    blocks = [post(block_init(gen, cfg, kind)) for _ in range(n)]
+    return tree_map(_stack, blocks[0], *blocks[1:])
+
+
+def model_init(gen: torch.Generator, cfg, *, packed: bool = False) -> dict:
     """Random parameters in the JAX tree's layout, drawn from `gen` on its
-    device (the numbers differ from `jax.random`'s)."""
-    check_dense(cfg)
+    device (the numbers differ from `jax.random`'s).  With `packed` every
+    block is exported (`export_packed` under `cfg.quant`) as soon as it is
+    drawn and the codes are stacked: the same tree as
+    `export_packed(model_init(gen, cfg), cfg.quant)`, bit for bit, with one
+    layer's fp32 masters alive at a time (a full-width MoE model's masters
+    do not fit on one card)."""
+    check_ported(cfg)
+    post = ((lambda tree: export_packed(tree, cfg.quant)) if packed
+            else (lambda tree: tree))
     d, Vp, dev = cfg.d_model, cfg.padded_vocab, gen.device
     pat, rep, tail = expand_pattern(cfg)
     params: dict = {
@@ -99,9 +141,10 @@ def model_init(gen: torch.Generator, cfg) -> dict:
     }
     if not cfg.tie_embeddings:
         params["head"] = winit(gen, (d, Vp))
-    params["stack"] = tuple(_stacked_init(gen, cfg, k, rep) for k in pat)
-    params["tail"] = tuple(block_init(gen, cfg, k) for k in tail)
-    return params
+    params["stack"] = tuple(_stacked_init(gen, cfg, k, rep, post)
+                            for k in pat)
+    params["tail"] = tuple(post(block_init(gen, cfg, k)) for k in tail)
+    return post(params)
 
 
 # ---------------------------------------------------------------------------
@@ -152,13 +195,21 @@ def _window(cfg, kind: str) -> int:
     return cfg.window if (kind == "local" or cfg.swa_all) else 0
 
 
+def _mlp_or_moe(p: dict, x: torch.Tensor, cfg, *,
+                no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    if "moe" in p:
+        return MOE.moe_apply(p["moe"], x, cfg, no_drop=no_drop)
+    return L.mlp_apply(p["mlp"], x, cfg), torch.zeros((), device=x.device)
+
+
 def _attn_full(p: dict, x: torch.Tensor, cfg, kind: str,
-               positions: torch.Tensor) -> torch.Tensor:
-    """The uncached block (the eval forward)."""
+               positions: torch.Tensor):
+    """The uncached block (the eval forward); returns (x, moe aux)."""
     h = L.rms_norm(x, p["norm1"])
     x = x + L.attn_apply(p["attn"], h, cfg, kind=kind, positions=positions)
     h = L.rms_norm(x, p["norm2"])
-    return x + L.mlp_apply(p["mlp"], h, cfg)
+    y, aux = _mlp_or_moe(p, h, cfg)
+    return x + y, aux
 
 
 def _self_attn_cached(p_attn: dict, h: torch.Tensor, cfg, cache: AttnCache,
@@ -182,13 +233,44 @@ def _self_attn_cached(p_attn: dict, h: torch.Tensor, cfg, cache: AttnCache,
 
 def _attn_cached(p: dict, x: torch.Tensor, cfg, kind: str, cache: AttnCache,
                  live=None):
-    """The prefill/decode block; returns (x, new cache)."""
+    """The prefill/decode block; returns (x, new cache).  An MoE layer
+    drops no token when the call carries one a row."""
     h = L.rms_norm(x, p["norm1"])
     o, cache = _self_attn_cached(p["attn"], h, cfg, cache,
                                  window=_window(cfg, kind), live=live)
     x = x + L.attn_out(p["attn"], o, cfg)
     h = L.rms_norm(x, p["norm2"])
-    return x + L.mlp_apply(p["mlp"], h, cfg), cache
+    y, _ = _mlp_or_moe(p, h, cfg, no_drop=x.shape[1] == 1)
+    return x + y, cache
+
+
+def _rwkv_block(p: dict, x: torch.Tensor, cfg, state: Optional[R.RWKVState],
+                decode: bool):
+    """The rwkv block (time mix, then channel mix); returns (x, new state),
+    the state None when none was given."""
+    h = L.rms_norm(x, p["ln1"])
+    y, S, tm_last = R.rwkv6_time_mix(p["mix"], h, cfg, state=state,
+                                     decode=decode)
+    x = x + y.to(x.dtype)
+    h = L.rms_norm(x, p["ln2"])
+    y, cm_last = R.rwkv6_channel_mix(
+        p["mix"], h, cfg, prev=state.cm_shift if state is not None else None)
+    x = x + y.to(x.dtype)
+    if state is None:
+        return x, None
+    return x, R.RWKVState(S=S, tm_shift=tm_last, cm_shift=cm_last,
+                          pos=state.pos + h.shape[1])
+
+
+def _freeze_dead(new: R.RWKVState, old: R.RWKVState,
+                 live: torch.Tensor) -> R.RWKVState:
+    """Per row, the new recurrent state or the old one: dead rows
+    (live False) keep every leaf, pos included, bit for bit.  The batch is
+    axis 0 of every leaf (the state of one layer)."""
+    def sel(n, o):
+        return torch.where(live.reshape(live.shape + (1,) * (n.dim() - 1)),
+                           n, o)
+    return R.RWKVState(*(sel(n, o) for n, o in zip(new, old)))
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +280,11 @@ def _attn_cached(p: dict, x: torch.Tensor, cfg, kind: str, cache: AttnCache,
 
 def _kind_cache(cfg, kind: str, batch: int, cap: int, dtype, *,
                 per_slot: bool = False, lead: tuple = (), device=None) -> dict:
-    """The cache of one layer of `kind` ({"attn": AttnCache})."""
+    """The cache of one layer of `kind`: {"attn": AttnCache}, or
+    {"rwkv": RWKVState} for the rwkv kind."""
+    if kind == "rwkv":
+        return {"rwkv": R.state_init(cfg, batch, dtype, per_slot=per_slot,
+                                     lead=lead, device=device)}
     if kind in ("full", "global"):
         c = cap if not cfg.swa_all else min(cfg.window + DECODE_MARGIN, cap)
         ring = cfg.swa_all
@@ -250,49 +336,85 @@ def _head(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return logits
 
 
+def _layer_cache(cache: dict, r: int) -> dict:
+    """Layer r of a stacked cache: k/v views, its own pos and state."""
+    if "rwkv" in cache:
+        return {"rwkv": R.RWKVState(*(leaf[r] for leaf in cache["rwkv"]))}
+    c = cache["attn"]
+    return {"attn": c._replace(k=c.k[r], v=c.v[r], pos=c.pos[r])}
+
+
+def _restack(cache: dict, layers: list) -> dict:
+    """The stacked cache after a step: k/v were written in place, so only
+    the positions (and an rwkv state, whole) stack back."""
+    if not layers:
+        return cache
+    if "rwkv" in cache:
+        return {"rwkv": R.RWKVState(*(torch.stack(leaves) for leaves in
+                                      zip(*(c["rwkv"] for c in layers))))}
+    return {"attn": cache["attn"]._replace(
+        pos=torch.stack([c["attn"].pos for c in layers]))}
+
+
+def _apply_kind(p: dict, x: torch.Tensor, cfg, kind: str, cache: dict, *,
+                decode: bool, live=None):
+    """One layer of `kind` against its cache; returns (x, new cache)."""
+    if kind == "rwkv":
+        x, st = _rwkv_block(p, x, cfg, cache["rwkv"], decode)
+        if live is not None:
+            st = _freeze_dead(st, cache["rwkv"], live)
+        return x, {"rwkv": st}
+    x, c = _attn_cached(p, x, cfg, kind, cache["attn"], live)
+    return x, {"attn": c}
+
+
 def _step_cached(qparams: ServeTree, x: torch.Tensor, caches: dict, cfg, *,
-                 live=None) -> Tuple[torch.Tensor, dict]:
+                 decode: bool, live=None) -> Tuple[torch.Tensor, dict]:
     """Run every layer over new tokens x (B, S, d) against the caches.
     k/v are written in place into the stacked caches; the new positions
-    are stacked back.  `live` (B,) freezes dead rows."""
+    and rwkv states are stacked back.  `decode` runs the rwkv kind's
+    one-token recurrence instead of its chunked scan; `live` (B,) freezes
+    dead rows."""
     pat, rep, tail = expand_pattern(cfg)
     it = iter(qparams.layers)
-    stack_pos = [[] for _ in pat]
+    done = [[] for _ in pat]
     for r in range(rep):
         for i, kind in enumerate(pat):
             _, p = next(it)
-            c = caches["stack"][i]["attn"]
-            one = c._replace(k=c.k[r], v=c.v[r], pos=c.pos[r])
-            x, one = _attn_cached(p, x, cfg, kind, one, live)
-            stack_pos[i].append(one.pos)
-    new_stack = tuple(
-        {"attn": caches["stack"][i]["attn"]._replace(
-            pos=torch.stack(stack_pos[i]) if rep else
-            caches["stack"][i]["attn"].pos)}
-        for i in range(len(pat)))
+            x, one = _apply_kind(p, x, cfg, kind,
+                                 _layer_cache(caches["stack"][i], r),
+                                 decode=decode, live=live)
+            done[i].append(one)
+    new_stack = tuple(_restack(c, d) for c, d in zip(caches["stack"], done))
     new_tail = []
     for c in caches["tail"]:
         kind, p = next(it)
-        x, one = _attn_cached(p, x, cfg, kind, c["attn"], live)
-        new_tail.append({"attn": one})
+        x, one = _apply_kind(p, x, cfg, kind, c, decode=decode, live=live)
+        new_tail.append(one)
     return x, {"stack": new_stack, "tail": tuple(new_tail)}
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg, *,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The eval forward over a whole sequence (no caches, deterministic
-    quantization).  tokens (B, S) -> (logits (B, S, Vp), aux 0).  The
-    training forward (stochastic quantization, remat) is not ported."""
+    quantization).  tokens (B, S) -> (logits (B, S, Vp), the MoE layers'
+    summed aux loss).  The training forward (stochastic quantization,
+    remat) is not ported."""
     qparams = _serve_quant(params, cfg)
     x = _embed(qparams, tokens, cfg)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
+    aux = torch.zeros((), device=x.device)
     for kind, p in qparams.layers:
-        x = _attn_full(p, x, cfg, kind, positions)
+        if kind == "rwkv":
+            x, _ = _rwkv_block(p, x, cfg, None, False)
+        else:
+            x, a = _attn_full(p, x, cfg, kind, positions)
+            aux = aux + a
     x = L.rms_norm(x, qparams["final_norm"])
     if last_only:
         x = x[:, -1:]
-    return _head(qparams, x, cfg), torch.zeros((), device=x.device)
+    return _head(qparams, x, cfg), aux
 
 
 def prefill(params: dict, tokens: torch.Tensor, caches: dict,
@@ -303,7 +425,7 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict,
     length."""
     qparams = _serve_quant(params, cfg)
     x = _embed(qparams, tokens, cfg)
-    x, caches = _step_cached(qparams, x, caches, cfg)
+    x, caches = _step_cached(qparams, x, caches, cfg, decode=False)
     x = L.rms_norm(x[:, -1:], qparams["final_norm"])
     return _head(qparams, x, cfg)[:, 0], caches
 
@@ -317,7 +439,8 @@ def verify_step(params: dict, tokens: torch.Tensor, caches: dict, cfg,
     dependent.  Rollback is the caller's (kvcache.cache_spec_commit)."""
     qparams = _serve_quant(params, cfg)
     x = _embed(qparams, tokens, cfg)
-    x, caches = _step_cached(qparams, x, caches, cfg, live=live)
+    x, caches = _step_cached(qparams, x, caches, cfg, decode=True,
+                             live=live)
     x = L.rms_norm(x, qparams["final_norm"])
     logits = [_head(qparams, x[:, i:i + 1], cfg)[:, 0]
               for i in range(tokens.shape[1])]
@@ -333,6 +456,7 @@ def decode_step(params: dict, token: torch.Tensor, caches: dict, cfg,
         token = token[:, None]
     qparams = _serve_quant(params, cfg)
     x = _embed(qparams, token, cfg)
-    x, caches = _step_cached(qparams, x, caches, cfg, live=live)
+    x, caches = _step_cached(qparams, x, caches, cfg, decode=True,
+                             live=live)
     x = L.rms_norm(x, qparams["final_norm"])
     return _head(qparams, x, cfg)[:, 0], caches

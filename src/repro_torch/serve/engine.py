@@ -1,5 +1,6 @@
 """Continuous-batching serve engine, ported from `repro/serve/engine.py`
-for the paper's RNN family and the dense transformer family on one device.
+for the paper's RNN family and the transformer pool's dense, MoE and
+RWKV6 families on one device.
 
 `ServeEngine` owns a fixed pool of B slots over an `RNNRuntime` or a
 `TransformerRuntime` (serve/recurrent.py) and turns
@@ -7,8 +8,9 @@ the lockstep prefill -> decode loop into mixed-length traffic serving:
 
   * requests are admitted from a priority queue as slots free up;
     admission is bookkeeping: the prompt is split into chunks of
-    `prefill_chunk` tokens (the last one shorter) and the slot starts
-    prefilling;
+    `prefill_chunk` tokens (the last one shorter), or kept as one chunk
+    for a runtime whose `chunk_granularity` is "whole" (MoE and rwkv: a
+    split is not exact there), and the slot starts prefilling;
   * each scheduler iteration runs at most one prefill chunk, straight into
     the admitted slot (gather the slot row, run the chunk, write the row
     back), then one batched decode tick over all B slots with the dead
@@ -50,7 +52,8 @@ offset.
 Slot surgery goes through the family's own row helpers: `bnlstm`'s
 `rnn_gather_slot`/`rnn_write_slots`/`rnn_reset_slots` for the RNN state,
 and `tree_gather_slot`/`tree_write_slot`/`tree_reset_slots` below (JAX's
-generic ones, over `AttnCache` nodes) for the transformer caches.
+generic ones, over `AttnCache` nodes and the bare leaves of an
+`RWKVState`) for the transformer caches.
 
 What JAX's engine has and this one does not: jit trace counters
 (`tick_traces`, `prefill_traces`, `spec_traces`, `splice_traces`), since
@@ -66,7 +69,8 @@ throwaway request before the clock starts.  Refused: a device mesh
 (`mesh=`, with `tick_hlo`) and the transformer pool's other families and
 runtimes with `extras` (cross-attention sources), which wait for ROADMAP
 Queue 1 item 9; a prefix cache over ring (sliding-window) caches, whose
-live window need not start at column 0.
+live window need not start at column 0; and, with JAX's messages,
+speculation and a prefix cache over a "whole" runtime.
 """
 from __future__ import annotations
 
@@ -80,7 +84,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bnlstm as BL
-from repro_torch.core.qtensor import tree_map
+from repro_torch.core.qtensor import tree_map, tree_map_with_path
 from repro_torch.kernels import dispatch
 from repro_torch.serve.kvcache import (AttnCache, cache_gather_slot,
                                        cache_reset_slots, cache_write_slot)
@@ -156,31 +160,52 @@ class _Active:
 # ---------------------------------------------------------------------------
 
 
-def _cache(node) -> AttnCache:
-    if not isinstance(node, AttnCache):
-        raise TypeError(f"the port's transformer states hold attention "
-                        f"caches only, got {type(node).__name__}")
-    return node
+def _slot_axis(path: tuple) -> int:
+    """The slot axis of a bare leaf of the transformer cache tree (an
+    `RWKVState` field): 1 under "stack" (after the layer axis), 0 under
+    "tail"."""
+    if not path or path[0] not in ("stack", "tail"):
+        raise TypeError(f"a transformer state is a stack/tail tree of "
+                        f"attention caches and recurrent states, got a "
+                        f"leaf at {'/'.join(path)!r}")
+    return 1 if path[0] == "stack" else 0
 
 
 def tree_write_slot(pool, sub, slot: int):
     """Copy a batch-1 state tree into row `slot` of every pool node, in
-    place (`kvcache.cache_write_slot`), and return the pool."""
-    return tree_map(lambda p, s: cache_write_slot(_cache(p), s, slot),
-                    pool, sub)
+    place (`kvcache.cache_write_slot` for attention caches, a row copy for
+    bare leaves), and return the pool.  A row that is already the pool's
+    own view is not copied onto itself."""
+    def write(path, p, s):
+        if isinstance(p, AttnCache):
+            return cache_write_slot(p, s, slot)
+        row = p.narrow(_slot_axis(path), slot, 1)
+        if row.data_ptr() != s.data_ptr():
+            row.copy_(s.reshape(row.shape))
+        return p
+    return tree_map_with_path(write, pool, sub)
 
 
 def tree_gather_slot(pool, slot: int):
     """Row `slot` of every pool node as a batch-1 state tree of views (the
     read half of in-slot chunked prefill); `tree_write_slot` of it is the
     identity."""
-    return tree_map(lambda p: cache_gather_slot(_cache(p), slot), pool)
+    return tree_map_with_path(
+        lambda path, p: (cache_gather_slot(p, slot) if isinstance(p, AttnCache)
+                         else p.narrow(_slot_axis(path), slot, 1)), pool)
 
 
 def tree_reset_slots(pool, slots: Sequence[int]):
-    """Scrub rows `slots`: every cache keeps its bytes and drops the rows'
-    pos to 0, so a freed slot reads like a fresh one.  In place."""
-    return tree_map(lambda p: cache_reset_slots(_cache(p), slots), pool)
+    """Scrub rows `slots` so a freed slot reads like a fresh one: an
+    attention cache keeps its bytes and drops the rows' pos to 0; a bare
+    recurrent leaf (S, shifts, pos) drops to zero.  In place."""
+    def scrub(path, p):
+        if isinstance(p, AttnCache):
+            return cache_reset_slots(p, slots)
+        for s in slots:
+            p.narrow(_slot_axis(path), s, 1).zero_()
+        return p
+    return tree_map_with_path(scrub, pool)
 
 
 def _clone(state):
@@ -237,6 +262,13 @@ class ServeEngine:
                 "the port's engine schedules the RNN and dense transformer "
                 "families; cross-attention (extras) and other runtimes wait "
                 "for ROADMAP Queue 1 item 9")
+        whole = getattr(rt, "chunk_granularity", "token") == "whole"
+        if prefix_cache is not None and whole:
+            raise NotImplementedError(
+                "prefix-state caching needs token-granularity chunked "
+                "prefill and (for attention archs) non-ring caches — the "
+                "§8 bit-exact chunk-boundary contract is what makes a "
+                "spliced prefix byte-identical to re-prefilling it")
         if prefix_cache is not None and getattr(rt, "ring_caches", False):
             raise ValueError("a prefix cache needs non-ring caches: a ring's "
                              "live window need not start at column 0")
@@ -257,7 +289,9 @@ class ServeEngine:
                     and getattr(draft, "spec_capable", False)):
                 raise NotImplementedError(
                     "speculative decoding needs an exactly-rollbackable "
-                    "multi-token step on both runtimes")
+                    "multi-token step on both runtimes: RNN families and "
+                    "pure-attention non-ring archs qualify; ring-cache, "
+                    "MoE and rwkv/mamba runtimes do not (DESIGN.md §9)")
             if getattr(draft, "family", None) != rt.family:
                 raise ValueError("draft and target must be the same serving "
                                  "family: self-speculation pairs a packed "
@@ -278,6 +312,7 @@ class ServeEngine:
         self.max_context = int(max_context)
         self.eos_id = eos_id
         self.prefill_chunk = int(prefill_chunk)
+        self.whole_prompt = whole
 
         self.prefix_cache = prefix_cache
         if prefix_cache is not None:
@@ -627,7 +662,7 @@ class ServeEngine:
                     self._write(self.draft_pool,
                                 widen_state(entry.draft_state,
                                             self.draft_pool), slot)
-        C = self.prefill_chunk
+        C = prompt.size if self.whole_prompt else self.prefill_chunk
         chunks = deque(prompt[i:i + C].astype(np.int64)
                        for i in range(cached, prompt.size, C))
         self._active[slot] = _Active(

@@ -1,6 +1,6 @@
 """Serving runtimes, ported from `repro/serve/recurrent.py`: one stateful
 prefill/decode interface over the paper's BN-LSTM/GRU and the transformer
-pool's dense family.
+pool's dense, MoE and RWKV6 families.
 
     rt = serving_runtime(cfg, params)          # on the card by default
     state = rt.init_state(batch, context)
@@ -14,8 +14,12 @@ fused-kernel launch per tick.  `TransformerRuntime` holds the parameter
 tree (fp masters or a packed export) and prepares its serving tree once
 (`transformer._serve_quant`: quantized, cast to the compute dtype,
 per-layer views), so no step re-casts a weight; its state is the stacked
-kv caches.  `drive_session` is the canonical prefill -> sample -> decode
-loop the launchers and the chip smoke drive.
+kv caches (an `RWKVState` for rwkv layers).  Its `chunk_granularity` says
+how the engine may split a prompt: "token" anywhere, "whole" (MoE, whose
+tokens compete for capacity across the call, and rwkv, whose chunked scan
+rounds by its chunk boundaries) as one chunk.  `drive_session` is the
+canonical prefill -> sample -> decode loop the launchers and the chip
+smoke drive.
 
 Both carry the continuous-batching engine's hooks (`serve/engine.py`):
 `init_state(per_slot=True)`, `decode_fn` with a `live` mask,
@@ -129,27 +133,34 @@ class RNNRuntime:
 
 
 class TransformerRuntime:
-    """Serving session of the transformer pool's dense family (llama3,
-    qwen3, gemma3).  `params` is the model's tree, fp masters or a packed
-    export (`core.qtensor.export_packed`); the state is the stacked kv
-    caches of `transformer.init_caches`."""
+    """Serving session of the transformer pool's dense (llama3, qwen3,
+    gemma3), MoE (mixtral, qwen3-moe) and RWKV6 families.  `params` is the
+    model's tree, fp masters or a packed export
+    (`core.qtensor.export_packed`); the state is the stacked caches of
+    `transformer.init_caches`."""
 
     family = "transformer"
 
     def __init__(self, cfg, params: dict, *,
                  device: Optional[str | torch.device] = None):
-        T.check_dense(cfg)
+        T.check_ported(cfg)
         self.cfg = cfg
         self.device = dispatch.resolve_device(device)
         self.params = tree_to(params, self.device)
         self.served = T._serve_quant(self.params, cfg)
-        # every dense kind's math is per token given the cache, so any
-        # split of a prompt into chunks is exact.  Ring (sliding-window)
-        # caches recycle columns, so neither a rejected speculative span
-        # nor a prefix snapshot can be cut back out of them.
+        # An attention layer's math is per token given the cache, so any
+        # split of a prompt into chunks is exact.  MoE capacity competition
+        # spans the whole call and rwkv's scan re-chunks at other
+        # boundaries, so those archs prefill a prompt as one in-slot
+        # chunk.  Speculation needs a per-token-exact multi-token step and
+        # non-ring caches: ring (sliding-window) caches recycle columns, so
+        # neither a rejected span nor a prefix snapshot can be cut back out.
         pat, _, tail = T.expand_pattern(cfg)
-        self.ring_caches = cfg.swa_all or "local" in set(pat + tail)
-        self.spec_capable = not self.ring_caches
+        kinds = set(pat + tail)
+        whole = "rwkv" in kinds or cfg.n_experts > 0
+        self.chunk_granularity = "whole" if whole else "token"
+        self.ring_caches = cfg.swa_all or "local" in kinds
+        self.spec_capable = not whole and not self.ring_caches
 
     def init_state(self, batch: int, context: int, *,
                    per_slot: bool = False) -> dict:
@@ -208,7 +219,8 @@ class TransformerRuntime:
 def serving_runtime(cfg, params: dict, **kw):
     """The one constructor: an RNNConfig gives an `RNNRuntime` over the
     {'params', 'state'} variables, a ModelConfig a `TransformerRuntime`
-    (dense family; the others wait for ROADMAP Queue 1 item 9)."""
+    (dense, MoE and RWKV6 families; the others wait for ROADMAP Queue 1
+    item 9)."""
     if isinstance(cfg, BL.RNNConfig):
         return RNNRuntime(cfg, params, **kw)
     return TransformerRuntime(cfg, params, **kw)

@@ -13,8 +13,11 @@ does not reach: every GEMV row count, codes not 16-byte aligned, every
 GEMM row tiling with and without a K split, ragged column counts, batches
 that take several row passes of the fused tick (4 and 8 rows a pass),
 three layers, heads wider than the main path's (vocab 7300 and 10,000),
-and non-finite logits.  The GEMV, the GEMM and the tick are also launched
-twice and must repeat bit for bit.
+and non-finite logits; and the MoE path's per-expert shapes (qwen3-moe's
+2048 <-> 768, mixtral's 4096 <-> 14336) on an expert's slice of stacked
+codes, with one MoE layer and one rwkv layer against their CPU run.  The
+GEMV, the GEMM and the tick are also launched twice and must repeat bit
+for bit.
 
 Tolerances: the packed products are exact (weights are -1/0/+1), so the
 GEMV and GEMM differ from the exact sum only by fp32 summation error, which
@@ -675,3 +678,124 @@ def test_transformer_engine_on_the_card(card):
         seed=r.seed, context=48)[0][0].tolist() for r in reqs)
     print(f"transformer engine on the card: {equal}/8 streams == "
           f"drive_session(B=1)")
+
+
+# ---------------------------------------------------------------------------
+# the MoE and RWKV6 serving paths (per-expert shapes, one layer each)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8, 40])
+@pytest.mark.parametrize("K,N", [(2048, 768), (768, 2048), (4096, 14336),
+                                 (14336, 4096)])
+def test_expert_shapes_match_plain(card, K, N, rows):
+    """qwen3-moe-30b-a3b's experts (2048 -> 768, 768 -> 2048) and
+    mixtral-8x7b's (4096 -> 14336, 14336 -> 4096) at decode rows (the
+    GEMV) and 40 kept rows (the GEMM: qwen3-moe's prefill capacity), the
+    codes an expert's slice of stacked (E, K/16, N) codes as an MoE layer
+    serves them: contiguous and 16-byte aligned, held to the fp64 product
+    within 1e-5 of |x| @ |w|, two launches bit for bit."""
+    rng = np.random.default_rng(K + N + rows)
+    stacked = _codes(rng, 3 * (K // 16), N).reshape(3, K // 16, N).to(card)
+    codes = stacked[2]
+    assert codes.is_contiguous() and codes.data_ptr() % 16 == 0
+    x = torch.from_numpy(np.tanh(rng.normal(size=(rows, K))).astype(
+        np.float32)).to(card)
+    fn = PK.packed_gemv if rows <= 8 else PK.packed_matmul
+    got = fn(x, codes, mode="ternary")
+    again = fn(x, codes, mode="ternary")
+    want = PK.packed_matmul_plain(x, codes, mode="ternary")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    plus, minus = PK.code_masks(codes, mode="ternary")
+    w = plus.double() - minus.double()
+    exact = x.double() @ w
+    tol = 1e-5 * (x.double().abs() @ w.abs())
+    for out in (got, want):
+        assert ((out.double() - exact).abs() <= tol).all()
+    assert dispatch.LAUNCHES[fn.__name__] == 2
+
+
+def all_experts(p, rows, expert, cfg):
+    """JAX's expert loop over a packed tree, the reference of
+    `moe._kept_experts`: every one of the E experts runs over a buffer as
+    long as all kept rows, its own rows in front and zeros behind (JAX's
+    capacity slots), and its rows' outputs are read back."""
+    from repro_torch.models import moe as MOE
+    out = None
+    for e in range(cfg.n_experts):
+        mine = expert == e
+        n = int(mine.sum())
+        buf = torch.zeros_like(rows)
+        buf[:n] = rows[mine]
+        y = MOE._ffn(p, buf, cfg, lambda x, name: OPS.qmatmul(
+            x, MOE._expert(p[name], e)))
+        if out is None:
+            out = y.new_empty((rows.shape[0], y.shape[1]))
+        out[mine] = y[:n]
+    return out
+
+
+def _reduced_layer(arch, device):
+    """Layer 0 of a reduced packed ternary arch in fp32 compute, served."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    cfg = cfg.with_quant(QuantSpec(mode="ternary", norm="channel"))
+    params = T.model_init(torch.Generator().manual_seed(0), cfg, packed=True)
+    served = T._serve_quant(tree_to(params, device), cfg)
+    return cfg, served.layers[0][1]
+
+
+@pytest.mark.parametrize("no_drop", [False, True])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-30b-a3b"])
+def test_moe_layer_on_the_card_matches_the_cpu(card, arch, no_drop,
+                                               monkeypatch):
+    """One MoE layer (router in fp32 without TF32, packed experts with kept
+    rows only) on the card against its plain run on the CPU within 1e-5,
+    and against every expert over its capacity slots on the card (the GEMV
+    and the GEMM may meet one row, so within 1e-5, not bit for bit)."""
+    from repro_torch.models import moe as MOE
+    cfg, p_card = _reduced_layer(arch, card)
+    _, p_cpu = _reduced_layer(arch, "cpu")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32))
+    y_cpu, a_cpu = MOE.moe_apply(p_cpu["moe"], x, cfg, no_drop=no_drop)
+    y, a = MOE.moe_apply(p_card["moe"], x.to(card), cfg, no_drop=no_drop)
+    monkeypatch.setattr(MOE, "_kept_experts", all_experts)
+    y_all, _ = MOE.moe_apply(p_card["moe"], x.to(card), cfg, no_drop=no_drop)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(a.cpu(), a_cpu, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(y_all, y, rtol=1e-5, atol=1e-5)
+    assert dispatch.LAUNCHES["packed_matmul"] + \
+        dispatch.LAUNCHES["packed_gemv"] > 0
+
+
+def test_rwkv_layer_on_the_card_matches_the_cpu(card):
+    """One rwkv layer (packed projections, the chunked scan over a 20-token
+    prompt, then two one-token steps) on the card against the CPU within
+    1e-5 of each tensor's size."""
+    from repro_torch.models import rwkv6 as R
+    from repro_torch.models import transformer as T
+    cfg, p_card = _reduced_layer("rwkv6-7b", card)
+    _, p_cpu = _reduced_layer("rwkv6-7b", "cpu")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 20, cfg.d_model)).astype(np.float32))
+    outs = []
+    for p, dev in ((p_cpu, "cpu"), (p_card, card)):
+        st = R.state_init(cfg, 2, torch.float32, device=dev)
+        y, st = T._rwkv_block(p, x.to(dev), cfg, st, decode=False)
+        ys = [y]
+        for i in range(2):
+            y, st = T._rwkv_block(p, x[:, i:i + 1].to(dev), cfg, st,
+                                  decode=True)
+            ys.append(y)
+        outs.append([t.cpu() for t in ys + list(st)])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        scale = max(1.0, b.abs().max().item()) if b.is_floating_point() else 0
+        assert (a.double() - b.double()).abs().max() <= 1e-5 * scale
+    assert dispatch.LAUNCHES["packed_matmul"] == 8 * 1
+    assert dispatch.LAUNCHES["packed_gemv"] == 8 * 2

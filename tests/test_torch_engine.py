@@ -561,10 +561,10 @@ def test_engine_refuses_bad_requests_and_unported_modes():
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ServeEngine(CrossAttention(), VOCAB, slots=2, max_context=8)
 
-    class Moe:
-        family = "moe"
+    class Hybrid:  # a family the engine does not schedule
+        family = "hybrid"
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ServeEngine(Moe(), VOCAB, slots=2, max_context=8)
+        ServeEngine(Hybrid(), VOCAB, slots=2, max_context=8)
     with pytest.raises(ValueError, match="BOTH"):
         ServeEngine(trt, VOCAB, slots=2, max_context=8, spec_k=2)
 
@@ -581,7 +581,7 @@ def test_launcher_traffic_and_refusals(capsys, monkeypatch):
     assert "speculative: k=4" in capsys.readouterr().out
     assert m["requests"] == 8 and m["tick_launches"] == 5
     for argv, what in ((["--mesh", "data=4", "--traffic"], "--mesh"),
-                       (["--arch", "mixtral-8x7b"], "--arch mixtral")):
+                       (["--arch", "zamba2-1.2b"], "--arch zamba2")):
         with pytest.raises(SystemExit, match=f"not ported yet: {what}"):
             serve.main(["--device", "cpu"] + argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
