@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's BN-LSTM serving and training paths, its
 train -> restart -> export -> serve pipeline, and the transformer pool's
-dense, MoE and RWKV6 serving paths (qwen3-0.6B, qwen3-moe-30b-a3b and
-rwkv6-7b at full width, mixtral-8x7b at its widths) on one NVIDIA card.
+dense, MoE, RWKV6, hybrid and audio serving paths (qwen3-0.6B,
+qwen3-moe-30b-a3b, rwkv6-7b, zamba2-1.2b and whisper-base at full width,
+mixtral-8x7b at its widths) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -121,7 +122,8 @@ Phases, in order; any failure exits non-zero before the last line:
                 L2 within 1e-4 in fp32, reported in bf16); then, counted:
                 lockstep B = 4, prompt 128, gen 32 with a decode step and a
                 prefill profiled (host, device busy, idle share, GEMV and
-                GEMM launches, experts run a layer), and the engine at 8
+                GEMM launches, experts run a layer), and the engine, on a
+                cut of 8 of its 48 layers, at 8
                 slots over 8 requests of synth_traffic(seed=0) (prompts
                 U[1, 128], gen U[1, 16]: host-bound steps cut the count),
                 one prefill chunk a prompt, its sampled streams against
@@ -141,7 +143,32 @@ Phases, in order; any failure exits non-zero before the last line:
                 step), then lockstep and the engine as for qwen3-moe, over
                 16 requests of gen U[1, 32].  Launches counted for the MoE
                 runs and the rwkv runs apart;
-  11. result  — the kernels JSON line (each kernel's launches on every
+  11. hybrid and audio — zamba2-1.2b at full width (38 mamba layers, d
+                2048, d_inner 4096, 64 SSD heads of 64, state 64, conv 4,
+                chunk 64, the shared attention block of 32 heads of 64 and
+                d_ff 8192 applied after every 6, vocab 32,000) and
+                whisper-base (6 encoder and 6 decoder layers, d 512, 8 heads
+                of 64, GeLU d_ff 2048, vocab 51,865, 1500 encoder frames),
+                ternary with channel scales, bf16, random weights from a
+                seed moved off init (zamba2's dt bias, conv bias, D and
+                norms; whisper's xgate, MLP biases and norms): the GEMV at 1,
+                4 and 8 rows and the GEMM at M = 512 on zamba2's Win (N =
+                8384, a ragged last GEMM tile of 64) and Wout, the GEMV on
+                whisper's Wq, Wfc1, Wfc2 (K = 512, 32 code rows) and the
+                GEMM at M = 6000 on its encoder's Wq and Wfc1, held as in
+                phase 9; the trees' bytes; packed against dequantized logits
+                (zamba2 on one repeat: 6 mamba layers and one shared
+                application); ssd_chunked over one 4,096-token prompt (peak
+                memory within 16 times its inputs, the first 256 outputs
+                against the unrolled step); then, counted: zamba2's lockstep
+                B = 4, prompt 128, gen 32 with a decode step and a prefill
+                profiled, its engine over 16 requests (gen U[1, 32]) held as
+                rwkv6's, and its CLI; whisper's lockstep B = 4, prompt 32,
+                gen 32 over 1500 frames with the encoder's share of a
+                prefill, and its CLI; the engine refuses whisper (a runtime
+                with extras), as JAX's does.  Launches counted for the
+                hybrid runs and the audio runs apart;
+  12. result  — the kernels JSON line (each kernel's launches on every
                 path), the card line, and {"ok": true, "device": {...}}
                 last.
 
@@ -164,6 +191,7 @@ HBM_BYTES_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_S = 67e12        # H100 SXM fp32 on the CUDA cores (FMA = 2 flop)
 FP32_ADD_S = FP32_FLOP_S / 2  # an FADD issues at the FMA instruction rate
 BF16_FLOP_S = 989e12       # H100 SXM dense bf16 on the tensor cores
+SM_CLOCK_HZ = 1.98e9       # H100 SXM boost clock (n cycles last >= n / this)
 MULTIPLY_OPS = re.compile(r"\b(FMUL|FFMA|HMUL2|HFMA2|DMUL|DFMA|HMMA)\w*")
 # ptxas materializes constants with `HFMA2.MMA Rd, -RZ, RZ, imm, imm`: both
 # multiplicands are the zero register, so it moves an immediate and
@@ -183,18 +211,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# calls of `device_profile` in which every attempt missed
+PROFILER_MISSES = {"calls": 0}
+
+
 def device_profile(fn, reps: int = 1, skip: str | None = None,
-                   attempts: int = 3, counts: dict | None = None):
+                   attempts: int = 5, counts: dict | None = None):
     """Run `fn` `reps` times under torch.profiler.  Returns (device us by
-    kernel name, host wall seconds of the whole run, synchronized); kernels
-    whose name holds `skip` are left out.  `counts`, when given, receives
-    the number of device events by name.  Now and then the profiler hands
-    back no device event at all for a run; the run is then repeated, up to
-    `attempts` times in all."""
+    kernel name, host wall seconds of the whole run); kernels whose name
+    holds `skip` are left out.  `counts`, when given, receives the number
+    of device events by name.  Now and then the profiler hands back no
+    device event at all for a run, sometimes for several runs in a row; the
+    run is then repeated after a pause, up to `attempts` times in all (once
+    only after a call in which every attempt missed), and each miss is
+    noted on stderr.  If every attempt misses, the dict is empty: the
+    caller reports the time as not measured or takes it from CUDA events
+    (`time_call`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(attempts):
+    if PROFILER_MISSES["calls"]:
+        attempts = 1
+    for attempt in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -214,7 +252,57 @@ def device_profile(fn, reps: int = 1, skip: str | None = None,
                     counts[e.name] = counts.get(e.name, 0) + 1
         if by_name:
             break
+        print(f"chip_smoke: torch.profiler recorded no device event (attempt "
+              f"{attempt + 1} of {attempts})", file=sys.stderr, flush=True)
+        time.sleep(0.2)
+    else:
+        PROFILER_MISSES["calls"] += 1
     return by_name, wall
+
+
+def busy_idle(by_name: dict, wall_s: float, n: int) -> tuple:
+    """Device busy us a call and the idle share, from `device_profile`'s
+    result over `n` calls that took `wall_s`; (None, None), not measured,
+    when the profiler recorded no device event."""
+    if not by_name:
+        return None, None
+    busy = sum(by_name.values()) / n
+    return busy, 1.0 - busy / (wall_s / n * 1e6)
+
+
+def num(x, spec: str, scale: float = 1.0) -> str:
+    """`x / scale` (`x` itself when `scale` is 1, so an int keeps its
+    type) formatted by `spec`, or "not measured" for None."""
+    if x is None:
+        return "not measured"
+    return format(x if scale == 1 else x / scale, spec)
+
+
+def event_ms(fn, reps: int, flush: "L2Flush | None" = None) -> float:
+    """Median device time of one call of `fn` between two CUDA events.
+    Before each call a spin kernel (`torch.cuda._sleep`) holds the stream
+    for twice the call's host time, so every launch of the call is queued
+    before its first kernel starts: the span holds the call's kernels back
+    to back, with the host's launch gaps left out."""
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    cycles = int(2 * (time.perf_counter() - t0) * SM_CLOCK_HZ)
+    spans = []
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(cycles)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        spans.append(a.elapsed_time(b))
+    spans.sort()
+    return spans[reps // 2]
 
 
 class L2Flush:
@@ -233,8 +321,9 @@ class L2Flush:
 
 def time_call(fn, reps: int, flush: L2Flush | None = None) -> dict:
     """Per call of `fn`: `ms`, the device time of the kernels it launches
-    (torch.profiler over `reps` calls), and `wall_ms`, the median time
-    between two CUDA events around one call, launch overhead included.
+    (torch.profiler over `reps` calls, or `event_ms` when the profiler
+    records no device event; `ms_by` says which), and `wall_ms`, the median
+    time between two CUDA events around one call, launch overhead included.
     With `flush`, every call finds the L2 cold."""
     import torch
     fn()
@@ -256,10 +345,13 @@ def time_call(fn, reps: int, flush: L2Flush | None = None) -> dict:
         by_name, _ = device_profile(run, reps, skip=flush.name)
     else:
         by_name, _ = device_profile(fn, reps)
-    dev_us = sum(by_name.values())
-    if dev_us <= 0:
-        fail("torch.profiler recorded no device time")
-    return {"ms": dev_us / 1e3 / reps, "wall_ms": walls[reps // 2]}
+    if by_name:
+        return {"ms": sum(by_name.values()) / 1e3 / reps,
+                "wall_ms": walls[reps // 2], "ms_by": "profiler"}
+    print("chip_smoke: device time from CUDA events instead",
+          file=sys.stderr, flush=True)
+    return {"ms": event_ms(fn, reps, flush), "wall_ms": walls[reps // 2],
+            "ms_by": "cuda_events"}
 
 
 def timed_row(name: str, shape: str, err: float, kernel, plain, library,
@@ -275,7 +367,8 @@ def timed_row(name: str, shape: str, err: float, kernel, plain, library,
                 plain_wall_ms=p["wall_ms"], bound_ms=bound_ms,
                 bound_by=bound_by,
                 library_ms=None if lib is None else lib["ms"],
-                library_wall_ms=None if lib is None else lib["wall_ms"])
+                library_wall_ms=None if lib is None else lib["wall_ms"],
+                ms_by=[t["ms_by"] for t in (k, p, lib) if t is not None])
 
 
 def bound(nbytes: int, seconds_of_ops: float) -> tuple[float, str]:
@@ -771,14 +864,14 @@ def profile_phase(report: dict, rt) -> None:
                 ("prefill", lambda: rt.prefill(prompt, rt.init_state(B)), 1),
                 ("decode_step", step, 32)):
             by_name, wall = device_profile(fn, n)
-            busy = sum(by_name.values()) / n
+            busy, idle = busy_idle(by_name, wall, n)
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
             row = {"wall_us": wall / n * 1e6, "device_busy_us": busy,
-                   "idle_share": 1.0 - busy / (wall / n * 1e6),
+                   "idle_share": idle,
                    "top": [(k[:48], v / n) for k, v in top]}
             out[f"B={B} {phase}"] = row
             print(f"  B={B:2d} {phase:11s}: wall {row['wall_us']:9.1f} us  device "
-                  f"busy {busy:8.1f} us  idle {row['idle_share']:.3f}  top "
+                  f"busy {num(busy, '8.1f')} us  idle {num(idle, '.3f')}  top "
                   + ", ".join(f"{k} {v:.1f}" for k, v in row["top"]), flush=True)
     report["profile"] = out
 
@@ -977,16 +1070,15 @@ def engine_profile(eng) -> dict:
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) / n
         by_name, wall = device_profile(fn, n)
-        busy = sum(by_name.values()) / n
+        busy, idle = busy_idle(by_name, wall, n)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
         row = {"host_us": host * 1e6, "profiled_wall_us": wall / n * 1e6,
-               "device_busy_us": busy,
-               "idle_share": 1.0 - busy / (wall / n * 1e6),
+               "device_busy_us": busy, "idle_share": idle,
                "top": [(k[:48], v / n) for k, v in top]}
         out[name] = row
         print(f"    {name:24s}: host {row['host_us']:8.1f} us (profiled "
-              f"{row['profiled_wall_us']:8.1f})  device busy {busy:7.1f} us  "
-              f"idle {row['idle_share']:.3f}  top "
+              f"{row['profiled_wall_us']:8.1f})  device busy "
+              f"{num(busy, '7.1f')} us  idle {num(idle, '.3f')}  top "
               + ", ".join(f"{k} {v:.1f}" for k, v in row["top"]), flush=True)
     eng._scrub([free])
     for act in list(eng._active):
@@ -1338,16 +1430,16 @@ def training_phase(report: dict, argv: list = TRAIN_ARGS) -> dict:
 
         one_step()
         by_name, wall = device_profile(one_step, 2)
-        busy = sum(by_name.values()) / 2
+        busy, idle = busy_idle(by_name, wall, 2)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         prof = {"wall_us": wall / 2 * 1e6, "device_busy_us": busy,
-                "idle_share": 1.0 - busy / (wall / 2 * 1e6),
+                "idle_share": idle,
                 "tok_s": args.batch * args.seq / (wall / 2),
                 "top": [(k[:60], v / 2) for k, v in top]}
         out["profile_step"] = prof
         print(f"  train step (B = {args.batch}, T = {args.seq}, profiled): wall "
-              f"{prof['wall_us']:.0f} us  device busy {busy:.0f} us  idle "
-              f"{prof['idle_share']:.3f}  {prof['tok_s']:.0f} tok/s  top "
+              f"{prof['wall_us']:.0f} us  device busy {num(busy, '.0f')} us  "
+              f"idle {num(idle, '.3f')}  {prof['tok_s']:.0f} tok/s  top "
               + ", ".join(f"{k} {v:.0f}" for k, v in prof["top"]), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1418,23 +1510,28 @@ def summation_check(name: str, got, want, x, w) -> float:
     return (got - want).abs().max().item()
 
 
-def layer_kernel_rows(label: str, packed: dict, plan) -> list:
+def layer_kernel_rows(label: str, packed: dict, plan, stack=None) -> list:
     """packed_gemv (<= 8 rows) and packed_matmul (more) on layer 0's codes
     of each (block, weight, row counts) of `plan` (a stacked expert leaf:
     its last expert's slice, as the MoE layer serves it), each launched
     twice and bit-equal, held with its plain version to the fp64 product
     within 1e-5 of |x| @ |w|, timed beside its bound (on the unpadded
-    function) and torch.matmul on the dequantized weight."""
+    function) and torch.matmul on the dequantized weight.  The layers are
+    `packed["stack"][0]` unless `stack` names other blocks: a stacked group
+    (the encoder's) or one unstacked block (zamba2's shared block), whose
+    codes are taken whole."""
     import torch
     from repro_torch.core.qtensor import QTensor
     from repro_torch.kernels import packed_matmul as PK
 
     g = torch.Generator().manual_seed(1)
     rows = []
+    stack = packed["stack"][0] if stack is None else stack
     for blk, name, counts in plan:
-        qt = packed["stack"][0][blk][name]
+        qt = stack[blk][name]
         expert = qt.codes.dim() == 4     # (layer, expert, K/G, N)
-        codes = qt.codes[0, -1] if expert else qt.codes[0]
+        codes = (qt.codes[0, -1] if expert else
+                 qt.codes[0] if qt.codes.dim() == 3 else qt.codes)
         if not codes.is_contiguous() or codes.data_ptr() % 16:
             fail(f"{label} {name}: layer 0's codes are not a contiguous, "
                  f"16-byte aligned slice")
@@ -1463,9 +1560,10 @@ def layer_kernel_rows(label: str, packed: dict, plan) -> list:
                 lambda: fn(x, codes, mode=qt.mode),
                 lambda: plain(x, codes, mode=qt.mode),
                 lambda: torch.matmul(x, w), b_ms, b_by, reps=100,
-                plain_reps=3))
+                plain_reps=1 if M > 512 else 3))
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
-    print(f"  {label} layer 0, ternary: kernel == plain within 1e-5 of "
+    where = "layer 0" if qt.codes.dim() > 2 else "block"
+    print(f"  {label} {where}, ternary: kernel == plain within 1e-5 of "
           f"|x| @ |w|, two launches bit-equal", flush=True)
     for r in rows:
         print(f"    {r['name']:14s} {r['shape']:66s} {r['max_abs_err']:.1e}  "
@@ -1642,18 +1740,18 @@ def transformer_phase(report: dict) -> dict:
         host = (time.perf_counter() - t1) / n
         counts: dict = {}
         by_name, wall = device_profile(fn, n, counts=counts)
-        busy = sum(by_name.values()) / n
+        busy, idle = busy_idle(by_name, wall, n)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
         prof[name] = {"host_us": host * 1e6, "wall_us": wall / n * 1e6,
-                      "device_busy_us": busy,
-                      "idle_share": 1.0 - busy / (wall / n * 1e6),
-                      "device_launches": sum(counts.values()) / n,
+                      "device_busy_us": busy, "idle_share": idle,
+                      "device_launches": (sum(counts.values()) / n
+                                          if counts else None),
                       "top": [(k[:48], v / n) for k, v in top]}
         r = prof[name]
         print(f"    {name:11s}: host {r['host_us']:9.1f} us (profiled "
-              f"{r['wall_us']:9.1f})  device busy {busy:8.1f} us  idle "
-              f"{r['idle_share']:.3f}  {r['device_launches']:.0f} device "
-              f"launches  top "
+              f"{r['wall_us']:9.1f})  device busy {num(busy, '8.1f')} us  "
+              f"idle {num(idle, '.3f')}  {num(r['device_launches'], '.0f')} "
+              f"device launches  top "
               + ", ".join(f"{k} {v:.1f}" for k, v in r["top"]), flush=True)
     out["profile"] = prof
 
@@ -1773,7 +1871,12 @@ def transformer_phase(report: dict) -> dict:
 # host-bound (about 0.85 s a decode step at B = 4, PERF.md), so its run is
 # cut to 8 requests of at most 16 tokens to keep the phase near 300 s
 POOL_PROMPT = 128
-POOL_ENGINE = {"qwen3-moe": (8, 16), "rwkv6-7b": (16, 32)}
+POOL_ENGINE = {"qwen3-moe": (8, 16), "rwkv6-7b": (16, 32),
+               "zamba2": (16, 32)}
+# qwen3-moe's engine runs at its full width but 8 of its 48 layers: at 48
+# its engine and the streams it is held to took 119 s of host-bound time,
+# and a slower host stretched the whole script toward its time limit
+MOE_ENGINE_LAYERS = 8
 
 
 def pool_config(arch: str, **over):
@@ -1784,30 +1887,46 @@ def pool_config(arch: str, **over):
     cfg = get_config(arch)
     want = {"qwen3-moe-30b-a3b": (48, 2048, 32, 4, 128, 768, 151936, 128, 8),
             "mixtral-8x7b": (32, 4096, 32, 8, 128, 14336, 32000, 8, 2),
-            "rwkv6-7b": (32, 4096, 64, 64, 64, 14336, 65536, 0, 0)}[arch]
+            "rwkv6-7b": (32, 4096, 64, 64, 64, 14336, 65536, 0, 0),
+            # + (d_inner, SSD heads, head dim, state, conv, chunk, period)
+            "zamba2-1.2b": (38, 2048, 32, 32, 64, 8192, 32000, 0, 0,
+                            4096, 64, 64, 64, 4, 64, 6),
+            # + encoder layers
+            "whisper-base": (6, 512, 8, 8, 64, 2048, 51865, 0, 0, 6)}[arch]
     got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
            cfg.d_ff, cfg.vocab, cfg.n_experts, cfg.topk)
+    if cfg.family == "hybrid":
+        got += (cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state,
+                cfg.ssm_conv, cfg.ssm_chunk, cfg.attn_every)
+    if cfg.family == "audio":
+        got += (cfg.n_enc_layers,)
     if got != want or (cfg.quant.mode, cfg.quant.norm, cfg.dtype) != (
             "ternary", "channel", "bfloat16"):
         fail(f"{arch} is not at its published width: {cfg}")
     return dataclasses.replace(cfg, **over)
 
 
-def pool_build(cfg, seed: int = 0) -> dict:
+def pool_build(cfg, seed: int = 0, off: dict | None = None) -> dict:
     """The packed tree, drawn a layer at a time on the card and exported as
     it is drawn (`model_init(packed=True)`: one layer's fp32 masters alive
-    at a time), with the channel scales moved off init."""
+    at a time), with the channel scales moved off init, and each leaf
+    named in `off` moved by its shift there plus N(0, 0.1^2) noise."""
     import torch
     from repro_torch.core.qtensor import tree_map_with_path
     from repro_torch.models import transformer as T
     packed = T.model_init(torch.Generator("cuda").manual_seed(seed), cfg,
                           packed=True)
     g = torch.Generator("cuda").manual_seed(seed + 1)
-    return tree_map_with_path(
-        lambda path, l: (l * (1.0 + 0.1 * torch.randn(l.shape, generator=g,
-                                                      device="cuda"))
-                         if path[-1].startswith("s")
-                         and isinstance(l, torch.Tensor) else l), packed)
+    noise = lambda l: 0.1 * torch.randn(l.shape, generator=g, device="cuda")
+    off = off or {}
+
+    def walk(path, l):
+        if not isinstance(l, torch.Tensor):
+            return l
+        if path[-1] in off:
+            return l + off[path[-1]] + noise(l)
+        return l * (1.0 + noise(l)) if path[-1].startswith("s") else l
+    return tree_map_with_path(walk, packed)
 
 
 def pool_bytes(label: str, packed: dict, rt) -> dict:
@@ -1851,12 +1970,13 @@ def dequantized(tree):
     return out
 
 
-def packed_vs_dequantized(label: str, cfg, packed: dict) -> dict:
+def packed_vs_dequantized(label: str, cfg, packed: dict,
+                          extras: dict | None = None) -> dict:
     """The first decode step's logits after a 16-token prompt at B = 4,
     packed against the same weights dequantized into an fp tree: held
     within 1e-4 relative L2 in fp32 compute (the two differ by summation
     order, and the router sees the same logits to fp32 rounding), reported
-    in bf16."""
+    in bf16.  `extras` go to both runtimes (the audio family's frames)."""
     import dataclasses
     import torch
     from repro_torch.core.quantize import QuantSpec
@@ -1868,9 +1988,9 @@ def packed_vs_dequantized(label: str, cfg, packed: dict) -> dict:
     out = {}
     for dtype, limit in (("float32", 1e-4), ("bfloat16", None)):
         c = dataclasses.replace(cfg, dtype=dtype)
-        a = TransformerRuntime(c, packed, device="cuda")
+        a = TransformerRuntime(c, packed, extras=extras, device="cuda")
         f = TransformerRuntime(c.with_quant(QuantSpec(mode="none")), deq,
-                               device="cuda")
+                               extras=extras, device="cuda")
         lp, sp = a.prefill(prompt, a.init_state(4, 32))
         lf, sf = f.prefill(prompt, f.init_state(4, 32))
         nxt = torch.argmax(lf[:, :cfg.vocab], -1)
@@ -1941,12 +2061,12 @@ def pool_lockstep(label: str, rt, B: int, S: int, GEN: int,
         d = {k: v - before.get(k, 0) for k, v in dispatch.LAUNCHES.items()}
         counts: dict = {}
         by_name, wall = device_profile(fn, 1, counts=counts)
-        busy = sum(by_name.values())
+        busy, idle = busy_idle(by_name, wall, 1)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
         r = prof[name] = {
             "host_us": host * 1e6, "wall_us": wall * 1e6,
-            "device_busy_us": busy, "idle_share": 1.0 - busy / (wall * 1e6),
-            "device_launches": sum(counts.values()),
+            "device_busy_us": busy, "idle_share": idle,
+            "device_launches": sum(counts.values()) if counts else None,
             "packed_gemv": d.get("packed_gemv", 0),
             "packed_matmul": d.get("packed_matmul", 0),
             "top": [(k[:48], v) for k, v in top]}
@@ -1958,8 +2078,9 @@ def pool_lockstep(label: str, rt, B: int, S: int, GEN: int,
             fail(f"{label} decode step: {r['packed_gemv']} GEMVs, "
                  f"{r['packed_matmul']} GEMMs for {B} rows")
         print(f"    {name:11s}: host {host * 1e3:9.1f} ms (profiled "
-              f"{wall * 1e3:9.1f})  device busy {busy / 1e3:8.2f} ms  idle "
-              f"{r['idle_share']:.3f}  {r['device_launches']} device launches,"
+              f"{wall * 1e3:9.1f})  device busy {num(busy, '8.2f', 1e3)} ms  "
+              f"idle {num(idle, '.3f')}  {num(r['device_launches'], 'd')} "
+              f"device launches,"
               f" {r['packed_gemv']} GEMVs, {r['packed_matmul']} GEMMs"
               + (f", {r['experts_a_layer']:.1f} experts a layer"
                  if cfg.n_experts else "") + "  top "
@@ -2090,7 +2211,8 @@ def pool_phase(report: dict) -> tuple:
     """qwen3-moe-30b-a3b and rwkv6-7b at full width, mixtral-8x7b at its
     widths and 2 layers (ternary, bf16, random weights from a seed): the
     kernels at each arch's shapes and packed against dequantized logits
-    first, then the counted serving runs.  Returns the launches of the MoE
+    first, then the counted serving runs (qwen3-moe's engine on a cut of
+    MOE_ENGINE_LAYERS layers).  Returns the launches of the MoE
     runs (qwen3-moe's lockstep and engine, mixtral's lockstep) and of the
     rwkv runs, each counted from 0 just before and read just after."""
     import torch
@@ -2122,6 +2244,9 @@ def pool_phase(report: dict) -> tuple:
     cut = pool_config("qwen3-moe-30b-a3b", n_layers=2)
     q["packed_vs_dequantized"] = packed_vs_dequantized(
         "qwen3-moe", cut, pool_build(cut))
+    ecfg = pool_config("qwen3-moe-30b-a3b", n_layers=MOE_ENGINE_LAYERS)
+    ert = TransformerRuntime(ecfg, pool_build(ecfg), device="cuda")
+    q["engine_layers"] = MOE_ENGINE_LAYERS
     q["checks_s"] = secs(t0)
 
     # mixtral-8x7b at its widths, 2 layers: build, kernels, logits
@@ -2142,14 +2267,14 @@ def pool_phase(report: dict) -> tuple:
     q["lockstep"] = pool_lockstep("qwen3-moe", qrt, 4, 128, 32, attn_proj=4)
     q["lockstep_s"] = secs(t0)
     t0 = time.perf_counter()
-    q["engine"] = pool_engine("qwen3-moe", qrt)
+    q["engine"] = pool_engine("qwen3-moe", ert)
     q["engine_s"] = secs(t0)
     t0 = time.perf_counter()
     x["lockstep"] = pool_lockstep("mixtral", xrt, 4, 32, 8, attn_proj=4)
     x["lockstep_s"] = secs(t0)
     moe, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN_CALLS)
     # ---- the counted MoE run ends here ----
-    del qrt, qpacked, xrt, xpacked
+    del qrt, qpacked, ert, xrt, xpacked
     torch.cuda.empty_cache()
 
     # rwkv6-7b at full width
@@ -2192,8 +2317,8 @@ def pool_phase(report: dict) -> tuple:
     out["wall_s"] = secs(t_phase)
     report["pool"] = out
     print(f"  pool phase: {out['wall_s']} s (qwen3-moe checks "
-          f"{q['checks_s']} s, lockstep {q['lockstep_s']} s, engine "
-          f"{q['engine_s']} s; mixtral checks {x['checks_s']} s, lockstep "
+          f"{q['checks_s']} s, lockstep {q['lockstep_s']} s, engine at "
+          f"{MOE_ENGINE_LAYERS} layers {q['engine_s']} s; mixtral checks {x['checks_s']} s, lockstep "
           f"{x['lockstep_s']} s; rwkv6 build {w['build_s']} s, checks "
           f"{w['checks_s']} s, lockstep "
           f"{w['lockstep_s']} s, engine {w['engine_s']} s); MoE launches "
@@ -2201,7 +2326,226 @@ def pool_phase(report: dict) -> tuple:
     return moe, rwkv
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the pool's hybrid and audio serving paths
+# ---------------------------------------------------------------------------
+
+# Whisper's published audio context: 30 s, 3000 mel frames, 1500 after the
+# stride-2 conv (the frontend is a stub: the frames are random embeddings)
+WHISPER_FRAMES = 1500
+# the leaves moved off init beside the channel scales, and their shifts
+HYBRID_OFF = {k: 0.0 for k in ("dt_bias", "conv_b", "D", "norm", "norm1",
+                                "norm2", "final_norm")}
+AUDIO_OFF = dict({k: 0.0 for k in ("bfc1", "bfc2", "norm1", "norm2",
+                                   "normc", "final_norm")}, xgate=0.5)
+
+
+def ssd_long_prompt(cfg, T: int = 4096, held: int = 256) -> dict:
+    """ssd_chunked over one T-token prompt at one mamba layer's shapes
+    (heads, head dim, state, chunk) in fp32: finite, its peak memory above
+    its inputs reported as a multiple of their bytes (held to 16), its
+    first `held` outputs within 1e-5 of their largest magnitude of the
+    one-token recurrence unrolled; timed."""
+    import torch
+    from repro_torch.models import mamba2 as M
+    g = torch.Generator("cuda").manual_seed(5)
+    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    rand = lambda *s: torch.randn(s, generator=g, device="cuda")
+    x = rand(1, T, H, P) * 0.5
+    dt = torch.nn.functional.softplus(rand(1, T, H) - 3.0)
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm, Cm = rand(1, T, N) * 0.5, rand(1, T, N) * 0.5
+    inputs = nbytes(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y, h = M.ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    hs = torch.zeros((1, H, N, P), device="cuda")
+    ys = []
+    for t in range(held):
+        yt, hs = M.ssd_step(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t], hs)
+        ys.append(yt)
+    err = (y[:, :held] - torch.stack(ys, 1)).abs().max().item()
+    lim = 1e-5 * y[:, :held].abs().max().item()
+    out = {"tokens": T, "peak_bytes": peak, "input_bytes": inputs,
+           "peak_over_inputs": peak / inputs, "limit": 16, "ms": ms,
+           "step_err": err, "step_limit": lim}
+    if not (torch.isfinite(y).all() and torch.isfinite(h).all()) \
+            or peak > 16 * inputs or not err <= lim:
+        fail(f"ssd_chunked over {T} tokens: {out}")
+    print(f"  ssd_chunked, one {T}-token prompt, {H} heads of {P}, state "
+          f"{N}, chunk {cfg.ssm_chunk}: peak {peak / 1e6:.0f} MB above its "
+          f"inputs ({peak / inputs:.1f} x their {inputs / 1e6:.0f} MB, limit "
+          f"16), {ms:.1f} ms; first {held} outputs off the unrolled step by "
+          f"{err:.1e} (limit {lim:.1e})", flush=True)
+    return out
+
+
+def cli_launches(argv: list) -> tuple:
+    """`launch.serve.main(argv)` on the card: its tokens and the packed
+    launches it made."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve as launch_serve
+    before = dict(dispatch.LAUNCHES)
+    out = launch_serve.main(argv + ["--full", "--device", "cuda"])
+    return out, {k: v - before.get(k, 0) for k, v in dispatch.LAUNCHES.items()}
+
+
+def hybrid_audio_phase(report: dict, card: str) -> tuple:
+    """zamba2-1.2b and whisper-base at full width (ternary with channel
+    scales, bf16, random weights from a seed, moved off init): the kernels
+    at their new shapes, the trees' bytes, packed against dequantized
+    logits, zamba2's SSD scan over a long prompt; then, counted apart,
+    zamba2's lockstep run, engine and CLI, and whisper's lockstep run (with
+    the encoder's share of a prefill), CLI and the engine's refusal.
+    Returns the launches of the hybrid and of the audio runs."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.recurrent import TransformerRuntime
+
+    out = {"card": card, "zamba2": {}, "whisper": {}}
+    z, w = out["zamba2"], out["whisper"]
+    t_phase = time.perf_counter()
+
+    def secs(t):
+        torch.cuda.synchronize()
+        return round(time.perf_counter() - t, 1)
+
+    # zamba2-1.2b: build, kernels (Win's N = 8384 is 65 full 128-column
+    # GEMM tiles and one of 64), bytes, logits on one repeat, the SSD scan
+    t0 = time.perf_counter()
+    zcfg = pool_config("zamba2-1.2b")
+    zpacked = pool_build(zcfg, off=HYBRID_OFF)
+    zrt = TransformerRuntime(zcfg, zpacked, device="cuda")
+    z["bytes"] = pool_bytes("zamba2-1.2b", zpacked, zrt)
+    z["build_s"] = secs(t0)
+    t0 = time.perf_counter()
+    z["kernel_rows"] = layer_kernel_rows("zamba2", zpacked, [
+        ("mixer", "Win", (1, 4, 8, 512)), ("mixer", "Wout", (1, 4, 8, 512))]
+    ) + layer_kernel_rows("zamba2-shared", zpacked, [
+        ("attn", "Wq", (1, 4, 8, 512)), ("mlp", "Wgate", (1, 4, 8, 512)),
+        ("mlp", "Wdown", (1, 4, 8, 512))], stack=zpacked["shared"])
+    cut = pool_config("zamba2-1.2b", n_layers=zcfg.attn_every)
+    z["packed_vs_dequantized"] = packed_vs_dequantized(
+        "zamba2", cut, pool_build(cut, off=HYBRID_OFF))
+    z["ssd_long_prompt"] = ssd_long_prompt(zcfg)
+    z["checks_s"] = secs(t0)
+
+    # ---- the counted hybrid run starts here ----
+    dispatch.reset_counts()
+    t0 = time.perf_counter()
+    z["lockstep"] = pool_lockstep("zamba2", zrt, 4, 128, 32, attn_proj=0)
+    z["lockstep_s"] = secs(t0)
+    t0 = time.perf_counter()
+    z["engine"] = pool_engine("zamba2", zrt)
+    z["engine_s"] = secs(t0)
+    toks, z["cli_launches"] = cli_launches(
+        ["--arch", "zamba2-1.2b", "--batch", "4", "--prompt-len", "32",
+         "--gen", "8"])
+    if toks.shape != (4, 8) or not packed_launches(z["cli_launches"]):
+        fail(f"zamba2 CLI: tokens {toks.shape}, launches {z['cli_launches']}")
+    hybrid, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN_CALLS)
+    # ---- the counted hybrid run ends here ----
+    del zrt, zpacked
+    torch.cuda.empty_cache()
+
+    # whisper-base: build, kernels (K = 512 is 32 code rows; the decoder's
+    # prefill meets the GEMM at M = 4 x 32 rows, the encoder's projections
+    # and the cross K/V at M = 4 x 1500), bytes, logits
+    t0 = time.perf_counter()
+    wcfg = pool_config("whisper-base")
+    wpacked = pool_build(wcfg, off=AUDIO_OFF)
+    frames = torch.randn((4, WHISPER_FRAMES, wcfg.d_model),
+                         generator=torch.Generator("cuda").manual_seed(6),
+                         device="cuda")
+    wrt = TransformerRuntime(wcfg, wpacked, extras={"enc_frames": frames},
+                             device="cuda")
+    w["bytes"] = pool_bytes("whisper-base", wpacked, wrt)
+    w["build_s"] = secs(t0)
+    t0 = time.perf_counter()
+    M_enc = 4 * WHISPER_FRAMES
+    w["kernel_rows"] = layer_kernel_rows("whisper", wpacked, [
+        ("attn", "Wq", (1, 4, 8, 128)), ("mlp", "Wfc1", (1, 4, 8, 128)),
+        ("mlp", "Wfc2", (1, 4, 8, 128))]) + layer_kernel_rows(
+        "whisper-enc", wpacked, [("attn", "Wq", (M_enc,)),
+                                 ("mlp", "Wfc1", (M_enc,)),
+                                 ("mlp", "Wfc2", (M_enc,))],
+        stack=wpacked["enc"]["stack"])
+    w["packed_vs_dequantized"] = packed_vs_dequantized(
+        "whisper", wcfg, wpacked, extras={"enc_frames": frames})
+    w["checks_s"] = secs(t0)
+
+    # ---- the counted audio run starts here ----
+    dispatch.reset_counts()
+    t0 = time.perf_counter()
+    w["lockstep"] = pool_lockstep("whisper", wrt, 4, 32, 32, attn_proj=0)
+    w["lockstep_s"] = secs(t0)
+    toks, w["cli_launches"] = cli_launches(
+        ["--arch", "whisper-base", "--batch", "4", "--prompt-len", "32",
+         "--gen", "8"])
+    if toks.shape != (4, 8) or not packed_launches(w["cli_launches"]):
+        fail(f"whisper CLI: tokens {toks.shape}, launches {w['cli_launches']}")
+    audio = dict(dispatch.LAUNCHES)
+    plain.update(dispatch.PLAIN_CALLS)
+    # ---- the counted audio run ends here ----
+    # the encoder's share of a prefill, timed outside the counted run: it
+    # calls the encoder directly, not through the entry points
+    enc = lambda: T._run_encoder(wrt.served, frames, wcfg)
+    enc()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    enc()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t1
+    by_name, wall = device_profile(enc)
+    busy, _ = busy_idle(by_name, wall, 1)
+    pre = w["lockstep"]["profile"]["prefill"]
+    share = (None if busy is None or pre["device_busy_us"] is None
+             else busy / pre["device_busy_us"])
+    w["encoder"] = {"host_us": host * 1e6, "device_busy_us": busy,
+                    "share_of_prefill_host": host * 1e6 / pre["host_us"],
+                    "share_of_prefill_device": share}
+    print(f"    encoder ({WHISPER_FRAMES} frames x 4): host {host * 1e3:.1f} "
+          f"ms, device busy {num(busy, '.2f', 1e3)} ms: "
+          f"{w['encoder']['share_of_prefill_host']:.2f} of the prefill's host"
+          f" time, {num(share, '.2f')} of its device time", flush=True)
+    try:
+        ServeEngine(wrt, wcfg.vocab, slots=4, max_context=64)
+        fail("whisper: the engine took a runtime with extras")
+    except NotImplementedError as e:
+        if "per-request source encodings" not in str(e):
+            fail(f"whisper: the engine refused with {e}")
+    print("  whisper engine refused, as JAX's: a runtime with a "
+          "cross-attention source", flush=True)
+    del wrt, wpacked
+    torch.cuda.empty_cache()
+
+    for label, launches in (("hybrid", hybrid), ("audio", audio)):
+        for k in ("packed_gemv", "packed_matmul"):
+            if not launches.get(k):
+                fail(f"kernel {k} was never launched on the {label} path")
+    if plain:
+        fail(f"plain versions ran on the hybrid or audio path: {plain}")
+    out["hybrid_launches"], out["audio_launches"] = hybrid, audio
+    out["wall_s"] = secs(t_phase)
+    report["hybrid_audio"] = out
+    print(f"  hybrid/audio phase: {out['wall_s']} s on {card} (zamba2 build "
+          f"{z['build_s']} s, checks {z['checks_s']} s, lockstep "
+          f"{z['lockstep_s']} s, engine {z['engine_s']} s; whisper build "
+          f"{w['build_s']} s, checks {w['checks_s']} s, lockstep "
+          f"{w['lockstep_s']} s); hybrid launches {hybrid}, audio launches "
+          f"{audio}", flush=True)
+    return hybrid, audio
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2274,13 +2618,18 @@ def main() -> int:
     # 10. the pool's MoE and RWKV6 families
     print("pool:", flush=True)
     moe_launches, rwkv_launches = pool_phase(report)
-    pool = report["pool"]
+
+    # 11. the pool's hybrid and audio families
+    print("hybrid and audio:", flush=True)
+    hybrid_launches, audio_launches = hybrid_audio_phase(report, card)
+    pool, ha = report["pool"], report["hybrid_audio"]
     all_rows = (rows + report["transformer"]["kernel_rows"]
                 + pool["qwen3_moe"]["kernel_rows"]
                 + pool["mixtral"]["kernel_rows"]
-                + pool["rwkv6"]["kernel_rows"])
+                + pool["rwkv6"]["kernel_rows"]
+                + ha["zamba2"]["kernel_rows"] + ha["whisper"]["kernel_rows"])
 
-    # 11. result
+    # 12. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
@@ -2300,6 +2649,8 @@ def main() -> int:
                             transformer_launches.get(name, 0),
                         "moe_launches": moe_launches.get(name, 0),
                         "rwkv_launches": rwkv_launches.get(name, 0),
+                        "hybrid_launches": hybrid_launches.get(name, 0),
+                        "audio_launches": audio_launches.get(name, 0),
                         "max_abs_err": max(x["max_abs_err"] for x in all_rows
                                            if x["name"] == name),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2308,7 +2659,12 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     report["kernels"] = kernels
+    report["wall_s"] = time.perf_counter() - t_start
+    report["profiler_missed_calls"] = PROFILER_MISSES["calls"]
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(f"chip_smoke: {report['wall_s']:.1f} s in all, the build included, "
+          f"on {card}; torch.profiler missed every attempt of "
+          f"{PROFILER_MISSES['calls']} calls", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -81,6 +81,14 @@ class ModelConfig:
         return (self.vocab + p - 1) // p * p
 
     @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         """The compute dtype as a torch dtype."""
         return getattr(torch, self.dtype)

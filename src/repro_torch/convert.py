@@ -6,10 +6,12 @@ transformer tree's `stack` and `tail` tuples of layer-stacked leaves and
 its `s<W>` channel-scale companions included), a packed leaf arrives as
 `{"codes": uint32 ndarray, "k", "mode", "alpha", "scale"}` and becomes a
 `QTensor` whose int32 codes hold the same words (a stacked leaf's codes
-keep their layer axis, an MoE layer's their expert axis too), and a
-NamedTuple with the fields of `BNParams`, `BNState` or `RWKVState` (or a
-dict with those keys) becomes the port's, so an rwkv layer's serving state
-carries across as well as its parameters.  Fed the same
+keep their layer axis, an MoE layer's their expert axis too), a
+NamedTuple with the fields of `BNParams`, `BNState`, `RWKVState`,
+`SSMState` or `CrossCache` (or a dict with those keys) becomes the port's,
+and a JAX `AttnCache` (k, v, pos and its `ring` flag) the port's, so a
+transformer's serving caches and recurrent states carry across as well
+as its parameters.  Fed the same
 weights, both packages compute the same function.
 
 A JAX `TrainState` (params, opt, rng, bn_state, residual) becomes the
@@ -36,14 +38,17 @@ import torch
 from repro_torch.core.qtensor import QTensor, tree_to
 from repro_torch.core.recurrent_bn import BNParams, BNState
 from repro_torch.kernels import dispatch
+from repro_torch.models.mamba2 import SSMState
 from repro_torch.models.rwkv6 import RWKVState
+from repro_torch.serve.kvcache import AttnCache, CrossCache
 from repro_torch.train.optimizer import OptState
 from repro_torch.train.train_step import TrainState
 
 _QT_KEYS = {"codes", "k", "mode", "alpha", "scale"}
 _JAX_TRAIN_STATE = frozenset(("params", "opt", "rng", "bn_state", "residual"))
 _NAMED = {frozenset(cls._fields): cls
-          for cls in (BNParams, BNState, RWKVState)}
+          for cls in (BNParams, BNState, RWKVState, SSMState, CrossCache)}
+_ATTN_CACHE = ("k", "v", "pos", "ring")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -71,6 +76,9 @@ def from_numpy(tree: Any, device: Optional[str | torch.device] = None, *,
                               noise_seed=torch.tensor(noise_seed,
                                                       dtype=torch.int64),
                               bn_state=conv(x.bn_state))
+        if fields is None and all(hasattr(x, a) for a in _ATTN_CACHE):
+            return AttnCache(k=conv(x.k), v=conv(x.v), pos=conv(x.pos),
+                             ring=bool(x.ring))
         if fields is not None and frozenset(fields) in _NAMED:
             cls = _NAMED[frozenset(fields)]
             return cls(*(conv(getattr(x, f)) for f in cls._fields))

@@ -1,6 +1,7 @@
 """Serving launcher, ported from `repro/launch/serve.py`: the paper's
 BN-LSTM and the transformer pool's dense (llama3, qwen3, gemma3), MoE
-(mixtral, qwen3-moe) and RWKV6 families.
+(mixtral, qwen3-moe), RWKV6, hybrid (zamba2) and audio (whisper)
+families.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rnn-paper --full
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --gen 8
@@ -8,6 +9,10 @@ BN-LSTM and the transformer pool's dense (llama3, qwen3, gemma3), MoE
       --reduced --device cpu [--traffic [--spec-k 2]]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --reduced --device cpu [--traffic]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --reduced --device cpu [--traffic]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --traffic \\
       --requests 8 --slots 3 [--spec-k 4]
   PYTHONPATH=src python -m repro_torch.launch.serve --listen --port 8700
@@ -27,13 +32,18 @@ published widths.  A packed tree is drawn a layer at a time, each layer
 exported as it is drawn (`model_init(packed=True)`), so a full-width MoE
 arch serves from one card; with --quant none its fp32 expert masters
 (qwen3-moe-30b-a3b 116 GB, mixtral-8x7b 180 GB) are checked against the
-device's memory before anything is allocated.
+device's memory before anything is allocated.  The audio family's
+encoder frames (the frontend is a stub, as in JAX) are a normal draw of
+shape (batch, prompt length, d) from the run's generator, passed to every
+prefill as the runtime's `extras`.
 
 --traffic replays a synthetic Poisson workload with mixed prompt and
 generation lengths through the continuous-batching engine
 (serve/engine.py) and reports aggregate tok/s, slot occupancy and p50/p95
-latency and time to first token.  MoE and rwkv archs prefill each prompt
-as one chunk (their runtime's `chunk_granularity` is "whole").
+latency and time to first token.  MoE, rwkv and mamba archs prefill each
+prompt as one chunk (their runtime's `chunk_granularity` is "whole").
+The engine refuses the audio family (a runtime with `extras`), as JAX's
+does: whisper serves in lockstep.
 
 --spec-k N adds speculative decoding to --traffic or --listen: the fp
 masters are the target and their own packed --quant export the draft,
@@ -44,9 +54,9 @@ POST /v1/generate, GET /v1/stats), with hangups cancelling and a
 prefix-state cache of --prefix-cache-mb where the runtime supports one
 (token-granularity chunks, non-ring caches; otherwise it serves without).
 
-Refused: --mesh and the transformer pool's hybrid, audio and vlm
-families, which wait for ROADMAP Queue 1 item 9; speculation on MoE,
-rwkv and ring-cache archs (the engine's refusal).
+Refused: --mesh and the transformer pool's vlm family, which wait for
+ROADMAP Queue 1 item 9; speculation on MoE, rwkv, mamba and ring-cache
+archs (the engine's refusal).
 """
 from __future__ import annotations
 
@@ -70,10 +80,10 @@ from repro_torch.serve.recurrent import (RNNRuntime, TransformerRuntime,
 NOT_PORTED = {
     "mesh": "--mesh (a mesh-sharded engine) waits for ROADMAP Queue 1 "
             "item 9",
-    "arch": "the transformer pool's hybrid, audio and vlm families wait "
-            "for ROADMAP Queue 1 item 9",
+    "arch": "the transformer pool's vlm family waits for ROADMAP Queue 1 "
+            "item 9",
 }
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
 
 
 def _report_bytes(rt, quant: str) -> None:
@@ -119,7 +129,8 @@ def build_transformer(args):
     """A transformer-pool arch with random weights from --seed, drawn and
     exported packed a layer at a time unless --quant none, behind the
     serving runtime.  Unpacked, an MoE arch whose fp32 expert masters
-    exceed the device's memory is refused first."""
+    exceed the device's memory is refused first.  The audio family's
+    encoder frames are drawn from the same generator after the weights."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -134,9 +145,14 @@ def build_transformer(args):
             f"alone take {need / 1e9:.0f} GB, more than the {have / 1e9:.0f}"
             f" GB of {device}; serve it packed (--quant ternary|binary) or "
             f"--reduced")
-    params = T.model_init(torch.Generator(device).manual_seed(args.seed),
-                          cfg, packed=packed)
-    rt = TransformerRuntime(cfg, params, device=device)
+    gen = torch.Generator(device).manual_seed(args.seed)
+    params = T.model_init(gen, cfg, packed=packed)
+    extras = {}
+    if cfg.family == "audio":
+        extras["enc_frames"] = torch.randn(
+            (args.batch, args.prompt_len, cfg.d_model), generator=gen,
+            device=device)
+    rt = TransformerRuntime(cfg, params, extras=extras, device=device)
     if packed:
         _report_bytes(rt, args.quant)
     return cfg, rt

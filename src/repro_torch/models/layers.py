@@ -1,6 +1,6 @@
 """Shared transformer building blocks, ported from `repro/models/layers.py`:
-RMSNorm, RoPE, query-chunked grouped-query attention (full and sliding
-window) and the SwiGLU MLP.
+RMSNorm, RoPE, sinusoidal positions, query-chunked grouped-query attention
+(full, sliding window, non-causal and cross), the SwiGLU and GeLU MLPs.
 
 Every weight matmul goes through `kernels.ops.serve_matmul`, which takes
 an fp weight or a packed `QTensor` (the GEMV for at most 8 rows, the GEMM
@@ -16,9 +16,13 @@ kernel there, no library attention kernel here): fp32 logits, GQA grouped
 as (Hkv, G) without repeating K/V, `kv_pos < 0` masked, causal and
 window masks, an optional tanh softcap.
 
-Not ported: cross-attention (`kv_src`, `xgate`), the GeLU MLP and
-`sinusoidal_positions` (the audio and VLM families, ROADMAP Queue 1 item
-9), and the mesh `constrain` calls.
+Cross-attention (kind `cross`, the audio decoder's second attention)
+takes its keys and values from a source (`kv_src`, the encoder's output),
+applies no RoPE and no causal mask, and gates its output by tanh(xgate),
+0 at init.  The GeLU MLP is the tanh approximation, as `jax.nn.gelu`'s
+default.
+
+Not ported: the mesh `constrain` calls.
 """
 from __future__ import annotations
 
@@ -57,6 +61,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) fp32 sinusoids: sin at the even columns, cos at the odd."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
 
 
 # ---------------------------------------------------------------------------
@@ -148,13 +163,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def attn_init(gen: torch.Generator, cfg) -> dict:
+def attn_init(gen: torch.Generator, cfg, *, cross: bool = False,
+              kv_d: Optional[int] = None) -> dict:
+    """A self-attention layer's weights, or with `cross` a cross-attention
+    layer's (keys and values from a source of width `kv_d`, and the
+    output gate `xgate`, 0 at init)."""
     d, hd = cfg.d_model, cfg.hd
     dev = gen.device
+    kvd = kv_d or d
     p = {
         "Wq": winit(gen, (d, cfg.n_heads * hd)),
-        "Wk": winit(gen, (d, cfg.n_kv * hd)),
-        "Wv": winit(gen, (d, cfg.n_kv * hd)),
+        "Wk": winit(gen, (kvd, cfg.n_kv * hd)),
+        "Wv": winit(gen, (kvd, cfg.n_kv * hd)),
         "Wo": winit(gen, (cfg.n_heads * hd, d)),
     }
     for n, dout in (("Wq", cfg.n_heads * hd), ("Wk", cfg.n_kv * hd),
@@ -163,6 +183,8 @@ def attn_init(gen: torch.Generator, cfg) -> dict:
     if cfg.qk_norm:
         p["q_norm"] = torch.zeros((hd,), device=dev)
         p["k_norm"] = torch.zeros((hd,), device=dev)
+    if cross:
+        p["xgate"] = torch.zeros((), device=dev)  # tanh-gated cross-attention
     return p
 
 
@@ -177,7 +199,7 @@ def attn_q(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def attn_kv(p: dict, src: torch.Tensor, cfg):
-    """Key/value projections (the cache fill)."""
+    """Key/value projections (the cache fill, the cross source's encode)."""
     B, S, _ = src.shape
     k = scaled(serve_matmul(src, p["Wk"]), p, "Wk", cfg.quant)
     v = scaled(serve_matmul(src, p["Wv"]), p, "Wv", cfg.quant)
@@ -188,33 +210,47 @@ def attn_kv(p: dict, src: torch.Tensor, cfg):
     return k, v
 
 
-def attn_qkv(p: dict, x: torch.Tensor, cfg):
-    """Project x to (q, k, v)."""
+def attn_qkv(p: dict, x: torch.Tensor, cfg,
+             kv_src: Optional[torch.Tensor] = None):
+    """Project x to q, and x (or `kv_src`) to k and v."""
     q = attn_q(p, x, cfg)
-    k, v = attn_kv(p, x, cfg)
+    k, v = attn_kv(p, x if kv_src is None else kv_src, cfg)
     return q, k, v
 
 
-def attn_out(p: dict, o: torch.Tensor, cfg) -> torch.Tensor:
+def attn_out(p: dict, o: torch.Tensor, cfg, *,
+             cross: bool = False) -> torch.Tensor:
     B, S = o.shape[:2]
     o = o.reshape(B, S, cfg.n_heads * cfg.hd)
-    return scaled(serve_matmul(o, p["Wo"]), p, "Wo", cfg.quant)
+    y = scaled(serve_matmul(o, p["Wo"]), p, "Wo", cfg.quant)
+    if cross and "xgate" in p:
+        y = torch.tanh(p["xgate"]).to(y.dtype) * y
+    return y
 
 
 def attn_apply(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
-               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Self-attention over a whole sequence (the uncached forward)."""
+               positions: Optional[torch.Tensor] = None,
+               kv_src: Optional[torch.Tensor] = None,
+               causal: Optional[bool] = None) -> torch.Tensor:
+    """Self- or cross-attention over a whole sequence (the uncached
+    forward).  Kind `cross` attends over `kv_src` without RoPE or a causal
+    mask; `causal=False` makes a self-attention bidirectional (the
+    encoder)."""
     B, S, _ = x.shape
-    q, k, v = attn_qkv(p, x, cfg)
+    cross = kind == "cross"
+    q, k, v = attn_qkv(p, x, cfg, kv_src=kv_src if cross else None)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if not cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     window = cfg.window if kind == "local" or (
         kind == "full" and cfg.window and cfg.swa_all) else 0
-    o = attention(q, k, v, causal=cfg.causal, window=window,
+    if causal is None:
+        causal = cfg.causal and not cross
+    o = attention(q, k, v, causal=causal, window=window,
                   chunk=cfg.attn_chunk, softcap=cfg.attn_softcap)
-    return attn_out(p, o, cfg)
+    return attn_out(p, o, cfg, cross=cross)
 
 
 # ---------------------------------------------------------------------------
@@ -222,22 +258,31 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(gen: torch.Generator, cfg) -> dict:
-    """The SwiGLU MLP's weights (the GeLU MLP is the audio family's)."""
-    if cfg.mlp != "swiglu":
-        raise NotImplementedError(
-            f"the {cfg.mlp} MLP (the audio family) waits for ROADMAP Queue 1 "
-            f"item 9")
+def mlp_init(gen: torch.Generator, cfg, *, kind: Optional[str] = None) -> dict:
+    """The MLP's weights: SwiGLU, or the GeLU MLP with its biases."""
+    kind = kind or cfg.mlp
     d, ff = cfg.d_model, cfg.d_ff
-    p = {"Wgate": winit(gen, (d, ff)), "Wup": winit(gen, (d, ff)),
-         "Wdown": winit(gen, (ff, d))}
-    for n, dout in (("Wgate", ff), ("Wup", ff), ("Wdown", d)):
+    if kind == "swiglu":
+        p = {"Wgate": winit(gen, (d, ff)), "Wup": winit(gen, (d, ff)),
+             "Wdown": winit(gen, (ff, d))}
+        dims = (("Wgate", ff), ("Wup", ff), ("Wdown", d))
+    else:  # gelu
+        p = {"Wfc1": winit(gen, (d, ff)), "Wfc2": winit(gen, (ff, d)),
+             "bfc1": torch.zeros((ff,), device=gen.device),
+             "bfc2": torch.zeros((d,), device=gen.device)}
+        dims = (("Wfc1", ff), ("Wfc2", d))
+    for n, dout in dims:
         maybe_scale(p, n, cfg.quant, dout, gen.device)
     return p
 
 
 def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    g = scaled(serve_matmul(x, p["Wgate"]), p, "Wgate", cfg.quant)
-    u = scaled(serve_matmul(x, p["Wup"]), p, "Wup", cfg.quant)
-    return scaled(serve_matmul(F.silu(g) * u, p["Wdown"]), p, "Wdown",
-                  cfg.quant)
+    if "Wgate" in p:
+        g = scaled(serve_matmul(x, p["Wgate"]), p, "Wgate", cfg.quant)
+        u = scaled(serve_matmul(x, p["Wup"]), p, "Wup", cfg.quant)
+        return scaled(serve_matmul(F.silu(g) * u, p["Wdown"]), p, "Wdown",
+                      cfg.quant)
+    h = F.gelu(scaled(serve_matmul(x, p["Wfc1"]), p, "Wfc1", cfg.quant)
+               + p["bfc1"].to(x.dtype), approximate="tanh")
+    return (scaled(serve_matmul(h, p["Wfc2"]), p, "Wfc2", cfg.quant)
+            + p["bfc2"].to(x.dtype))

@@ -1,16 +1,25 @@
-"""The transformer pool's dense, MoE and RWKV6 families, ported from
-`repro/models/transformer.py`: layer kinds `full`, `global` and `local`
-(a sliding window over a ring cache) with a SwiGLU MLP or a
-mixture-of-experts FFN (`models/moe.py`: mixtral, qwen3-moe), and the
+"""The transformer pool's dense, MoE, RWKV6, hybrid and audio families,
+ported from `repro/models/transformer.py`: layer kinds `full`, `global`
+and `local` (a sliding window over a ring cache) with a SwiGLU MLP or a
+mixture-of-experts FFN (`models/moe.py`: mixtral, qwen3-moe); the
 attention-free `rwkv` kind (`models/rwkv6.py`), whose cache is an
-`RWKVState`.
+`RWKVState`; zamba2's `mamba` kind (`models/mamba2.py`, an `SSMState`)
+and its `shared` kind, one full-attention block (`params["shared"]`)
+applied after every `attn_every` mamba layers, with a KV cache of its own
+at each application; and whisper's encoder-decoder: `enc` layers
+(bidirectional self-attention with RoPE, the GeLU MLP) over the frames
+plus sinusoidal positions (`params["enc"]`), and `selfcross` decoder
+layers (causal self-attention, then tanh-gated cross-attention over the
+encoder's output, whose k/v a prefill encodes into a `CrossCache`).
 
 Parameters keep the JAX tree: `embed`, `final_norm`, `head` (untied
 only), `stack` (one dict per pattern position, every leaf stacked over
-the pattern's repeats) and `tail` (the layers a partial last repeat
-leaves), so `convert.from_numpy` carries a JAX tree across one to one.
-Caches are stacked the same way.  JAX scans the repeats; here a Python
-loop runs layer by layer over per-layer views.
+the pattern's repeats; `{}` for the shared kind, which owns nothing
+there), `tail` (the layers a partial last repeat leaves), `shared` and
+`enc` where the family has them, so `convert.from_numpy` carries a JAX
+tree across one to one.  Caches are stacked the same way.  JAX scans
+the repeats; here a Python loop runs layer by layer over per-layer
+views.
 
 The paper's technique enters once per call through `quantize_tree`; an
 exported tree's packed `QTensor` leaves pass through it and every weight
@@ -18,19 +27,21 @@ matmul dispatches in `kernels.ops` (the packed GEMV for at most 8 rows,
 the GEMM for more; an MoE layer per expert).  `_serve_quant` prepares a
 tree for serving once: the masters quantized and cast to the compute
 dtype, the embedding cast (the tied head reads it transposed), and
-per-layer views taken (an expert stack's view is (E, K/G, N)).  Handed a
-tree it prepared, it returns it as it is, so a runtime casts once and
-every step reads the prepared tree; the bits are those of JAX's per-call
-cast.
+per-layer views taken (an expert stack's view is (E, K/G, N); a shared
+application's view is the shared block; the encoder's layers apart).
+Handed a tree it prepared, it returns it as it is, so a runtime casts
+once and every step reads the prepared tree; the bits are those of JAX's
+per-call cast.
 
 An MoE layer routes without drops (capacity = its token count) exactly
 when the call carries one token a row (S = 1, a decode step), as JAX's
-`no_drop=x.shape[1] == 1`.  A dead continuous-batching row's RWKV state
-is frozen bit for bit under `live` (`_freeze_dead`).
+`no_drop=x.shape[1] == 1`.  A dead continuous-batching row's RWKV or
+SSM state is frozen bit for bit under `live` (`_freeze_dead`).  The
+cached step passes `decode` to the recurrent mixers explicitly, as JAX's
+does: a prefill of one token takes the chunked scan, not the step.
 
-The hybrid, audio and VLM families (kinds `mamba`, `shared`, `cross`,
-`selfcross`, `enc`) are refused by `check_ported`: they wait for ROADMAP
-Queue 1 item 9.
+The VLM family (kind `cross` over image tokens) is refused by
+`check_ported`: it waits for ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -44,25 +55,30 @@ from repro_torch.core.qtensor import (QTensor, export_packed, is_qtensor,
                                       tree_map)
 from repro_torch.kernels.ops import serve_matmul
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
-from repro_torch.serve.kvcache import (AttnCache, cache_init,
+from repro_torch.serve.kvcache import (AttnCache, CrossCache, cache_init,
                                        cache_positions, cache_update)
 
 ATTN_KINDS = ("full", "global", "local")
 DECODE_MARGIN = 128  # extra cache slots beyond the spec'd context length
+# the layer kinds of each ported family
+PORTED_KINDS = {"dense": set(ATTN_KINDS), "moe": set(ATTN_KINDS),
+                "ssm": {"rwkv"}, "hybrid": {"mamba", "shared"},
+                "audio": {"selfcross"}}
 
 
 def check_ported(cfg) -> None:
     """Refuse a config outside the ported families: dense and MoE over the
-    attention kinds, and the SSM family's rwkv kind."""
+    attention kinds, the SSM family's rwkv kind, the hybrid family's mamba
+    and shared kinds, and the audio family's selfcross decoder."""
     pat, _, tail = expand_pattern(cfg)
-    kinds = set(pat + tail)
-    attn = cfg.family in ("dense", "moe") and kinds <= set(ATTN_KINDS)
-    if not (attn or (cfg.family == "ssm" and kinds == {"rwkv"})):
+    if not set(pat + tail) <= PORTED_KINDS.get(cfg.family, set()):
         raise NotImplementedError(
             f"{cfg.name} (the {cfg.family} family) waits for ROADMAP Queue "
-            f"1 item 9; the port serves the dense, moe and rwkv families")
+            f"1 item 9; the port serves the dense, moe, ssm (rwkv), hybrid "
+            f"and audio families")
 
 
 # ---------------------------------------------------------------------------
@@ -89,21 +105,32 @@ def expand_pattern(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
 # ---------------------------------------------------------------------------
 
 
+def owns_params(kind: str) -> bool:
+    """The shared kind's parameters live in `params["shared"]`, not in the
+    stack."""
+    return kind != "shared"
+
+
 def block_init(gen: torch.Generator, cfg, kind: str) -> dict:
-    """One block's parameters: an rwkv mixer, or attention with an MLP
-    (`moe` in its place when the config has experts)."""
+    """One block's parameters: a mamba or rwkv mixer, or attention (with a
+    cross-attention after it for selfcross) and an MLP (`moe` in its place
+    when the config has experts; GeLU in the audio family)."""
     d, dev = cfg.d_model, gen.device
+    zeros = lambda: torch.zeros((d,), device=dev)
+    if kind == "mamba":
+        return {"norm": zeros(), "mixer": M.mamba2_init(gen, cfg)}
     if kind == "rwkv":
-        return {"ln1": torch.zeros((d,), device=dev),
-                "ln2": torch.zeros((d,), device=dev),
+        return {"ln1": zeros(), "ln2": zeros(),
                 "mix": R.rwkv6_init(gen, cfg)}
-    p = {"norm1": torch.zeros((d,), device=dev),
-         "norm2": torch.zeros((d,), device=dev),
-         "attn": L.attn_init(gen, cfg)}
-    if cfg.n_experts > 0:
+    p = {"norm1": zeros(), "norm2": zeros(), "attn": L.attn_init(gen, cfg)}
+    if kind == "selfcross":
+        p["normc"] = zeros()
+        p["xattn"] = L.attn_init(gen, cfg, cross=True, kv_d=d)
+    if cfg.n_experts > 0 and kind != "enc":
         p["moe"] = MOE.moe_init(gen, cfg)
     else:
-        p["mlp"] = L.mlp_init(gen, cfg)
+        p["mlp"] = L.mlp_init(gen, cfg, kind="gelu" if cfg.family == "audio"
+                              else None)
     return p
 
 
@@ -129,7 +156,8 @@ def model_init(gen: torch.Generator, cfg, *, packed: bool = False) -> dict:
     drawn and the codes are stacked: the same tree as
     `export_packed(model_init(gen, cfg), cfg.quant)`, bit for bit, with one
     layer's fp32 masters alive at a time (a full-width MoE model's masters
-    do not fit on one card)."""
+    do not fit on one card).  A hybrid adds `shared` (one full-attention
+    block), the audio family `enc` (the encoder's stack and final norm)."""
     check_ported(cfg)
     post = ((lambda tree: export_packed(tree, cfg.quant)) if packed
             else (lambda tree: tree))
@@ -142,8 +170,15 @@ def model_init(gen: torch.Generator, cfg, *, packed: bool = False) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = winit(gen, (d, Vp))
     params["stack"] = tuple(_stacked_init(gen, cfg, k, rep, post)
-                            for k in pat)
-    params["tail"] = tuple(post(block_init(gen, cfg, k)) for k in tail)
+                            if owns_params(k) else {} for k in pat)
+    params["tail"] = tuple(post(block_init(gen, cfg, k))
+                           if owns_params(k) else {} for k in tail)
+    if cfg.family == "hybrid":
+        params["shared"] = post(block_init(gen, cfg, "full"))
+    if cfg.family == "audio":
+        params["enc"] = {
+            "stack": _stacked_init(gen, cfg, "enc", cfg.n_enc_layers, post),
+            "final_norm": torch.zeros((d,), device=dev)}
     return post(params)
 
 
@@ -155,8 +190,11 @@ def model_init(gen: torch.Generator, cfg, *, packed: bool = False) -> dict:
 class ServeTree(dict):
     """A parameter tree `_serve_quant` prepared: matmul weights quantized
     and cast, the embedding (and an untied head) cast to the compute
-    dtype, and `layers`, the per-layer (kind, params) views in run order."""
+    dtype, `layers`, the per-layer (kind, params) views in run order (the
+    shared block at each shared application), and `enc_layers`, the
+    encoder's per-layer views (empty outside the audio family)."""
     layers: list
+    enc_layers: list
 
 
 def _layer_view(tree, r: int):
@@ -180,9 +218,14 @@ def _serve_quant(params: dict, cfg) -> ServeTree:
     if "head" in q and not is_qtensor(q["head"]):
         q["head"] = q["head"].to(dt)
     pat, rep, tail = expand_pattern(cfg)
-    q.layers = [(k, _layer_view(q["stack"][i], r))
-                for r in range(rep) for i, k in enumerate(pat)]
-    q.layers += list(zip(tail, q["tail"]))
+    view = lambda k, i, r: (q["shared"] if k == "shared"
+                            else _layer_view(q["stack"][i], r))
+    q.layers = [(k, view(k, i, r)) for r in range(rep)
+                for i, k in enumerate(pat)]
+    q.layers += [(k, q["shared"] if k == "shared" else p)
+                 for k, p in zip(tail, q["tail"])]
+    q.enc_layers = ([_layer_view(q["enc"]["stack"], r)
+                     for r in range(cfg.n_enc_layers)] if "enc" in q else [])
     return q
 
 
@@ -203,10 +246,20 @@ def _mlp_or_moe(p: dict, x: torch.Tensor, cfg, *,
 
 
 def _attn_full(p: dict, x: torch.Tensor, cfg, kind: str,
-               positions: torch.Tensor):
-    """The uncached block (the eval forward); returns (x, moe aux)."""
+               positions: torch.Tensor, xsrc: Optional[torch.Tensor] = None):
+    """The uncached block (the eval forward, the encoder); returns (x, moe
+    aux).  selfcross attends over the cross source `xsrc` after its
+    self-attention; enc's self-attention is not causal."""
     h = L.rms_norm(x, p["norm1"])
-    x = x + L.attn_apply(p["attn"], h, cfg, kind=kind, positions=positions)
+    if kind == "selfcross":
+        x = x + L.attn_apply(p["attn"], h, cfg, kind="full",
+                             positions=positions)
+        hc = L.rms_norm(x, p["normc"])
+        x = x + L.attn_apply(p["xattn"], hc, cfg, kind="cross", kv_src=xsrc)
+    else:
+        x = x + L.attn_apply(p["attn"], h, cfg, kind=kind,
+                             positions=positions,
+                             causal=False if kind == "enc" else None)
     h = L.rms_norm(x, p["norm2"])
     y, aux = _mlp_or_moe(p, h, cfg)
     return x + y, aux
@@ -232,16 +285,32 @@ def _self_attn_cached(p_attn: dict, h: torch.Tensor, cfg, cache: AttnCache,
 
 
 def _attn_cached(p: dict, x: torch.Tensor, cfg, kind: str, cache: AttnCache,
-                 live=None):
-    """The prefill/decode block; returns (x, new cache).  An MoE layer
-    drops no token when the call carries one a row."""
+                 xcache: Optional[CrossCache] = None, live=None):
+    """The prefill/decode block; returns (x, new cache).  selfcross then
+    attends over the cross cache `xcache` (not causal, no RoPE).  An MoE
+    layer drops no token when the call carries one a row."""
     h = L.rms_norm(x, p["norm1"])
     o, cache = _self_attn_cached(p["attn"], h, cfg, cache,
                                  window=_window(cfg, kind), live=live)
     x = x + L.attn_out(p["attn"], o, cfg)
+    if kind == "selfcross":
+        hc = L.rms_norm(x, p["normc"])
+        q = L.attn_q(p["xattn"], hc, cfg)
+        o = L.attention(q, xcache.k, xcache.v, causal=False)
+        x = x + L.attn_out(p["xattn"], o, cfg, cross=True)
     h = L.rms_norm(x, p["norm2"])
     y, _ = _mlp_or_moe(p, h, cfg, no_drop=x.shape[1] == 1)
     return x + y, cache
+
+
+def _mamba_block(p: dict, x: torch.Tensor, cfg, state: Optional[M.SSMState],
+                 decode: bool):
+    """The mamba block (a pre-norm mixer and its residual); returns (x, new
+    state), the state None when none was given (and not decoding)."""
+    h = L.rms_norm(x, p["norm"])
+    y, new_state = M.mamba2_apply(p["mixer"], h, cfg, state=state,
+                                  decode=decode)
+    return x + y.to(x.dtype), new_state
 
 
 def _rwkv_block(p: dict, x: torch.Tensor, cfg, state: Optional[R.RWKVState],
@@ -262,15 +331,15 @@ def _rwkv_block(p: dict, x: torch.Tensor, cfg, state: Optional[R.RWKVState],
                           pos=state.pos + h.shape[1])
 
 
-def _freeze_dead(new: R.RWKVState, old: R.RWKVState,
-                 live: torch.Tensor) -> R.RWKVState:
-    """Per row, the new recurrent state or the old one: dead rows
-    (live False) keep every leaf, pos included, bit for bit.  The batch is
-    axis 0 of every leaf (the state of one layer)."""
+def _freeze_dead(new, old, live: torch.Tensor):
+    """Per row, the new recurrent state (an `RWKVState` or `SSMState`) or
+    the old one: dead rows (live False) keep every leaf (wkv or SSD state,
+    shifts or conv tail, pos) bit for bit.  The batch is axis 0 of every
+    leaf (the state of one layer)."""
     def sel(n, o):
         return torch.where(live.reshape(live.shape + (1,) * (n.dim() - 1)),
                            n, o)
-    return R.RWKVState(*(sel(n, o) for n, o in zip(new, old)))
+    return type(new)(*(sel(n, o) for n, o in zip(new, old)))
 
 
 # ---------------------------------------------------------------------------
@@ -278,36 +347,50 @@ def _freeze_dead(new: R.RWKVState, old: R.RWKVState,
 # ---------------------------------------------------------------------------
 
 
-def _kind_cache(cfg, kind: str, batch: int, cap: int, dtype, *,
-                per_slot: bool = False, lead: tuple = (), device=None) -> dict:
-    """The cache of one layer of `kind`: {"attn": AttnCache}, or
-    {"rwkv": RWKVState} for the rwkv kind."""
+def _kind_cache(cfg, kind: str, batch: int, cap: int, src_len: int, dtype,
+                *, per_slot: bool = False, lead: tuple = (),
+                device=None) -> dict:
+    """The cache of one layer of `kind`: {"attn": AttnCache} (a shared
+    application's own), {"rwkv": RWKVState}, {"ssm": SSMState}, or for
+    selfcross {"attn", "cross": CrossCache of `src_len` zero rows}."""
     if kind == "rwkv":
         return {"rwkv": R.state_init(cfg, batch, dtype, per_slot=per_slot,
                                      lead=lead, device=device)}
-    if kind in ("full", "global"):
+    if kind == "mamba":
+        return {"ssm": M.state_init(cfg, batch, dtype, per_slot=per_slot,
+                                    lead=lead, device=device)}
+    if kind in ("full", "global", "shared"):
         c = cap if not cfg.swa_all else min(cfg.window + DECODE_MARGIN, cap)
         ring = cfg.swa_all
     elif kind == "local":
         c, ring = min(cfg.window + DECODE_MARGIN, cap), True
+    elif kind == "selfcross":
+        c, ring = cap, False
     else:
         raise ValueError(kind)
-    return {"attn": cache_init(batch, c, cfg.n_kv, cfg.hd, dtype, ring=ring,
-                               per_slot=per_slot, lead=lead, device=device)}
+    out = {"attn": cache_init(batch, c, cfg.n_kv, cfg.hd, dtype, ring=ring,
+                              per_slot=per_slot, lead=lead, device=device)}
+    if kind == "selfcross":
+        shape = lead + (batch, src_len, cfg.n_kv, cfg.hd)
+        out["cross"] = CrossCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device))
+    return out
 
 
-def init_caches(cfg, batch: int, context: int, *, dtype=None,
-                per_slot: bool = False, device=None) -> dict:
-    """Stacked cache tree matching the parameter tree.  With `per_slot`
-    every position counter is per row (B,): the continuous-batching pool."""
+def init_caches(cfg, batch: int, context: int, *, src_len: int = 0,
+                dtype=None, per_slot: bool = False, device=None) -> dict:
+    """Stacked cache tree matching the parameter tree (`src_len` rows of
+    cross source for the audio family).  With `per_slot` every position
+    counter is per row (B,): the continuous-batching pool."""
     dtype = dtype or cfg.torch_dtype
     cap = context + DECODE_MARGIN
     pat, rep, tail = expand_pattern(cfg)
     return {
-        "stack": tuple(_kind_cache(cfg, k, batch, cap, dtype,
+        "stack": tuple(_kind_cache(cfg, k, batch, cap, src_len, dtype,
                                    per_slot=per_slot, lead=(rep,),
                                    device=device) for k in pat),
-        "tail": tuple(_kind_cache(cfg, k, batch, cap, dtype,
+        "tail": tuple(_kind_cache(cfg, k, batch, cap, src_len, dtype,
                                   per_slot=per_slot, device=device)
                       for k in tail),
     }
@@ -336,45 +419,74 @@ def _head(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return logits
 
 
+_STATES = {"rwkv": R.RWKVState, "ssm": M.SSMState, "cross": CrossCache}
+
+
 def _layer_cache(cache: dict, r: int) -> dict:
     """Layer r of a stacked cache: k/v views, its own pos and state."""
-    if "rwkv" in cache:
-        return {"rwkv": R.RWKVState(*(leaf[r] for leaf in cache["rwkv"]))}
-    c = cache["attn"]
-    return {"attn": c._replace(k=c.k[r], v=c.v[r], pos=c.pos[r])}
+    out = {}
+    for key, c in cache.items():
+        if key == "attn":
+            out[key] = c._replace(k=c.k[r], v=c.v[r], pos=c.pos[r])
+        else:
+            out[key] = _STATES[key](*(leaf[r] for leaf in c))
+    return out
 
 
 def _restack(cache: dict, layers: list) -> dict:
-    """The stacked cache after a step: k/v were written in place, so only
-    the positions (and an rwkv state, whole) stack back."""
+    """The stacked cache after a step: k/v were written in place, so the
+    positions stack back, a recurrent state whole, and a cross cache where
+    a prefill replaced it; a key the layers left out (the cross cache of a
+    step that kept it) stays as it was."""
     if not layers:
         return cache
-    if "rwkv" in cache:
-        return {"rwkv": R.RWKVState(*(torch.stack(leaves) for leaves in
-                                      zip(*(c["rwkv"] for c in layers))))}
-    return {"attn": cache["attn"]._replace(
-        pos=torch.stack([c["attn"].pos for c in layers]))}
+    out = {}
+    for key, c in cache.items():
+        if key not in layers[0]:
+            out[key] = c
+            continue
+        new = [one[key] for one in layers]
+        if key == "attn":
+            out[key] = c._replace(pos=torch.stack([n.pos for n in new]))
+        else:
+            out[key] = _STATES[key](*(torch.stack(leaves)
+                                      for leaves in zip(*new)))
+    return out
 
 
 def _apply_kind(p: dict, x: torch.Tensor, cfg, kind: str, cache: dict, *,
-                decode: bool, live=None):
-    """One layer of `kind` against its cache; returns (x, new cache)."""
-    if kind == "rwkv":
-        x, st = _rwkv_block(p, x, cfg, cache["rwkv"], decode)
+                decode: bool, live=None, xsrc=None):
+    """One layer of `kind` against its cache; returns (x, new cache).  A
+    shared application's `p` is the shared block, run as kind full.  A
+    selfcross prefill (not decoding, a source given) first encodes the
+    source into a new cross cache, as JAX's does on every prefill; other
+    steps read the cross cache and leave it out of what they return."""
+    if kind in ("rwkv", "mamba"):
+        key = "rwkv" if kind == "rwkv" else "ssm"
+        block = _rwkv_block if kind == "rwkv" else _mamba_block
+        x, st = block(p, x, cfg, cache[key], decode)
         if live is not None:
-            st = _freeze_dead(st, cache["rwkv"], live)
-        return x, {"rwkv": st}
-    x, c = _attn_cached(p, x, cfg, kind, cache["attn"], live)
-    return x, {"attn": c}
+            st = _freeze_dead(st, cache[key], live)
+        return x, {key: st}
+    xc = cache.get("cross")
+    fresh = xc is not None and not decode and xsrc is not None
+    if fresh:
+        xc = CrossCache(*L.attn_kv(p["xattn"], xsrc, cfg))
+    x, c = _attn_cached(p, x, cfg, "full" if kind == "shared" else kind,
+                        cache["attn"], xc, live)
+    return x, ({"attn": c, "cross": xc} if fresh else {"attn": c})
 
 
 def _step_cached(qparams: ServeTree, x: torch.Tensor, caches: dict, cfg, *,
-                 decode: bool, live=None) -> Tuple[torch.Tensor, dict]:
+                 decode: bool, live=None,
+                 xsrc: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, dict]:
     """Run every layer over new tokens x (B, S, d) against the caches.
-    k/v are written in place into the stacked caches; the new positions
-    and rwkv states are stacked back.  `decode` runs the rwkv kind's
-    one-token recurrence instead of its chunked scan; `live` (B,) freezes
-    dead rows."""
+    k/v are written in place into the stacked caches; the new positions,
+    recurrent states and cross caches are stacked back.  `decode` runs the
+    rwkv and mamba kinds' one-token recurrences instead of their chunked
+    scans; `live` (B,) freezes dead rows; `xsrc` is the encoded cross
+    source of a prefill."""
     pat, rep, tail = expand_pattern(cfg)
     it = iter(qparams.layers)
     done = [[] for _ in pat]
@@ -383,24 +495,55 @@ def _step_cached(qparams: ServeTree, x: torch.Tensor, caches: dict, cfg, *,
             _, p = next(it)
             x, one = _apply_kind(p, x, cfg, kind,
                                  _layer_cache(caches["stack"][i], r),
-                                 decode=decode, live=live)
+                                 decode=decode, live=live, xsrc=xsrc)
             done[i].append(one)
     new_stack = tuple(_restack(c, d) for c, d in zip(caches["stack"], done))
     new_tail = []
     for c in caches["tail"]:
         kind, p = next(it)
-        x, one = _apply_kind(p, x, cfg, kind, c, decode=decode, live=live)
-        new_tail.append(one)
+        x, one = _apply_kind(p, x, cfg, kind, c, decode=decode, live=live,
+                             xsrc=xsrc)
+        new_tail.append({**c, **one})
     return x, {"stack": new_stack, "tail": tuple(new_tail)}
 
 
+def _run_encoder(qparams: ServeTree, frames: torch.Tensor,
+                 cfg) -> torch.Tensor:
+    """The audio encoder over precomputed frame embeddings (B, S_src, d):
+    sinusoidal positions added, the bidirectional enc layers, the final
+    norm.  The conv/mel frontend is a stub, as in JAX."""
+    x = frames.to(cfg.torch_dtype)
+    S = frames.shape[1]
+    x = x + L.sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    for p in qparams.enc_layers:
+        x, _ = _attn_full(p, x, cfg, "enc", positions)
+    return L.rms_norm(x, qparams["enc"]["final_norm"])
+
+
+def _cross_source(qparams: ServeTree, cfg, enc_frames, img):
+    """The cross-attention source of a call: the encoded frames for the
+    audio family, None for the others."""
+    if img is not None:
+        raise NotImplementedError("image tokens (the vlm family) wait for "
+                                  "ROADMAP Queue 1 item 9")
+    if cfg.family != "audio":
+        return None
+    if enc_frames is None:
+        raise ValueError(f"{cfg.name} needs its encoder frames (enc_frames)")
+    return _run_encoder(qparams, enc_frames, cfg)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg, *,
+            enc_frames: Optional[torch.Tensor] = None,
+            img: Optional[torch.Tensor] = None,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The eval forward over a whole sequence (no caches, deterministic
-    quantization).  tokens (B, S) -> (logits (B, S, Vp), the MoE layers'
-    summed aux loss).  The training forward (stochastic quantization,
-    remat) is not ported."""
+    quantization).  tokens (B, S), and for the audio family `enc_frames`
+    (B, S_src, d) -> (logits (B, S, Vp), the MoE layers' summed aux loss).
+    The training forward (stochastic quantization, remat) is not ported."""
     qparams = _serve_quant(params, cfg)
+    xsrc = _cross_source(qparams, cfg, enc_frames, img)
     x = _embed(qparams, tokens, cfg)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
@@ -408,8 +551,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     for kind, p in qparams.layers:
         if kind == "rwkv":
             x, _ = _rwkv_block(p, x, cfg, None, False)
+        elif kind == "mamba":
+            x, _ = _mamba_block(p, x, cfg, None, False)
         else:
-            x, a = _attn_full(p, x, cfg, kind, positions)
+            x, a = _attn_full(p, x, cfg, "full" if kind == "shared" else kind,
+                              positions, xsrc)
             aux = aux + a
     x = L.rms_norm(x, qparams["final_norm"])
     if last_only:
@@ -417,15 +563,19 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     return _head(qparams, x, cfg), aux
 
 
-def prefill(params: dict, tokens: torch.Tensor, caches: dict,
-            cfg) -> Tuple[torch.Tensor, dict]:
+def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg, *,
+            enc_frames: Optional[torch.Tensor] = None,
+            img: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """Process a prompt (or one prompt chunk) into the caches.  Returns the
-    last token's logits (B, Vp) and the caches.  JAX's `n` (bucket padding
-    rewound off the caches) has no counterpart: chunks run at their own
-    length."""
+    last token's logits (B, Vp) and the caches.  The audio family encodes
+    `enc_frames` on every call and replaces its cross caches with their
+    k/v.  JAX's `n` (bucket padding rewound off the caches) has no
+    counterpart: chunks run at their own length."""
     qparams = _serve_quant(params, cfg)
+    xsrc = _cross_source(qparams, cfg, enc_frames, img)
     x = _embed(qparams, tokens, cfg)
-    x, caches = _step_cached(qparams, x, caches, cfg, decode=False)
+    x, caches = _step_cached(qparams, x, caches, cfg, decode=False,
+                             xsrc=xsrc)
     x = L.rms_norm(x[:, -1:], qparams["final_norm"])
     return _head(qparams, x, cfg)[:, 0], caches
 

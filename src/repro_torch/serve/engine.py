@@ -1,6 +1,6 @@
 """Continuous-batching serve engine, ported from `repro/serve/engine.py`
-for the paper's RNN family and the transformer pool's dense, MoE and
-RWKV6 families on one device.
+for the paper's RNN family and the transformer pool's dense, MoE, RWKV6
+and hybrid (zamba2) families on one device.
 
 `ServeEngine` owns a fixed pool of B slots over an `RNNRuntime` or a
 `TransformerRuntime` (serve/recurrent.py) and turns
@@ -9,8 +9,8 @@ the lockstep prefill -> decode loop into mixed-length traffic serving:
   * requests are admitted from a priority queue as slots free up;
     admission is bookkeeping: the prompt is split into chunks of
     `prefill_chunk` tokens (the last one shorter), or kept as one chunk
-    for a runtime whose `chunk_granularity` is "whole" (MoE and rwkv: a
-    split is not exact there), and the slot starts prefilling;
+    for a runtime whose `chunk_granularity` is "whole" (MoE, rwkv and
+    mamba: a split is not exact there), and the slot starts prefilling;
   * each scheduler iteration runs at most one prefill chunk, straight into
     the admitted slot (gather the slot row, run the chunk, write the row
     back), then one batched decode tick over all B slots with the dead
@@ -53,7 +53,7 @@ Slot surgery goes through the family's own row helpers: `bnlstm`'s
 `rnn_gather_slot`/`rnn_write_slots`/`rnn_reset_slots` for the RNN state,
 and `tree_gather_slot`/`tree_write_slot`/`tree_reset_slots` below (JAX's
 generic ones, over `AttnCache` nodes and the bare leaves of an
-`RWKVState`) for the transformer caches.
+`RWKVState` or `SSMState`) for the transformer caches.
 
 What JAX's engine has and this one does not: jit trace counters
 (`tick_traces`, `prefill_traces`, `spec_traces`, `splice_traces`), since
@@ -66,11 +66,11 @@ prefill jit traces once per bucket, and here a pad step would be one more
 recurrent step on the device, so every chunk runs at its own length and
 `prefill_steps` counts prompt tokens.  `warm()` runs a chunk and a
 throwaway request before the clock starts.  Refused: a device mesh
-(`mesh=`, with `tick_hlo`) and the transformer pool's other families and
-runtimes with `extras` (cross-attention sources), which wait for ROADMAP
-Queue 1 item 9; a prefix cache over ring (sliding-window) caches, whose
-live window need not start at column 0; and, with JAX's messages,
-speculation and a prefix cache over a "whole" runtime.
+(`mesh=`, with `tick_hlo`), which waits for ROADMAP Queue 1 item 9; a
+prefix cache over ring (sliding-window) caches, whose live window need
+not start at column 0; and, with JAX's messages, runtimes with `extras`
+(cross-attention sources: whisper serves in lockstep), speculation and a
+prefix cache over a "whole" runtime.
 """
 from __future__ import annotations
 
@@ -162,8 +162,8 @@ class _Active:
 
 def _slot_axis(path: tuple) -> int:
     """The slot axis of a bare leaf of the transformer cache tree (an
-    `RWKVState` field): 1 under "stack" (after the layer axis), 0 under
-    "tail"."""
+    `RWKVState` or `SSMState` field): 1 under "stack" (after the layer
+    axis), 0 under "tail"."""
     if not path or path[0] not in ("stack", "tail"):
         raise TypeError(f"a transformer state is a stack/tail tree of "
                         f"attention caches and recurrent states, got a "
@@ -256,12 +256,16 @@ class ServeEngine:
             raise NotImplementedError(
                 "a mesh-sharded engine (and tick_hlo) is not ported: it waits "
                 "for ROADMAP Queue 1 item 9")
-        family = getattr(rt, "family", None)
-        if family not in ("rnn", "transformer") or getattr(rt, "extras", None):
+        if getattr(rt, "extras", None):
             raise NotImplementedError(
-                "the port's engine schedules the RNN and dense transformer "
-                "families; cross-attention (extras) and other runtimes wait "
-                "for ROADMAP Queue 1 item 9")
+                "continuous batching over cross-attention runtimes (vlm/"
+                "audio) needs per-request source encodings; the engine "
+                "currently schedules self-attention and recurrent archs")
+        family = getattr(rt, "family", None)
+        if family not in ("rnn", "transformer"):
+            raise NotImplementedError(
+                "the port's engine schedules the RNN and transformer "
+                "runtimes; other runtimes wait for ROADMAP Queue 1 item 9")
         whole = getattr(rt, "chunk_granularity", "token") == "whole"
         if prefix_cache is not None and whole:
             raise NotImplementedError(

@@ -1,6 +1,6 @@
-"""KV caches for serving, full and ring buffer (sliding window), ported
-from `repro/serve/kvcache.py` without its mesh half (`kv_pspec`,
-`constrain_cache`) and its cross-attention cache.
+"""KV caches for serving, full and ring buffer (sliding window), and the
+cross-attention cache, ported from `repro/serve/kvcache.py` without its
+mesh half (`kv_pspec`, `constrain_cache`).
 
 An `AttnCache` holds k, v (B, C, Hkv, hd) with capacity C and `pos`, the
 tokens written: a scalar () in lockstep, or (B,) when every row is a
@@ -13,6 +13,10 @@ a view, so a prompt chunk run on it writes straight into the pool.  `pos`
 stays functional (each update returns a new one), so a speculative
 snapshot's positions are never moved under it.  Callers thread the
 returned cache as in JAX; the caches they passed in have changed.
+
+A `CrossCache` holds the cross-attention source's k, v (B, S_src, Hkv,
+hd).  Unlike an `AttnCache` it is never written into: a prefill replaces
+it whole with the encoder's k/v at the source's own length, as JAX's does.
 
 Slot surgery (the engine's admission, chunked prefill and retirement) and
 the prefix cache's narrow/widen and the speculative snapshot/commit follow
@@ -36,6 +40,16 @@ class AttnCache:
 
     def _replace(self, **kw) -> "AttnCache":
         return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "AttnCache":
+        """The cache on `device` (`core.qtensor.tree_to` moves it whole)."""
+        return self._replace(k=self.k.to(device), v=self.v.to(device),
+                             pos=self.pos.to(device))
+
+
+class CrossCache(NamedTuple):
+    k: torch.Tensor  # (B, S_src, Hkv, hd): fixed after prefill
+    v: torch.Tensor
 
 
 def cache_init(batch: int, cap: int, heads: int, hd: int, dtype, *,

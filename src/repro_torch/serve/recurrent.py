@@ -1,6 +1,6 @@
 """Serving runtimes, ported from `repro/serve/recurrent.py`: one stateful
 prefill/decode interface over the paper's BN-LSTM/GRU and the transformer
-pool's dense, MoE and RWKV6 families.
+pool's dense, MoE, RWKV6, hybrid (zamba2) and audio (whisper) families.
 
     rt = serving_runtime(cfg, params)          # on the card by default
     state = rt.init_state(batch, context)
@@ -14,12 +14,16 @@ fused-kernel launch per tick.  `TransformerRuntime` holds the parameter
 tree (fp masters or a packed export) and prepares its serving tree once
 (`transformer._serve_quant`: quantized, cast to the compute dtype,
 per-layer views), so no step re-casts a weight; its state is the stacked
-kv caches (an `RWKVState` for rwkv layers).  Its `chunk_granularity` says
+kv caches (an `RWKVState` for rwkv layers, an `SSMState` for mamba ones,
+a `CrossCache` beside a selfcross layer's kv cache), sized by
+`configs.shapes.decode_context`.  `extras` are the keyword inputs every
+prefill passes on (the audio family's `enc_frames`); the engine refuses
+a runtime that has them, as JAX's does.  Its `chunk_granularity` says
 how the engine may split a prompt: "token" anywhere, "whole" (MoE, whose
-tokens compete for capacity across the call, and rwkv, whose chunked scan
-rounds by its chunk boundaries) as one chunk.  `drive_session` is the
-canonical prefill -> sample -> decode loop the launchers and the chip
-smoke drive.
+tokens compete for capacity across the call, and rwkv and mamba, whose
+chunked scans round by their chunk boundaries) as one chunk.
+`drive_session` is the canonical prefill -> sample -> decode loop the
+launchers and the chip smoke drive.
 
 Both carry the continuous-batching engine's hooks (`serve/engine.py`):
 `init_state(per_slot=True)`, `decode_fn` with a `live` mask,
@@ -39,6 +43,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.shapes import decode_context
 from repro_torch.core import bnlstm as BL
 from repro_torch.core.qtensor import (export_packed, is_qtensor, tree_leaves,
                                       tree_map, tree_nbytes, tree_to)
@@ -134,42 +139,48 @@ class RNNRuntime:
 
 class TransformerRuntime:
     """Serving session of the transformer pool's dense (llama3, qwen3,
-    gemma3), MoE (mixtral, qwen3-moe) and RWKV6 families.  `params` is the
-    model's tree, fp masters or a packed export
-    (`core.qtensor.export_packed`); the state is the stacked caches of
-    `transformer.init_caches`."""
+    gemma3), MoE (mixtral, qwen3-moe), RWKV6, hybrid (zamba2) and audio
+    (whisper) families.  `params` is the model's tree, fp masters or a
+    packed export (`core.qtensor.export_packed`); the state is the stacked
+    caches of `transformer.init_caches`.  `extras` (moved to the device)
+    go to every prefill: whisper's `enc_frames` (B, S_src, d)."""
 
     family = "transformer"
 
-    def __init__(self, cfg, params: dict, *,
+    def __init__(self, cfg, params: dict, *, extras: Optional[dict] = None,
                  device: Optional[str | torch.device] = None):
         T.check_ported(cfg)
         self.cfg = cfg
         self.device = dispatch.resolve_device(device)
         self.params = tree_to(params, self.device)
+        self.extras = tree_to(dict(extras or {}), self.device)
         self.served = T._serve_quant(self.params, cfg)
         # An attention layer's math is per token given the cache, so any
         # split of a prompt into chunks is exact.  MoE capacity competition
-        # spans the whole call and rwkv's scan re-chunks at other
-        # boundaries, so those archs prefill a prompt as one in-slot
+        # spans the whole call and the rwkv and mamba scans re-chunk at
+        # other boundaries, so those archs prefill a prompt as one in-slot
         # chunk.  Speculation needs a per-token-exact multi-token step and
         # non-ring caches: ring (sliding-window) caches recycle columns, so
         # neither a rejected span nor a prefix snapshot can be cut back out.
         pat, _, tail = T.expand_pattern(cfg)
         kinds = set(pat + tail)
-        whole = "rwkv" in kinds or cfg.n_experts > 0
+        whole = bool(kinds & {"mamba", "rwkv"}) or cfg.n_experts > 0
         self.chunk_granularity = "whole" if whole else "token"
         self.ring_caches = cfg.swa_all or "local" in kinds
         self.spec_capable = not whole and not self.ring_caches
 
     def init_state(self, batch: int, context: int, *,
                    per_slot: bool = False) -> dict:
-        return T.init_caches(self.cfg, batch, context, per_slot=per_slot,
-                             device=self.device)
+        """Zero caches for `context` tokens; the audio family's cross caches
+        hold `decode_context`'s source length until a prefill replaces
+        them."""
+        _, src = decode_context(self.cfg, context)
+        return T.init_caches(self.cfg, batch, context, src_len=src,
+                             per_slot=per_slot, device=self.device)
 
     def prefill(self, tokens: torch.Tensor, state: dict):
         return T.prefill(self.served, tokens.to(self.device), state,
-                         self.cfg)
+                         self.cfg, **self.extras)
 
     def decode_step(self, tok: torch.Tensor, state: dict):
         return T.decode_step(self.served, tok, state, self.cfg)
@@ -219,8 +230,8 @@ class TransformerRuntime:
 def serving_runtime(cfg, params: dict, **kw):
     """The one constructor: an RNNConfig gives an `RNNRuntime` over the
     {'params', 'state'} variables, a ModelConfig a `TransformerRuntime`
-    (dense, MoE and RWKV6 families; the others wait for ROADMAP Queue 1
-    item 9)."""
+    (dense, MoE, RWKV6, hybrid and audio families; the VLM waits for
+    ROADMAP Queue 1 item 9)."""
     if isinstance(cfg, BL.RNNConfig):
         return RNNRuntime(cfg, params, **kw)
     return TransformerRuntime(cfg, params, **kw)
@@ -232,7 +243,7 @@ def speculative_draft(rt, mode: str = "ternary"):
     config dims (and, for the RNN, its frozen BN statistics).  An RNN draft
     decodes through the fused tick, where JAX's `dense` switch could expand
     it into dense tables; a transformer draft's projections run the packed
-    GEMV and GEMM."""
+    GEMV and GEMM, and it keeps the target's `extras`."""
     packed_msg = ("speculative pairing packs the target's fp masters; this "
                   "runtime already serves a packed tree: build the pair from "
                   "the master weights instead")
@@ -253,7 +264,7 @@ def speculative_draft(rt, mode: str = "ternary"):
         raise ValueError(packed_msg)
     dcfg = rt.cfg.with_quant(QuantSpec(mode=mode, norm="channel"))
     return TransformerRuntime(dcfg, export_packed(rt.params, dcfg.quant),
-                              device=rt.device)
+                              extras=dict(rt.extras), device=rt.device)
 
 
 def _sync(device: torch.device) -> None:

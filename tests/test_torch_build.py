@@ -42,6 +42,19 @@ def test_ptxas_usage_names_every_instance_and_its_spills():
         ("packed_matmul_kernel<1>", 115, 24)]
 
 
+def test_a_missed_profile_is_reported_as_not_measured():
+    """When torch.profiler records no device event, the busy time and the
+    idle share are None and print as "not measured", never as an idle
+    card; a profile that holds events gives them per call."""
+    cs = _chip_smoke()
+    assert cs.busy_idle({}, 0.5, 4) == (None, None)
+    assert cs.num(None, ".3f") == "not measured"
+    busy, idle = cs.busy_idle({"a": 300.0, "b": 100.0}, 0.004, 4)
+    assert busy == 100.0 and idle == pytest.approx(0.9)
+    assert cs.num(busy, "8.2f", 1e3) == "    0.10"
+    assert cs.num(3526, "d") == "3526"
+
+
 def test_build_all_gives_a_cached_library_the_log_of_its_build(
         tmp_path, monkeypatch):
     """A library built before is not compiled again, and its compiler log

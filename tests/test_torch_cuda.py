@@ -15,7 +15,10 @@ that take several row passes of the fused tick (4 and 8 rows a pass),
 three layers, heads wider than the main path's (vocab 7300 and 10,000),
 and non-finite logits; and the MoE path's per-expert shapes (qwen3-moe's
 2048 <-> 768, mixtral's 4096 <-> 14336) on an expert's slice of stacked
-codes, with one MoE layer and one rwkv layer against their CPU run.  The
+codes, with one MoE layer and one rwkv layer against their CPU run; and
+the hybrid and audio paths' shapes (zamba2's Win at N = 8384, whisper's
+K = 512 and its encoder's M = 6000) with reduced zamba2 and whisper
+runtimes against their CPU run.  The
 GEMV, the GEMM and the tick are also launched twice and must repeat bit
 for bit.
 
@@ -799,3 +802,100 @@ def test_rwkv_layer_on_the_card_matches_the_cpu(card):
         assert (a.double() - b.double()).abs().max() <= 1e-5 * scale
     assert dispatch.LAUNCHES["packed_matmul"] == 8 * 1
     assert dispatch.LAUNCHES["packed_gemv"] == 8 * 2
+
+
+# ---------------------------------------------------------------------------
+# the hybrid and audio serving paths (zamba2's ragged N, whisper's K = 512
+# and its encoder's M = 6000)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K,N,rows", [
+    *((2048, 8384, r) for r in (1, 4, 8, 512)),   # zamba2 Win
+    *((4096, 2048, r) for r in (1, 4, 8, 512)),   # zamba2 Wout
+    *((512, 512, r) for r in (1, 4, 8, 6000)),    # whisper Wq/Wk/Wv/Wo
+    *((512, 2048, r) for r in (1, 4, 8, 6000)),   # whisper Wfc1
+    *((2048, 512, r) for r in (1, 4, 8, 6000))])  # whisper Wfc2
+def test_hybrid_and_audio_shapes_match_plain(card, K, N, rows):
+    """zamba2-1.2b's Win (N = 8384: 65 full 128-column GEMM tiles and one
+    of 64; 262 32-column GEMV tiles) and Wout at decode rows and its
+    B = 4, prompt-128 prefill (M = 512), and whisper-base's K = 512 and
+    2048 projections at decode rows and over the encoder's 4 x 1500 frames
+    (M = 6000), the codes a layer's slice of stacked codes: held to the
+    fp64 product within 1e-5 of |x| @ |w|, two launches bit for bit."""
+    rng = np.random.default_rng(K + N + rows)
+    stacked = _codes(rng, 2 * (K // 16), N).reshape(2, K // 16, N).to(card)
+    codes = stacked[1]
+    assert codes.is_contiguous() and codes.data_ptr() % 16 == 0
+    x = torch.from_numpy(np.tanh(rng.normal(size=(rows, K))).astype(
+        np.float32)).to(card)
+    fn = PK.packed_gemv if rows <= 8 else PK.packed_matmul
+    got = fn(x, codes, mode="ternary")
+    again = fn(x, codes, mode="ternary")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if rows <= 512:
+        want = PK.packed_matmul_plain(x, codes, mode="ternary")
+    else:  # the plain version row by row takes seconds at 6000 rows
+        want = torch.cat([PK.packed_matmul_plain(x[i:i + 500], codes,
+                                                 mode="ternary")
+                          for i in (0, rows - 500)])
+        got = torch.cat([got[:500], got[-500:]])
+        x = torch.cat([x[:500], x[-500:]])
+    _assert_summation_close(got, want, x, codes, "ternary")
+    assert dispatch.LAUNCHES[fn.__name__] == 2
+
+
+def _pool_runtime(arch, device, dtype, seed=0):
+    """A reduced packed ternary arch (channel scales, the audio family's
+    xgate and MLP biases off init) behind its runtime, whisper with 24
+    random encoder frames for a batch of 2."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import tree_map_with_path
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.recurrent import TransformerRuntime
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    cfg = cfg.with_quant(QuantSpec(mode="ternary", norm="channel"))
+    g = torch.Generator().manual_seed(seed)
+    params = T.model_init(g, cfg, packed=True)
+    moved = ("xgate", "bfc1", "bfc2", "dt_bias", "conv_b", "D")
+    params = tree_map_with_path(
+        lambda path, l: l + 0.3 * torch.randn(l.shape, generator=g)
+        if isinstance(l, torch.Tensor) and (path[-1] in moved
+                                            or path[-1].startswith("s"))
+        else l, params)
+    extras = {}
+    if cfg.family == "audio":
+        extras["enc_frames"] = torch.randn((2, 24, cfg.d_model), generator=g)
+    return TransformerRuntime(cfg, params, extras=extras, device=device)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-base"])
+def test_hybrid_and_audio_runtimes_on_the_card_match_the_cpu(card, arch):
+    """A reduced zamba2 and whisper (packed ternary): in fp32 compute the
+    card's prefill and decode logits against the CPU's within 1e-4 (the
+    packed kernels, cuBLAS attention and SSD products against the plain
+    versions: fp32 sums in other orders); in bf16, the serving dtype,
+    within 2 % of their largest magnitude (the dense tests' bf16 rule).
+    Every projection of a decode step is a GEMV."""
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", None)):
+        on_card = _pool_runtime(arch, card, dtype)
+        on_cpu = _pool_runtime(arch, "cpu", dtype)
+        prompt = torch.randint(0, 256, (2, 12),
+                               generator=torch.Generator().manual_seed(1))
+        a, sa = on_card.prefill(prompt, on_card.init_state(2, 16))
+        b, sb = on_cpu.prefill(prompt, on_cpu.init_state(2, 16))
+        tok = torch.argmax(b[:, :256].float(), -1)
+        dispatch.reset_counts()
+        a2, _ = on_card.decode_step(tok.to(card), sa)
+        b2, _ = on_cpu.decode_step(tok, sb)
+        torch.cuda.synchronize()
+        assert dispatch.LAUNCHES["packed_gemv"] > 0
+        assert dispatch.LAUNCHES["packed_matmul"] == 0
+        for got, want in ((a, b), (a2, b2)):
+            got, want = got[:, :256].float().cpu(), want[:, :256].float()
+            if tol is not None:
+                torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            else:
+                assert (got - want).abs().max() <= 0.02 * want.abs().max()

@@ -558,7 +558,8 @@ def test_engine_refuses_bad_requests_and_unported_modes():
 
     class CrossAttention:  # a transformer with a cross-attention source
         family, extras = "transformer", {"img": None}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="needs per-request source encodings"):
         ServeEngine(CrossAttention(), VOCAB, slots=2, max_context=8)
 
     class Hybrid:  # a family the engine does not schedule
@@ -581,7 +582,8 @@ def test_launcher_traffic_and_refusals(capsys, monkeypatch):
     assert "speculative: k=4" in capsys.readouterr().out
     assert m["requests"] == 8 and m["tick_launches"] == 5
     for argv, what in ((["--mesh", "data=4", "--traffic"], "--mesh"),
-                       (["--arch", "zamba2-1.2b"], "--arch zamba2")):
+                       (["--arch", "llama-3.2-vision-90b"],
+                        "--arch llama-3.2-vision-90b")):
         with pytest.raises(SystemExit, match=f"not ported yet: {what}"):
             serve.main(["--device", "cpu"] + argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

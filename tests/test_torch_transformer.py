@@ -358,7 +358,7 @@ def test_verify_step_matches_jax_and_decode_steps(arch, tree):
 
 
 def test_other_kinds_are_refused():
-    for arch in ("zamba2-1.2b", "whisper-base", "llama-3.2-vision-90b"):
+    for arch in ("llama-3.2-vision-90b",):
         cfg = get_config(arch).reduced()
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             T.model_init(torch.Generator().manual_seed(0), cfg)

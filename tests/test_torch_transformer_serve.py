@@ -224,7 +224,7 @@ def test_ring_caches_refuse_rollback_and_prefix_snapshots():
 
 
 def test_serving_runtime_refuses_other_families():
-    for arch in ("zamba2-1.2b", "whisper-base"):
+    for arch in ("llama-3.2-vision-90b",):
         cfg = get_config(arch).reduced()
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             R.serving_runtime(cfg, {}, device="cpu")
@@ -245,6 +245,6 @@ def test_launcher_serves_qwen3_reduced(capsys):
     assert m["spec_k"] == 2 and 0.0 <= m["accept_rate"] <= 1.0
     text = capsys.readouterr().out
     assert "transformer family, cpu" in text and "speculative: k=2" in text
-    for arch in ("zamba2-1.2b", "whisper-base", "llama-3.2-vision-90b"):
+    for arch in ("llama-3.2-vision-90b",):
         with pytest.raises(SystemExit, match="Queue 1 item 9"):
             serve.main(["--arch", arch, "--device", "cpu"])
