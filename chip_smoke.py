@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's BN-LSTM serving and training paths, its
-train -> restart -> export -> serve pipeline, and the transformer pool's
-dense, MoE, RWKV6, hybrid and audio serving paths (qwen3-0.6B,
-qwen3-moe-30b-a3b, rwkv6-7b, zamba2-1.2b and whisper-base at full width,
-mixtral-8x7b at its widths) on one NVIDIA card.
+train -> restart -> export -> serve pipeline, the transformer pool's
+dense, MoE, RWKV6, hybrid, audio and vlm serving paths (qwen3-0.6B,
+qwen3-moe-30b-a3b, rwkv6-7b, zamba2-1.2b, whisper-base and
+llama-3.2-vision-90b at full width, mixtral-8x7b at its widths) and the
+pool's training path (qwen3-0.6b at full width, every other family at
+its reduced size) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -107,7 +109,8 @@ Phases, in order; any failure exits non-zero before the last line:
                 0.1; speculative k = 4 (bf16 masters, ternary draft, 8
                 greedy requests: accept rate, streams equal to the plain
                 engine's); 8 requests behind a 64-token prefix (at least 7
-                prefix-cache hits);
+                prefix-cache hits); the engine, speculative and prefix runs
+                on a cut of 14 of the 28 layers;
   10. pool    — the transformer pool's MoE and RWKV6 families, ternary with
                 channel scales, bf16, random weights from a seed, each tree
                 drawn a layer at a time on the card and exported as it is
@@ -125,7 +128,8 @@ Phases, in order; any failure exits non-zero before the last line:
                 GEMM launches, experts run a layer), and the engine, on a
                 cut of 8 of its 48 layers, at 8
                 slots over 8 requests of synth_traffic(seed=0) (prompts
-                U[1, 128], gen U[1, 16]: host-bound steps cut the count),
+                U[1, 128], gen U[1, 16]: host-bound steps cut the count;
+                the lockstep run on the same cut),
                 one prefill chunk a prompt, its sampled streams against
                 drive_session(B=1) counted, its greedy streams held to
                 diverge only at top-2 gaps below 0.1 as in phase 9,
@@ -140,9 +144,10 @@ Phases, in order; any failure exits non-zero before the last line:
                 packed against dequantized logits on a 2-layer cut,
                 wkv6_chunked over a 4,096-token prompt (peak memory within
                 32 inputs, the first 256 outputs against the unrolled
-                step), then lockstep and the engine as for qwen3-moe, over
-                16 requests of gen U[1, 32].  Launches counted for the MoE
-                runs and the rwkv runs apart;
+                step), then lockstep and the engine (on a cut of 8 of its
+                32 layers) as for qwen3-moe, over 16 requests of gen U[1,
+                32].  Launches counted for the MoE runs and the rwkv runs
+                apart;
   11. hybrid and audio — zamba2-1.2b at full width (38 mamba layers, d
                 2048, d_inner 4096, 64 SSD heads of 64, state 64, conv 4,
                 chunk 64, the shared attention block of 32 heads of 64 and
@@ -162,13 +167,49 @@ Phases, in order; any failure exits non-zero before the last line:
                 memory within 16 times its inputs, the first 256 outputs
                 against the unrolled step); then, counted: zamba2's lockstep
                 B = 4, prompt 128, gen 32 with a decode step and a prefill
-                profiled, its engine over 16 requests (gen U[1, 32]) held as
-                rwkv6's, and its CLI; whisper's lockstep B = 4, prompt 32,
-                gen 32 over 1500 frames with the encoder's share of a
-                prefill, and its CLI; the engine refuses whisper (a runtime
-                with extras), as JAX's does.  Launches counted for the
-                hybrid runs and the audio runs apart;
-  12. result  — the kernels JSON line (each kernel's launches on every
+                profiled, its engine over 16 requests (gen U[1, 32]) held
+                as rwkv6's, and its CLI;
+                whisper's lockstep B = 4, prompt 32, gen 32 over 1500
+                frames with the encoder's share of a prefill, and its CLI;
+                the engine refuses whisper (a runtime with extras), as
+                JAX's does.  Launches counted for the hybrid runs and the
+                audio runs apart;
+  12. pool training — qwen3-0.6b at full width (28 layers, d 1024,
+                d_ff 3072, vocab 151,936, ternary, bf16, remat on) through
+                `repro_torch.launch.train` (B = 8, T = 512, 20 steps,
+                AdamW): the mean loss of the last 5 steps below the first
+                5's; the same run on an order-2 Markov byte file (--data),
+                the mean of its last 5 steps more than 1 below ln V and
+                within 0.25 of the file's unigram entropy; a run that
+                takes SIGTERM at step 10, exits 43 and
+                resumes (--resume auto), beside an uninterrupted one,
+                their final checkpoints bit-equal leaf for leaf; in
+                process, a rerun of two steps bit-equal, one step with
+                remat off bit-equal to one with it on, a step's time,
+                tokens/s, peak memory, device launches and idle share; the
+                trained masters exported packed, their served logits
+                within 1e-4 (relative L2, fp32) of the dequantized tree's;
+                then gemma3, mixtral, qwen3-moe, rwkv6, zamba2, whisper
+                and the VLM at their reduced size, 3 steps each on the
+                card, the step-0 gradients (leaf by leaf, relative L2), loss
+                and gradient norm within 1e-4 of the CPU's on the same
+                state and injected noise.  The path
+                launches no kernel (JAX's training forward multiplies by
+                the sampled fp weights);
+  13. vlm     — llama-3.2-vision-90b at full width (100 layers: 4 self
+                and 1 cross layer a repeat, d 8192, 64/8 heads of 128,
+                d_ff 28,672, vocab 128,256, 1600 image tokens), ternary
+                with channel scales, bf16, xgate and norms moved off init:
+                packed against dequantized logits on one repeat (4 + 1
+                layers); the tree drawn a layer at a time, its bytes and
+                peak memory; the GEMV at 1, 4 and 8 rows and the GEMM at
+                M = 512 on layer 0's Wq, Wk (codes (512, 1024): a long K
+                over 8 column blocks), Wgate and Wdown and the GEMM at
+                M = 6400 on the cross layer's Wk, held as in phase 9;
+                then, counted, lockstep B = 4, prompt 128, gen 32 with a
+                decode step and a prefill profiled, the engine's refusal
+                of a runtime with extras, and its CLI at the same shape;
+  14. result  — the kernels JSON line (each kernel's launches on every
                 path), the card line, and {"ok": true, "device": {...}}
                 last.
 
@@ -182,6 +223,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1606,8 +1648,9 @@ def transformer_phase(report: dict) -> dict:
     d_ff 3072, vocab 151,936, tied, qk_norm), random weights from a seed,
     ternary export, bf16 compute: the kernels at its projection shapes, the
     packed tree's bytes, packed against fp-dequantized logits, lockstep
-    drive_session, the engine, speculative decoding and the prefix cache.
-    Returns the launches of the counted serving run."""
+    drive_session, then the engine, speculative decoding and the prefix
+    cache on a cut of QWEN_ENGINE_LAYERS layers.  Returns the launches of
+    the counted serving run."""
     import dataclasses
 
     import numpy as np
@@ -1755,20 +1798,27 @@ def transformer_phase(report: dict) -> dict:
               + ", ".join(f"{k} {v:.1f}" for k, v in r["top"]), flush=True)
     out["profile"] = prof
 
-    # 5. the engine: 32 mixed requests at 8 slots, chunk 32
+    # 5. the engine: 32 mixed requests at 8 slots, chunk 32, at full width
+    # on a cut of QWEN_ENGINE_LAYERS layers (steps 5-7: the script's time)
+    ecfg = dataclasses.replace(cfg, n_layers=QWEN_ENGINE_LAYERS)
+    del masters
+    masters = T.model_init(torch.Generator("cuda").manual_seed(0), ecfg)
+    ert = TransformerRuntime(ecfg, export_packed(masters, ecfg.quant),
+                             device="cuda")
+    per_tick = 7 * QWEN_ENGINE_LAYERS
     P, G = 128, 32
     reqs = synth_traffic(cfg.vocab, requests=32, rate=1e3, prompt_len=P,
                          gen=G, temperature=0.8, top_k=40, seed=0)
-    eng = ServeEngine(rt, cfg.vocab, slots=8, max_context=P + G,
+    eng = ServeEngine(ert, cfg.vocab, slots=8, max_context=P + G,
                       prefill_chunk=32)
     eng.warm()
     comps, em = eng.run([dataclasses.replace(r) for r in reqs],
                         realtime=False)
-    if em["tick_launches"] != 196 or em["max_decode_stall_ticks"] > 1:
+    if em["tick_launches"] != per_tick or em["max_decode_stall_ticks"] > 1:
         fail(f"qwen3 engine: {em['tick_launches']} kernel calls a tick, "
              f"stall {em['max_decode_stall_ticks']}")
     alone = lambda r: drive_session(
-        rt, torch.as_tensor(np.asarray(r.prompt, np.int64))[None], cfg.vocab,
+        ert, torch.as_tensor(np.asarray(r.prompt, np.int64))[None], cfg.vocab,
         gen=r.max_tokens, temperature=r.temperature, top_k=r.top_k,
         seed=r.seed, context=P + G)[0][0].tolist()
     by = {c.rid: c.tokens for c in comps}
@@ -1779,18 +1829,18 @@ def transformer_phase(report: dict) -> dict:
     gby = {c.rid: c.tokens for c in gcomps}
     gaps = []
     for r in greedy:
-        d = first_divergence(rt, r, gby[r.rid], P + G)
+        d = first_divergence(ert, r, gby[r.rid], P + G)
         if d is not None:
             gaps.append({"rid": r.rid, "step": d[0], "gap": d[1]})
     if any(g["gap"] > GAP_TOL for g in gaps):
         fail(f"qwen3 engine: a greedy stream left drive_session(B=1) at a "
              f"top-2 gap above {GAP_TOL}: {gaps}")
     out["engine"] = dict(em, sampled_streams_equal=equal, requests=len(reqs),
-                         greedy_divergences=gaps)
-    print(f"  engine, slots 8, chunk 32, 32 requests (prompts U[1,{P}], gen "
-          f"U[1,{G}], T 0.8, top-k 40): {em['agg_tok_s']:.0f} tok/s, "
-          f"{em['ticks']} ticks, occupancy {em['occupancy']:.2f}, 196 packed "
-          f"GEMVs a tick; {equal}/{len(reqs)} sampled streams == "
+                         greedy_divergences=gaps, layers=QWEN_ENGINE_LAYERS)
+    print(f"  engine on {QWEN_ENGINE_LAYERS} of the 28 layers, slots 8, chunk "
+          f"32, 32 requests (prompts U[1,{P}], gen U[1,{G}], T 0.8, top-k "
+          f"40): {em['agg_tok_s']:.0f} tok/s, {em['ticks']} ticks, occupancy "
+          f"{em['occupancy']:.2f}, {per_tick} packed GEMVs a tick; {equal}/{len(reqs)} sampled streams == "
           f"drive_session(B=1); greedy: {len(reqs) - len(gaps)}/{len(reqs)} "
           f"equal, divergences at top-2 gaps "
           f"{[round(g['gap'], 4) for g in gaps]} (limit {GAP_TOL})",
@@ -1798,7 +1848,7 @@ def transformer_phase(report: dict) -> dict:
 
     # 6. speculative k = 4: bf16 fp masters the target, their ternary export
     # the draft, 8 greedy requests
-    target = TransformerRuntime(cfg.with_quant(QuantSpec(mode="none")),
+    target = TransformerRuntime(ecfg.with_quant(QuantSpec(mode="none")),
                                 masters, device="cuda")
     del masters
     draft = speculative_draft(target)
@@ -1828,11 +1878,11 @@ def transformer_phase(report: dict) -> dict:
         [system, rng.integers(0, cfg.vocab, size=int(rng.integers(1, 17)))]),
         max_tokens=16, temperature=0.8, top_k=40, seed=700 + i, rid=i)
         for i in range(8)]
-    cached = ServeEngine(rt, cfg.vocab, slots=8, max_context=P + G,
+    cached = ServeEngine(ert, cfg.vocab, slots=8, max_context=P + G,
                          prefill_chunk=32, prefix_cache=PrefixCache(256 << 20))
     hc = cached.run([shared[0]], realtime=False)[0]
     hc += cached.run(shared[1:], realtime=False)[0]
-    cold = ServeEngine(rt, cfg.vocab, slots=8, max_context=P + G,
+    cold = ServeEngine(ert, cfg.vocab, slots=8, max_context=P + G,
                        prefill_chunk=32)
     cc, _ = cold.run(shared, realtime=False)
     cby = {c.rid: c.tokens for c in cc}
@@ -1873,15 +1923,20 @@ def transformer_phase(report: dict) -> dict:
 POOL_PROMPT = 128
 POOL_ENGINE = {"qwen3-moe": (8, 16), "rwkv6-7b": (16, 32),
                "zamba2": (16, 32)}
-# qwen3-moe's engine runs at its full width but 8 of its 48 layers: at 48
-# its engine and the streams it is held to took 119 s of host-bound time,
-# and a slower host stretched the whole script toward its time limit
-MOE_ENGINE_LAYERS = 8
+# Depth cuts, widths untouched, to keep the script inside its time limit
+# as phases 12 and 13 join it: qwen3-0.6B's engine, speculative and
+# prefix-cache runs (phase 9) on 14 of its 28 layers (phase 9 took 252.4
+# s at 28, 115.4 s at 8); qwen3-moe's lockstep run and engine run on 8 of
+# its 48 layers (at 48 they took 117.9 and 119 s of host-bound time),
+# rwkv6's engine on 8 of its 32 layers (100.4 s at 32)
+QWEN_ENGINE_LAYERS = 14
+MOE_SERVE_LAYERS = 8
+RWKV_ENGINE_LAYERS = 8
 
 
 def pool_config(arch: str, **over):
     """A pool arch at its published widths (ternary, channel scales, bf16),
-    checked against the widths phase 10 claims; `over` cuts depth."""
+    checked against the widths phases 10-13 claim; `over` cuts depth."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
@@ -1892,7 +1947,12 @@ def pool_config(arch: str, **over):
             "zamba2-1.2b": (38, 2048, 32, 32, 64, 8192, 32000, 0, 0,
                             4096, 64, 64, 64, 4, 64, 6),
             # + encoder layers
-            "whisper-base": (6, 512, 8, 8, 64, 2048, 51865, 0, 0, 6)}[arch]
+            "whisper-base": (6, 512, 8, 8, 64, 2048, 51865, 0, 0, 6),
+            "qwen3-0.6b": (28, 1024, 16, 8, 128, 3072, 151936, 0, 0),
+            # + image tokens, the pattern
+            "llama-3.2-vision-90b": (100, 8192, 64, 8, 128, 28672, 128256,
+                                     0, 0, 1600,
+                                     ("self",) * 4 + ("cross",))}[arch]
     got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
            cfg.d_ff, cfg.vocab, cfg.n_experts, cfg.topk)
     if cfg.family == "hybrid":
@@ -1900,6 +1960,8 @@ def pool_config(arch: str, **over):
                 cfg.ssm_conv, cfg.ssm_chunk, cfg.attn_every)
     if cfg.family == "audio":
         got += (cfg.n_enc_layers,)
+    if cfg.family == "vlm":
+        got += (cfg.n_img_tokens, cfg.block_pattern)
     if got != want or (cfg.quant.mode, cfg.quant.norm, cfg.dtype) != (
             "ternary", "channel", "bfloat16"):
         fail(f"{arch} is not at its published width: {cfg}")
@@ -2211,8 +2273,9 @@ def pool_phase(report: dict) -> tuple:
     """qwen3-moe-30b-a3b and rwkv6-7b at full width, mixtral-8x7b at its
     widths and 2 layers (ternary, bf16, random weights from a seed): the
     kernels at each arch's shapes and packed against dequantized logits
-    first, then the counted serving runs (qwen3-moe's engine on a cut of
-    MOE_ENGINE_LAYERS layers).  Returns the launches of the MoE
+    first, then the counted serving runs (qwen3-moe's lockstep and engine
+    on a cut of MOE_SERVE_LAYERS layers, rwkv6's engine on a cut of
+    RWKV_ENGINE_LAYERS).  Returns the launches of the MoE
     runs (qwen3-moe's lockstep and engine, mixtral's lockstep) and of the
     rwkv runs, each counted from 0 just before and read just after."""
     import torch
@@ -2244,9 +2307,11 @@ def pool_phase(report: dict) -> tuple:
     cut = pool_config("qwen3-moe-30b-a3b", n_layers=2)
     q["packed_vs_dequantized"] = packed_vs_dequantized(
         "qwen3-moe", cut, pool_build(cut))
-    ecfg = pool_config("qwen3-moe-30b-a3b", n_layers=MOE_ENGINE_LAYERS)
+    ecfg = pool_config("qwen3-moe-30b-a3b", n_layers=MOE_SERVE_LAYERS)
     ert = TransformerRuntime(ecfg, pool_build(ecfg), device="cuda")
-    q["engine_layers"] = MOE_ENGINE_LAYERS
+    q["engine_layers"] = q["lockstep_layers"] = MOE_SERVE_LAYERS
+    del qrt, qpacked
+    torch.cuda.empty_cache()
     q["checks_s"] = secs(t0)
 
     # mixtral-8x7b at its widths, 2 layers: build, kernels, logits
@@ -2264,7 +2329,7 @@ def pool_phase(report: dict) -> tuple:
     # ---- the counted MoE run starts here ----
     dispatch.reset_counts()
     t0 = time.perf_counter()
-    q["lockstep"] = pool_lockstep("qwen3-moe", qrt, 4, 128, 32, attn_proj=4)
+    q["lockstep"] = pool_lockstep("qwen3-moe", ert, 4, 128, 32, attn_proj=4)
     q["lockstep_s"] = secs(t0)
     t0 = time.perf_counter()
     q["engine"] = pool_engine("qwen3-moe", ert)
@@ -2274,7 +2339,7 @@ def pool_phase(report: dict) -> tuple:
     x["lockstep_s"] = secs(t0)
     moe, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN_CALLS)
     # ---- the counted MoE run ends here ----
-    del qrt, qpacked, ert, xrt, xpacked
+    del ert, xrt, xpacked
     torch.cuda.empty_cache()
 
     # rwkv6-7b at full width
@@ -2292,6 +2357,9 @@ def pool_phase(report: dict) -> tuple:
     w["packed_vs_dequantized"] = packed_vs_dequantized(
         "rwkv6-7b", cut, pool_build(cut))
     w["wkv_long_prompt"] = wkv_long_prompt(wcfg)
+    ecfg = pool_config("rwkv6-7b", n_layers=RWKV_ENGINE_LAYERS)
+    ert = TransformerRuntime(ecfg, pool_build(ecfg), device="cuda")
+    w["engine_layers"] = RWKV_ENGINE_LAYERS
     w["checks_s"] = secs(t0)
     # ---- the counted rwkv run starts here ----
     dispatch.reset_counts()
@@ -2299,12 +2367,12 @@ def pool_phase(report: dict) -> tuple:
     w["lockstep"] = pool_lockstep("rwkv6-7b", wrt, 4, 128, 32, attn_proj=8)
     w["lockstep_s"] = secs(t0)
     t0 = time.perf_counter()
-    w["engine"] = pool_engine("rwkv6-7b", wrt)
+    w["engine"] = pool_engine("rwkv6-7b", ert)
     w["engine_s"] = secs(t0)
     rwkv = dict(dispatch.LAUNCHES)
     plain.update(dispatch.PLAIN_CALLS)
     # ---- the counted rwkv run ends here ----
-    del wrt, wpacked
+    del wrt, wpacked, ert
     torch.cuda.empty_cache()
 
     for label, launches in (("MoE", moe), ("rwkv", rwkv)):
@@ -2317,12 +2385,13 @@ def pool_phase(report: dict) -> tuple:
     out["wall_s"] = secs(t_phase)
     report["pool"] = out
     print(f"  pool phase: {out['wall_s']} s (qwen3-moe checks "
-          f"{q['checks_s']} s, lockstep {q['lockstep_s']} s, engine at "
-          f"{MOE_ENGINE_LAYERS} layers {q['engine_s']} s; mixtral checks {x['checks_s']} s, lockstep "
-          f"{x['lockstep_s']} s; rwkv6 build {w['build_s']} s, checks "
-          f"{w['checks_s']} s, lockstep "
-          f"{w['lockstep_s']} s, engine {w['engine_s']} s); MoE launches "
-          f"{moe}, rwkv launches {rwkv}", flush=True)
+          f"{q['checks_s']} s, lockstep {q['lockstep_s']} s and engine "
+          f"{q['engine_s']} s at {MOE_SERVE_LAYERS} layers; mixtral checks "
+          f"{x['checks_s']} s, lockstep {x['lockstep_s']} s; rwkv6 build "
+          f"{w['build_s']} s, checks {w['checks_s']} s, lockstep "
+          f"{w['lockstep_s']} s, engine {w['engine_s']} s at "
+          f"{RWKV_ENGINE_LAYERS} layers); MoE launches {moe}, rwkv launches "
+          f"{rwkv}", flush=True)
     return moe, rwkv
 
 
@@ -2544,6 +2613,438 @@ def hybrid_audio_phase(report: dict, card: str) -> tuple:
     return hybrid, audio
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training the transformer pool
+# ---------------------------------------------------------------------------
+
+POOL_TRAIN_ARGS = ["--arch", "qwen3-0.6b", "--batch", "8", "--seq", "512",
+                   "--steps", "20", "--log-every", "1", "--device", "cuda"]
+POOL_TRAIN_KILL = 10
+# the same run on data it can learn: an order-2 Markov chain over 64
+# symbols (`markov_bytes`) written as a byte file and read by --data
+POOL_MARKOV_ARGS = ["--arch", "qwen3-0.6b", "--batch", "8", "--seq", "512",
+                    "--steps", "20", "--warmup", "2", "--log-every", "1",
+                    "--device", "cuda"]
+# the pool's other families, three steps each at their reduced size
+REDUCED_TRAIN = ("gemma3-27b", "mixtral-8x7b", "qwen3-moe-30b-a3b",
+                 "rwkv6-7b", "zamba2-1.2b", "whisper-base",
+                 "llama-3.2-vision-90b")
+# leaves whose init (0 or 1) would hide a gradient, moved off it
+TRAIN_OFF = ("xgate", "bfc1", "bfc2", "lora_B", "wB", "u", "conv_b")
+
+
+def pool_train_leg(tag: str, ckpt_dir: Path, kill_at: int | None = None
+                   ) -> dict:
+    """`python -m repro_torch.launch.train` on POOL_TRAIN_ARGS as a child
+    process (`launch.train._run_leg`: a real SIGTERM at `kill_at`, exit
+    43), resuming from `ckpt_dir`: {step: (loss, host ms)} from its log
+    lines."""
+    from repro_torch.launch import train as launch_train
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           *POOL_TRAIN_ARGS, "--ckpt-dir", str(ckpt_dir), "--ckpt-every",
+           "1000", "--resume", "auto"]
+    lines: list = []
+    launch_train._run_leg(cmd, tag, kill_at_step=kill_at, lines=lines)
+    return leg_log(lines)
+
+
+def leg_log(lines: list) -> dict:
+    """{step: (loss, host ms)} from a training leg's log lines."""
+    pat = re.compile(r"^step\s+(\d+) loss (\S+) .* (\d+) ms$")
+    return {int(m.group(1)): (float(m.group(2)), float(m.group(3)))
+            for m in (pat.match(l.strip()) for l in lines) if m}
+
+
+def pool_markov_leg(path: Path) -> dict:
+    """`launch.train` on POOL_MARKOV_ARGS with `--data path` (no
+    checkpoint): {step: (loss, host ms)}."""
+    from repro_torch.launch import train as launch_train
+    lines: list = []
+    launch_train._run_leg([sys.executable, "-m", "repro_torch.launch.train",
+                           *POOL_MARKOV_ARGS, "--data", str(path)],
+                          "train-markov", lines=lines)
+    return leg_log(lines)
+
+
+def reduced_train_check(arch: str) -> dict:
+    """One reduced arch (fp32), its leaves moved off init: the card's
+    step-0 gradients, leaf by leaf, and its loss and gradient norm against
+    the CPU's on the same state, batch and injected noise, within 1e-4
+    relative (L2 for a leaf; a leaf the CPU gives no gradient gets none;
+    fp32 sums in other orders; the MoE's gather backward is a scatter-add
+    of its own order on the card); then two more steps on the card,
+    drawing their own noise, their losses finite."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import qlinear as QL
+    from repro_torch.core.qtensor import tree_leaves, tree_paths, tree_to
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_config(arch).reduced()
+    g = torch.Generator().manual_seed(0)
+    params = T.model_init(g, cfg)
+    for path, leaf in tree_paths(params):
+        name = path[-1]
+        if (name in TRAIN_OFF or "norm" in name or name.startswith("s")
+                or name.startswith("ln")):
+            leaf.add_(0.2 * torch.randn(leaf.shape, generator=g))
+    pol, draw = cfg.quant.policy(), QL.step_noise(1, 0)
+    noise = {"/".join(p): draw("/".join(p), l) for p, l in tree_paths(params)
+             if pol.matches_name(p[-1], "/".join(p), l.dim())}
+    rng = np.random.default_rng(3)
+    B, S = 2, 32
+    n = S // 2 if cfg.family == "audio" else S
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, n)))
+             for k in ("tokens", "targets")}
+    if cfg.family == "audio":
+        batch["enc_frames"] = torch.randn((B, S, cfg.d_model), generator=g)
+    if cfg.family == "vlm":
+        batch["img"] = torch.randn((B, cfg.n_img_tokens, cfg.d_model),
+                                   generator=g)
+    dev_params, dev_batch = tree_to(params, "cuda"), tree_to(batch, "cuda")
+    grads = [TS.value_and_grad(lambda leaves: T.lm_loss(
+        leaves, b, cfg, training=True, noise=noise), p)[2]
+        for p, b in ((params, batch), (dev_params, dev_batch))]
+    leaf_rel, bad = 0.0, []
+    for (path, c), d in zip(tree_paths(grads[0]), tree_leaves(grads[1])):
+        d = d.cpu()
+        r = (float((d - c).norm() / c.norm()) if torch.any(c)
+             else float(torch.any(d)))
+        leaf_rel = max(leaf_rel, r)
+        if not r <= 1e-4:
+            bad.append(("/".join(path), r))
+    del grads
+    opt = OptConfig(lr=1e-3, warmup_steps=3, clip_norm=1.0)
+    step = TS.make_train_step(cfg, opt)
+    _, cpu = step(TS.train_state_init(params, opt, 1), batch, noise=noise)
+    state = TS.train_state_init(dev_params, opt, 1)
+    state, card = step(state, dev_batch, noise=noise)
+    rel = {k: abs(float(card[k]) - float(cpu[k])) / abs(float(cpu[k]))
+           for k in ("loss", "grad_norm")}
+    losses = [float(card["loss"])]
+    for _ in range(2):
+        state, m = step(state, dev_batch)
+        losses.append(float(m["loss"]))
+    row = {"cpu_loss": float(cpu["loss"]), "card_loss": losses[0],
+           "cpu_grad_norm": float(cpu["grad_norm"]),
+           "card_grad_norm": float(card["grad_norm"]),
+           "loss_rel": rel["loss"], "grad_norm_rel": rel["grad_norm"],
+           "max_leaf_grad_rel": leaf_rel, "leaves_off": bad,
+           "card_losses": losses}
+    if not (rel["loss"] <= 1e-4 and rel["grad_norm"] <= 1e-4 and not bad
+            and np.isfinite(losses).all()):
+        fail(f"{arch} reduced train step, card against CPU: {row}")
+    print(f"    {arch:22s} step 0 loss {losses[0]:.6f} (cpu rel "
+          f"{rel['loss']:.1e}), gnorm {row['card_grad_norm']:.4f} (rel "
+          f"{rel['grad_norm']:.1e}), leaf gradients within {leaf_rel:.1e}; "
+          f"3 steps {[round(l, 4) for l in losses]}",
+          flush=True)
+    return row
+
+
+def pool_training_phase(report: dict, card: str) -> None:
+    """qwen3-0.6b at full width (28 layers, d 1024, d_ff 3072, vocab
+    151,936, ternary, bf16 compute, remat on) trained through
+    `repro_torch.launch.train` (B = 8, T = 512, 20 steps, AdamW): the loss
+    falls (mean of the last 5 steps below the first 5); on the Markov
+    byte file (--data), the mean of its last 5 steps more than 1 below
+    ln V, where a run that only flattened its logits would stop, and
+    within 0.25 of the file's unigram entropy; a SIGTERM at step 10,
+    exit 43 and --resume auto end bit-equal, leaf for leaf, to the
+    uninterrupted run's final checkpoint; in process, a rerun of two steps
+    bit-equal, one step with remat off bit-equal to one with it on, a
+    step's time, tokens/s, peak memory, device launches and idle share;
+    the trained masters exported packed, their served logits against the
+    dequantized tree's (relative L2 within 1e-4 in fp32); then the other
+    families at their reduced size on the card against the CPU
+    (`reduced_train_check`).  The path launches no kernel: JAX's training
+    forward multiplies by the sampled fp weights."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.core.qtensor import export_packed
+    from repro_torch.data.loader import to_device
+    from repro_torch.data.synth import markov_bytes, token_stream
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+
+    def secs(t):
+        torch.cuda.synchronize()
+        return round(time.perf_counter() - t, 1)
+
+    cfg = pool_config("qwen3-0.6b")
+    if not cfg.remat or cfg.remat_policy != "full":
+        fail(f"qwen3-0.6b trains without remat: {cfg}")
+    B, S, steps = 8, 512, 20
+    base = ROOT / "build" / "pool_train"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    chain = markov_bytes(200_000, vocab=64, seed=0).astype(np.uint8)
+    (base / "markov.bin").write_bytes(chain.tobytes())
+    freq = np.bincount(chain, minlength=64) / len(chain)
+    out["markov_unigram_entropy"] = float(-(freq[freq > 0] * np.log(
+        freq[freq > 0])).sum())
+    try:
+        # 1. the launcher: the uninterrupted run, then the Markov run,
+        # beside the one that takes SIGTERM and resumes (two processes on
+        # the card at once, at most: a third does not fit beside this
+        # one's memory; their start-up and checkpoint writes overlap; the
+        # step's own time is taken alone, in process, below)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(1) as pool:
+            straight = pool.submit(lambda: (
+                pool_train_leg("train-B", base / "straight"),
+                pool_markov_leg(base / "markov.bin")))
+            pool_train_leg("train-A", base / "interrupted",
+                           kill_at=POOL_TRAIN_KILL)
+            out["resumed_from"] = CK.latest_step(base / "interrupted")
+            pool_train_leg("train-A-resume", base / "interrupted")
+            log, mlog = straight.result()
+        out["legs_s"] = secs(t0)
+        if sorted(log) != list(range(steps)):
+            fail(f"qwen3-0.6b training logged steps {sorted(log)}")
+        losses = [log[i][0] for i in range(steps)]
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        out.update(losses=losses, host_ms=[log[i][1] for i in range(steps)],
+                   first5_mean=first, last5_mean=last)
+        if not (np.isfinite(losses).all() and last < first):
+            fail(f"qwen3-0.6b loss did not fall: {losses}")
+        if sorted(mlog) != list(range(steps)):
+            fail(f"qwen3-0.6b on the Markov file logged steps {sorted(mlog)}")
+        ml = [mlog[i][0] for i in range(steps)]
+        floor = float(np.log(cfg.vocab))
+        h1 = out["markov_unigram_entropy"]
+        out["markov"] = {"losses": ml, "first5_mean": float(np.mean(ml[:5])),
+                         "last5_mean": float(np.mean(ml[-5:])),
+                         "ln_vocab": floor}
+        if not (np.isfinite(ml).all()
+                and np.mean(ml[-5:]) < min(floor - 1.0, h1 + 0.25)):
+            fail(f"qwen3-0.6b on the Markov file: the last 5 steps' mean "
+                 f"loss is not below ln V - 1 = {floor - 1.0:.4f} and "
+                 f"within 0.25 of the unigram entropy {h1:.4f}: {ml}")
+        final = f"step_{steps:08d}"
+        out["resume_bit_equal"] = launch_train._ckpt_bit_equal(
+            base / "interrupted" / final, base / "straight" / final)
+        print(f"  qwen3-0.6b B={B}, T={S}: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} (first 5 {first:.4f}, last 5 {last:.4f}); "
+              f"SIGTERM at step {POOL_TRAIN_KILL}, resumed from step "
+              f"{out['resumed_from']}: final checkpoint bit-equal "
+              f"{out['resume_bit_equal']}; on the Markov file (64 symbols, "
+              f"unigram entropy {out['markov_unigram_entropy']:.4f}): "
+              f"{ml[0]:.4f} -> {ml[-1]:.4f} (last 5 "
+              f"{out['markov']['last5_mean']:.4f}, ln V {floor:.4f})",
+              flush=True)
+        if not out["resume_bit_equal"]:
+            fail("qwen3-0.6b: the resumed run diverged from the "
+                 "uninterrupted one")
+
+        # 2. in process: the rerun, remat off, a step's cost
+        t0 = time.perf_counter()
+        opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, decay_steps=steps,
+                            clip_norm=1.0)
+        state0 = TS.train_state_init(
+            T.model_init(torch.Generator("cuda").manual_seed(0), cfg),
+            opt_cfg, 1)
+        batch = to_device(token_stream(0, B, S, cfg.vocab, seed=0), "cuda")
+        step = TS.make_train_step(cfg, opt_cfg)
+        runs = []
+        for _ in range(2):
+            st = state0
+            for _ in range(2):
+                st, m = step(st, batch)
+            runs.append(st)
+        out["rerun_bit_equal"] = (bit_equal(runs[0].params, runs[1].params)
+                                  and bit_equal(runs[0].opt, runs[1].opt))
+        del runs, st
+        on, m_on = step(state0, batch)
+        off, m_off = TS.make_train_step(dataclasses.replace(cfg, remat=False),
+                                        opt_cfg)(state0, batch)
+        out["remat_off_bit_equal"] = (
+            bit_equal(on.params, off.params) and bit_equal(on.opt, off.opt)
+            and float(m_on["loss"]) == float(m_off["loss"]))
+        del on, off
+        print(f"  rerun of 2 steps bit-equal {out['rerun_bit_equal']}; "
+              f"remat off == on {out['remat_off_bit_equal']} (loss "
+              f"{float(m_on['loss']):.6f})", flush=True)
+        if not (out["rerun_bit_equal"] and out["remat_off_bit_equal"]):
+            fail("qwen3-0.6b training is not bit-reproducible")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            step(state0, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        counts: dict = {}
+        by_name, wall = device_profile(lambda: step(state0, batch), 1,
+                                       counts=counts)
+        busy, idle = busy_idle(by_name, wall, 1)
+        step_s = sorted(walls)[1]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        out["step"] = {"host_ms": step_s * 1e3, "tok_s": B * S / step_s,
+                       "peak_gb": peak / 1e9, "profiled_wall_ms": wall * 1e3,
+                       "device_busy_ms": None if busy is None else busy / 1e3,
+                       "idle_share": idle,
+                       "device_launches": (sum(counts.values()) if counts
+                                           else None),
+                       "top": [(k[:48], v) for k, v in top]}
+        print(f"  a step: {step_s * 1e3:.1f} ms ({B * S / step_s:.0f} tok/s), "
+              f"peak {peak / 1e9:.2f} GB allocated; profiled "
+              f"{wall * 1e3:.1f} ms, device busy {num(busy, '.1f', 1e3)} ms, "
+              f"idle {num(idle, '.3f')}, "
+              f"{num(out['step']['device_launches'], 'd')} device launches; "
+              f"top " + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in top),
+              flush=True)
+        out["in_process_s"] = secs(t0)
+
+        # 3. the trained masters, exported packed and served
+        t0 = time.perf_counter()
+        trained = CK.restore(state0, base / "straight", steps)
+        del state0
+        out["trained_packed_vs_dequantized"] = packed_vs_dequantized(
+            "qwen3-0.6b trained", cfg, export_packed(trained.params,
+                                                     cfg.quant))
+        del trained
+        torch.cuda.empty_cache()
+        out["export_s"] = secs(t0)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+    # 4. the other families, reduced, card against CPU
+    t0 = time.perf_counter()
+    print("  reduced families, 3 steps each on the card:", flush=True)
+    out["reduced"] = {arch: reduced_train_check(arch)
+                      for arch in REDUCED_TRAIN}
+    out["reduced_s"] = secs(t0)
+    out["wall_s"] = secs(t_phase)
+    report["pool_training"] = out
+    print(f"  pool training phase: {out['wall_s']} s on {card} (the "
+          f"launcher's legs {out['legs_s']} s, in process "
+          f"{out['in_process_s']} s, export {out['export_s']} s, reduced "
+          f"families {out['reduced_s']} s)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the VLM at full width
+# ---------------------------------------------------------------------------
+
+# the leaves moved off init beside the channel scales, and their shifts:
+# at init tanh(xgate) = 0 and the cross layers would add nothing
+VLM_OFF = {"xgate": 0.5, "norm1": 0.0, "norm2": 0.0, "final_norm": 0.0}
+
+
+def vlm_phase(report: dict, card: str) -> dict:
+    """llama-3.2-vision-90b at full width (100 layers: 4 self layers, then
+    a cross layer over 1600 image tokens, in each repeat; d 8192, 64/8
+    heads of 128, d_ff 28,672, vocab 128,256; ternary with channel scales,
+    bf16, random weights from a seed, xgate and norms moved off init, the
+    image tokens a normal draw): packed against dequantized logits on one
+    repeat; the tree drawn a layer at a time (`model_init(packed=True)`),
+    its bytes and peak memory; the GEMV at 1, 4 and 8 rows and the GEMM at
+    M = 512 on layer 0's Wq, Wk, Wgate and Wdown, and the GEMM at M = 6400
+    (4 x 1600 image tokens) on the cross layer's Wk; then, counted,
+    lockstep B = 4, prompt 128, gen 32 with a decode step and a prefill
+    profiled, and
+    `launch.serve --arch llama-3.2-vision-90b` at the same B = 4 x 128 +
+    32; the engine's refusal of a runtime with extras.  Returns the
+    launches of the counted runs."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.recurrent import TransformerRuntime
+
+    arch = "llama-3.2-vision-90b"
+    out = {"card": card}
+    t_phase = time.perf_counter()
+
+    def secs(t):
+        torch.cuda.synchronize()
+        return round(time.perf_counter() - t, 1)
+
+    cfg = pool_config(arch)
+    img = torch.randn((4, cfg.n_img_tokens, cfg.d_model),
+                      generator=torch.Generator("cuda").manual_seed(7),
+                      device="cuda")
+    t0 = time.perf_counter()
+    cut = pool_config(arch, n_layers=len(cfg.block_pattern))
+    out["packed_vs_dequantized"] = packed_vs_dequantized(
+        "vlm", cut, pool_build(cut, off=VLM_OFF), extras={"img": img})
+    torch.cuda.empty_cache()
+    out["repeat_check_s"] = secs(t0)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    packed = pool_build(cfg, off=VLM_OFF)
+    rt = TransformerRuntime(cfg, packed, extras={"img": img}, device="cuda")
+    torch.cuda.synchronize()
+    out["build_s"] = secs(t0)
+    out["build_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {arch} built a layer at a time in {out['build_s']} s (peak "
+          f"{out['build_peak_gb']:.1f} GB allocated, the served tree "
+          f"included)", flush=True)
+    out["bytes"] = pool_bytes(arch, packed, rt)
+    t0 = time.perf_counter()
+    out["kernel_rows"] = layer_kernel_rows("vlm", packed, [
+        ("attn", "Wq", (1, 4, 8, 512)), ("attn", "Wk", (1, 4, 8, 512)),
+        ("mlp", "Wgate", (1, 4, 8, 512)),
+        ("mlp", "Wdown", (1, 4, 8, 512))]) + layer_kernel_rows(
+        "vlm-cross", packed, [("attn", "Wk", (4 * cfg.n_img_tokens,))],
+        stack=packed["stack"][len(cfg.block_pattern) - 1])
+    out["kernels_s"] = secs(t0)
+
+    # ---- the counted vlm run starts here ----
+    dispatch.reset_counts()
+    t0 = time.perf_counter()
+    out["lockstep"] = pool_lockstep("vlm", rt, 4, 128, 32, attn_proj=0)
+    out["lockstep_s"] = secs(t0)
+    try:
+        ServeEngine(rt, cfg.vocab, slots=4, max_context=256)
+        fail("vlm: the engine took a runtime with extras")
+    except NotImplementedError as e:
+        if "per-request source encodings" not in str(e):
+            fail(f"vlm: the engine refused with {e}")
+    print("  vlm engine refused, as JAX's: a runtime with a cross-attention "
+          "source", flush=True)
+    del rt, packed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    toks, out["cli_launches"] = cli_launches(
+        ["--arch", arch, "--batch", "4", "--prompt-len", "128", "--gen",
+         "32"])
+    if toks.shape != (4, 32) or not packed_launches(out["cli_launches"]):
+        fail(f"vlm CLI: tokens {toks.shape}, launches {out['cli_launches']}")
+    out["cli_s"] = secs(t0)
+    vlm, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN_CALLS)
+    # ---- the counted vlm run ends here ----
+    torch.cuda.empty_cache()
+    for k in ("packed_gemv", "packed_matmul"):
+        if not vlm.get(k):
+            fail(f"kernel {k} was never launched on the vlm path")
+    if plain:
+        fail(f"plain versions ran on the vlm path: {plain}")
+    out["vlm_launches"] = vlm
+    out["wall_s"] = secs(t_phase)
+    report["vlm"] = out
+    print(f"  vlm phase: {out['wall_s']} s on {card} (one repeat "
+          f"{out['repeat_check_s']} s, build {out['build_s']} s, kernels "
+          f"{out['kernels_s']} s, lockstep {out['lockstep_s']} s, CLI "
+          f"{out['cli_s']} s); launches {vlm}", flush=True)
+    return vlm
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2622,14 +3123,23 @@ def main() -> int:
     # 11. the pool's hybrid and audio families
     print("hybrid and audio:", flush=True)
     hybrid_launches, audio_launches = hybrid_audio_phase(report, card)
+
+    # 12. training the transformer pool
+    print("pool training:", flush=True)
+    pool_training_phase(report, card)
+
+    # 13. the VLM at full width
+    print("vlm:", flush=True)
+    vlm_launches = vlm_phase(report, card)
     pool, ha = report["pool"], report["hybrid_audio"]
     all_rows = (rows + report["transformer"]["kernel_rows"]
                 + pool["qwen3_moe"]["kernel_rows"]
                 + pool["mixtral"]["kernel_rows"]
                 + pool["rwkv6"]["kernel_rows"]
-                + ha["zamba2"]["kernel_rows"] + ha["whisper"]["kernel_rows"])
+                + ha["zamba2"]["kernel_rows"] + ha["whisper"]["kernel_rows"]
+                + report["vlm"]["kernel_rows"])
 
-    # 12. result
+    # 14. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
@@ -2651,6 +3161,7 @@ def main() -> int:
                         "rwkv_launches": rwkv_launches.get(name, 0),
                         "hybrid_launches": hybrid_launches.get(name, 0),
                         "audio_launches": audio_launches.get(name, 0),
+                        "vlm_launches": vlm_launches.get(name, 0),
                         "max_abs_err": max(x["max_abs_err"] for x in all_rows
                                            if x["name"] == name),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -1,6 +1,8 @@
 """Unified model configuration of the transformer pool, ported from
 `repro/configs/base.py` (which imports no JAX but belongs to the JAX
-package, so the port keeps its own copy).
+package, so the port keeps its own copy), with its training fields
+(`remat`, `remat_policy`, `parallel_block`).  JAX's `unroll` (its scan over
+the repeats or a Python loop) has no counterpart: the port always loops.
 
 One frozen dataclass covers the whole pool; family-specific fields are
 ignored by families that do not use them.  `reduced()` gives the small
@@ -64,9 +66,16 @@ class ModelConfig:
 
     # numerics / structure
     dtype: str = "bfloat16"
+    # recompute each repeat of the pattern in the backward pass instead of
+    # keeping its activations; "dots" keeps the weight products' outputs
+    remat: bool = True
+    remat_policy: str = "full"  # full | dots
     attn_chunk: int = 1024
     ssm_chunk: int = 64
     vocab_pad_to: int = 128
+    # PaLM-style parallel block: attention and MLP read one shared pre-norm
+    # and both add to the residual (a training-time architecture choice)
+    parallel_block: bool = False
 
     # capability flags
     sub_quadratic: bool = False  # eligible for long_500k

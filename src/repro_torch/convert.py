@@ -15,8 +15,9 @@ as its parameters.  Fed the same
 weights, both packages compute the same function.
 
 A JAX `TrainState` (params, opt, rng, bn_state, residual) becomes the
-port's `TrainState`: params, `opt.step`/`m`/`v` and `bn_state` carry
-across.  The JAX PRNG key cannot: `jax.random` and torch generators draw
+port's `TrainState`: params, `opt.step`/`m`/`v` and `bn_state` (None for
+a transformer's state) carry across, so a JAX-made state trains on in the
+port.  The JAX PRNG key cannot: `jax.random` and torch generators draw
 different numbers, so the port's `noise_seed` is the caller's
 (`noise_seed=`), and the two runs sample different weights from there on.
 Gradient compression is not ported, so a state with a `residual` is
@@ -64,6 +65,8 @@ def from_numpy(tree: Any, device: Optional[str | torch.device] = None, *,
     `device` (the card unless the caller asks for the CPU).  `noise_seed`
     seeds a converted train state's noise."""
     def conv(x):
+        if x is None:
+            return None
         fields = getattr(x, "_fields", None)
         if fields is not None and frozenset(fields) == _JAX_TRAIN_STATE:
             if x.residual is not None:

@@ -44,6 +44,24 @@ def glorot_alpha(fan_in: int, fan_out: int) -> float:
     return math.sqrt(6.0 / float(fan_in + fan_out))
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def splitmix64(x: int) -> int:
+    """SplitMix64's finalizer: a 64-bit integer mixed into a seed."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def step_seed(noise_seed: int, step: int) -> int:
+    """The seed of a training step's noise: a pure function of (noise_seed,
+    step), so a resumed run draws an uninterrupted one's samples."""
+    return splitmix64(((int(noise_seed) & 0xFFFFFFFF) << 32)
+                      | (int(step) & 0xFFFFFFFF))
+
+
 def leaf_alpha(shape) -> float:
     """Glorot alpha from the matmul dims (the last two axes)."""
     if len(shape) < 2:
@@ -295,6 +313,10 @@ class QuantSpec:
     stochastic: bool = True
     norm: str = "batch"
     quantize_embeddings: bool = False
+    # route the training weights through their packed codes (quantize,
+    # pack, unpack; `qlinear.quantize_tree`): the same values, the form a
+    # sharded run would move between devices
+    packed_comms: bool = False
     include: tuple = ("W*",)
     exclude: tuple = ()
 

@@ -84,8 +84,10 @@ def serve_matmul(x: torch.Tensor, w) -> torch.Tensor:
     kernels' plain versions and an fp `w` `PK.rowwise_matmul`, as they do,
     so a request served alone and in a batch, or its prompt whole and in
     chunks, reach the same bits.  On the card an fp `w` is one cuBLAS call,
-    whose rounding may depend on the row count."""
-    if isinstance(w, QTensor) or x.device.type != "cpu":
+    whose rounding may depend on the row count.  A weight that carries a
+    gradient (the training forward's quantized weights) takes the one
+    product too, JAX's training `x @ w`."""
+    if isinstance(w, QTensor) or x.device.type != "cpu" or w.requires_grad:
         return qmatmul(x, w)
     rows = PK.rowwise_matmul(x.reshape(-1, x.shape[-1]), w)
     return rows.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)

@@ -1,7 +1,7 @@
 """Serving launcher, ported from `repro/launch/serve.py`: the paper's
 BN-LSTM and the transformer pool's dense (llama3, qwen3, gemma3), MoE
-(mixtral, qwen3-moe), RWKV6, hybrid (zamba2) and audio (whisper)
-families.
+(mixtral, qwen3-moe), RWKV6, hybrid (zamba2), audio (whisper) and vlm
+(llama-3.2-vision) families.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rnn-paper --full
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --gen 8
@@ -13,6 +13,8 @@ families.
       --reduced --device cpu [--traffic]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama-3.2-vision-90b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --traffic \\
       --requests 8 --slots 3 [--spec-k 4]
   PYTHONPATH=src python -m repro_torch.launch.serve --listen --port 8700
@@ -34,16 +36,17 @@ arch serves from one card; with --quant none its fp32 expert masters
 (qwen3-moe-30b-a3b 116 GB, mixtral-8x7b 180 GB) are checked against the
 device's memory before anything is allocated.  The audio family's
 encoder frames (the frontend is a stub, as in JAX) are a normal draw of
-shape (batch, prompt length, d) from the run's generator, passed to every
-prefill as the runtime's `extras`.
+shape (batch, prompt length, d) from the run's generator, and the vlm
+family's image tokens (the vision tower is a stub) one of shape (batch,
+n_img_tokens, d), passed to every prefill as the runtime's `extras`.
 
 --traffic replays a synthetic Poisson workload with mixed prompt and
 generation lengths through the continuous-batching engine
 (serve/engine.py) and reports aggregate tok/s, slot occupancy and p50/p95
 latency and time to first token.  MoE, rwkv and mamba archs prefill each
 prompt as one chunk (their runtime's `chunk_granularity` is "whole").
-The engine refuses the audio family (a runtime with `extras`), as JAX's
-does: whisper serves in lockstep.
+The engine refuses the audio and vlm families (a runtime with `extras`),
+as JAX's does: whisper and the VLM serve in lockstep.
 
 --spec-k N adds speculative decoding to --traffic or --listen: the fp
 masters are the target and their own packed --quant export the draft,
@@ -54,9 +57,8 @@ POST /v1/generate, GET /v1/stats), with hangups cancelling and a
 prefix-state cache of --prefix-cache-mb where the runtime supports one
 (token-granularity chunks, non-ring caches; otherwise it serves without).
 
-Refused: --mesh and the transformer pool's vlm family, which wait for
-ROADMAP Queue 1 item 9; speculation on MoE, rwkv, mamba and ring-cache
-archs (the engine's refusal).
+Refused: --mesh, which waits for ROADMAP Queue 1 item 9; speculation on
+MoE, rwkv, mamba and ring-cache archs (the engine's refusal).
 """
 from __future__ import annotations
 
@@ -80,10 +82,7 @@ from repro_torch.serve.recurrent import (RNNRuntime, TransformerRuntime,
 NOT_PORTED = {
     "mesh": "--mesh (a mesh-sharded engine) waits for ROADMAP Queue 1 "
             "item 9",
-    "arch": "the transformer pool's vlm family waits for ROADMAP Queue 1 "
-            "item 9",
 }
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio")
 
 
 def _report_bytes(rt, quant: str) -> None:
@@ -130,7 +129,8 @@ def build_transformer(args):
     exported packed a layer at a time unless --quant none, behind the
     serving runtime.  Unpacked, an MoE arch whose fp32 expert masters
     exceed the device's memory is refused first.  The audio family's
-    encoder frames are drawn from the same generator after the weights."""
+    encoder frames and the vlm family's image tokens are drawn from the
+    same generator after the weights."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -151,6 +151,10 @@ def build_transformer(args):
     if cfg.family == "audio":
         extras["enc_frames"] = torch.randn(
             (args.batch, args.prompt_len, cfg.d_model), generator=gen,
+            device=device)
+    if cfg.family == "vlm":
+        extras["img"] = torch.randn(
+            (args.batch, cfg.n_img_tokens, cfg.d_model), generator=gen,
             device=device)
     rt = TransformerRuntime(cfg, params, extras=extras, device=device)
     if packed:
@@ -307,10 +311,6 @@ def main(argv=None):
 
     if args.mesh:
         raise SystemExit(f"not ported yet: {NOT_PORTED['mesh']}")
-    if (args.arch in ARCH_IDS
-            and get_config(args.arch).family not in PORTED_FAMILIES):
-        raise SystemExit(f"not ported yet: --arch {args.arch}: "
-                         f"{NOT_PORTED['arch']}")
     build = build_rnn if args.arch in RNN_ARCH_IDS else build_transformer
     if args.spec_k and not (args.traffic or args.listen):
         raise SystemExit("--spec-k is a continuous-batching engine mode; "

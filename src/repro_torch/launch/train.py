@@ -1,10 +1,25 @@
-"""Training launcher for the paper's BN-LSTM, ported from the `run_rnn`
-path of `repro/launch/train.py`: data -> prefetch -> train step ->
-validation BPC -> checkpoint/restart.
+"""Training launcher for the paper's BN-LSTM and the transformer pool,
+ported from `repro/launch/train.py` (its `run_rnn` and `run_transformer`
+paths): data -> prefetch -> train step -> (validation BPC) ->
+checkpoint/restart.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch rnn-paper --steps 300
   PYTHONPATH=src python -m repro_torch.launch.train --arch rnn-paper \\
       --reduced --device cpu --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+      --reduced --device cpu --steps 12
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+      --batch 8 --seq 512 --steps 20
+
+A transformer arch (`run_transformer`) trains on the synthetic
+`token_stream` or a `ByteCorpus` (--data PATH) with AdamW under a
+warmup/cosine schedule over --steps and gradient clipping at 1.0, the
+paper's stochastic binary/ternary quantization with straight-through
+gradients (--quant overrides the config's, with channel scales), and the
+master clip after each update; it logs JAX's line (`step N loss L lr R
+gnorm G T ms`).  The vlm and audio families read image or audio inputs
+that the token stream does not carry, and are refused here; their train
+step takes a batch with them (`train_step.make_train_step`).
 
 Without --reduced the model runs at the config's full width (char-PTB:
 H = 1000).  It runs on the card unless --device cpu is given.  Validation
@@ -34,7 +49,7 @@ it never writes).  --quick: at most 60 steps, evals every 20.
       --reduced --device cpu
 
 Not ported yet, and refused: --compress-grads and --mesh-model (mesh
-training, ROADMAP Queue 1 item 9).
+training, ROADMAP Queue 1 item 9).  --pipeline is rnn-only, as in JAX.
 """
 from __future__ import annotations
 
@@ -55,20 +70,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.configs import RNN_ARCH_IDS, get_rnn_config, rnn_paper
+from repro_torch.configs import (ARCH_IDS, RNN_ARCH_IDS, get_config,
+                                  get_rnn_config, rnn_paper)
 from repro_torch.core import bnlstm as BL
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.data.loader import Prefetcher, to_device
-from repro_torch.data.synth import markov_bytes
+from repro_torch.data.synth import markov_bytes, token_stream
 from repro_torch.data.text import ByteCorpus
 from repro_torch.kernels import dispatch
+from repro_torch.models import transformer as T
 from repro_torch.train import checkpoint as CK
 from repro_torch.train.fault_tolerance import (RESTART_EXIT_CODE,
                                                PreemptionHandler, StepTimer,
                                                StragglerMonitor)
 from repro_torch.train.optimizer import OptConfig, PlateauLR
 from repro_torch.train.train_step import (make_rnn_eval, make_rnn_train_step,
-                                          train_state_init)
+                                          make_train_step, train_state_init)
 
 SRC = Path(__file__).resolve().parents[2]
 RESULTS = SRC.parent / "results" / "benchmarks"
@@ -84,7 +101,8 @@ NOT_PORTED = {
 
 def build_argparser():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=RNN_ARCH_IDS, default="rnn-paper")
+    ap.add_argument("--arch", choices=ARCH_IDS + RNN_ARCH_IDS,
+                    default="rnn-paper")
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-scale config of the same family")
     ap.add_argument("--quant", default=None,
@@ -279,6 +297,105 @@ def run_rnn(args, handler=None):
 
 
 # ---------------------------------------------------------------------------
+# the transformer pool
+# ---------------------------------------------------------------------------
+
+
+def run_transformer(args, handler=None):
+    """Train a transformer-pool arch on tokens (--reduced to its smoke
+    size, --quant overriding its quantization, with channel scales);
+    returns the final TrainState.  `handler` replaces the SIGTERM/SIGINT
+    `PreemptionHandler`."""
+    device = dispatch.resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.quant is not None:
+        cfg = cfg.with_quant(QuantSpec(mode=args.quant, norm="channel")
+                             if args.quant != "none"
+                             else QuantSpec(mode="none"))
+    if cfg.family in ("vlm", "audio"):
+        extra = "img" if cfg.family == "vlm" else "enc_frames"
+        raise SystemExit(f"--arch {args.arch}: the {cfg.family} family "
+                         f"reads {extra} beside its tokens, which the token "
+                         f"stream does not carry; train it through "
+                         f"train_step.make_train_step with a batch that "
+                         f"holds them")
+    if args.data == "synthetic":
+        make_batch = lambda s: token_stream(s, args.batch, args.seq,
+                                            cfg.vocab, seed=args.seed)
+    else:
+        p = Path(args.data)
+        corpus = (ByteCorpus.from_dir(p) if p.is_dir()
+                  else ByteCorpus.from_files([p]))
+        if corpus.vocab > cfg.vocab:
+            raise SystemExit(f"corpus vocab {corpus.vocab} > model "
+                             f"{cfg.vocab}")
+        make_batch = lambda s: corpus.batch("train", s, args.batch, args.seq)
+    print(f"{cfg.name}: {cfg.family} family, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab}, quant={cfg.quant.mode}, "
+          f"{cfg.dtype}, remat={cfg.remat} device={device}", flush=True)
+
+    opt_cfg = OptConfig(kind=args.opt or "adamw", lr=args.lr,
+                        momentum=args.momentum, warmup_steps=args.warmup,
+                        decay_steps=args.steps, clip_norm=1.0)
+    params = T.model_init(torch.Generator(device).manual_seed(args.seed),
+                          cfg)
+    state = train_state_init(params, opt_cfg, args.seed + 1)
+    step_fn = make_train_step(cfg, opt_cfg)
+
+    start_step = 0
+    ckpt = None
+    if args.ckpt_dir:
+        ckpt = CK.AsyncCheckpointer(args.ckpt_dir)
+        if args.resume == "auto" and CK.latest_step(args.ckpt_dir) is not None:
+            start_step = CK.latest_step(args.ckpt_dir)
+            state = CK.restore(state, args.ckpt_dir, start_step)
+            print(f"resumed from step {start_step}", flush=True)
+
+    own_handler = handler is None
+    handler = handler or PreemptionHandler()
+    monitor = StragglerMonitor(n_hosts=1)
+    prefetch = Prefetcher(make_batch, start_step, device)
+    t_start = time.time()
+    try:
+        for step, batch in prefetch:
+            if step >= args.steps:
+                break
+            with StepTimer() as tm:
+                state, metrics = step_fn(state, batch)
+                _sync(device)
+            monitor.record(0, tm.dt)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                print(f"step {step:6d} loss {float(metrics['loss']):.4f} "
+                      f"lr {float(metrics['lr']):.2e} "
+                      f"gnorm {float(metrics['grad_norm']):.2f} "
+                      f"{tm.dt*1e3:.0f} ms", flush=True)
+            done = step + 1
+            if ckpt and done % args.ckpt_every == 0 and done < args.steps:
+                ckpt.save_async(state, done)
+            if handler.preempted:
+                print("preempted: checkpointing and exiting 43", flush=True)
+                if ckpt:
+                    ckpt.wait()
+                    CK.save(state, args.ckpt_dir, done)
+                _print_launches()
+                sys.exit(RESTART_EXIT_CODE)
+    finally:
+        prefetch.close()
+        if own_handler:
+            handler.restore()
+    if ckpt:
+        ckpt.wait()
+        CK.save(state, args.ckpt_dir, args.steps)
+    dt = time.time() - t_start
+    print(f"done: {args.steps - start_step} steps in {dt:.1f}s "
+          f"({(args.steps - start_step) / max(dt, 1e-9):.2f} steps/s)")
+    _print_launches()
+    return state
+
+
+# ---------------------------------------------------------------------------
 # the one-command pipeline: train -> SIGTERM/restart -> export -> serve
 # ---------------------------------------------------------------------------
 
@@ -306,10 +423,12 @@ def _child_cmd(args, ckpt_dir: Path) -> list:
     return cmd
 
 
-def _run_leg(cmd: list, tag: str, kill_at_step: int | None = None) -> dict:
+def _run_leg(cmd: list, tag: str, kill_at_step: int | None = None,
+             lines: list | None = None) -> dict:
     """Run one training leg as a child process (this package first on its
     path); with kill_at_step, send it a real SIGTERM once it logs that
-    step, and expect exit 43.  Returns the child's kernel launches."""
+    step, and expect exit 43.  Returns the child's kernel launches; its
+    output lines are appended to `lines` when one is given."""
     env = os.environ.copy()
     env["PYTHONPATH"] = os.pathsep.join(
         [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
@@ -322,6 +441,8 @@ def _run_leg(cmd: list, tag: str, kill_at_step: int | None = None) -> dict:
     try:
         for line in proc.stdout:
             print(f"  [{tag}] {line}", end="", flush=True)
+            if lines is not None:
+                lines.append(line)
             if line.startswith(LAUNCH_LINE):
                 launches = json.loads(line[len(LAUNCH_LINE):])
             if pat is not None and not killed and pat.match(line.strip()):
@@ -530,8 +651,13 @@ def main(argv=None, handler=None):
         if on:
             raise SystemExit(f"not ported yet: {NOT_PORTED[flag]}")
     if args.pipeline:
+        if args.arch not in RNN_ARCH_IDS:
+            raise SystemExit("--pipeline is the rnn-paper train->serve "
+                             "proof; run it with --arch rnn-paper")
         return run_rnn_pipeline(args)
-    return run_rnn(args, handler)
+    if args.arch in RNN_ARCH_IDS:
+        return run_rnn(args, handler)
+    return run_transformer(args, handler)
 
 
 if __name__ == "__main__":

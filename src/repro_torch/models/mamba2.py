@@ -14,7 +14,9 @@ fp32 (H, N, P) state, as JAX's `lax.scan` does.  It is plain tensor code
 (JAX has no Pallas kernel for it either).  JAX takes exp(cum_i - cum_j)
 over the whole block and then masks j > i, whose arguments are positive
 and overflow at strong decay; the port fills the masked entries with -inf
-before the exp, so no inf is made and the kept values are the same.
+before the exp, so no inf is made and the kept values are the same.  It
+is differentiable: with gradients on, its intra-chunk block is built out
+of place.
 `ssd_step` is the one-token recurrence of the decode step.  The recurrent
 state is always fp32; the conv tail is in the compute dtype.
 
@@ -117,14 +119,22 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     seg_end = cum[:, :, -1]                       # a chunk's total log decay
 
     # intra-chunk: att[i,j] = (C_i . B_j) exp(cum_i - cum_j) dt_j, i >= j,
-    # built in place in one (B, nc, Qi, Qj, H) buffer; the masked entries
-    # become -inf before the exp, so exp gives 0 there and no inf
+    # in one (B, nc, Qi, Qj, H) buffer; the masked entries become -inf
+    # before the exp, so exp gives 0 there and no inf.  Serving builds it
+    # in place (its peak memory); autograd needs exp's output intact, so a
+    # call with gradients builds it out of place, the same values.
     idx = torch.arange(Q, device=x.device)
     causal = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
     att = cum[:, :, :, None, :] - cum[:, :, None, :, :]
-    att.masked_fill_(~causal, -torch.inf).exp_()
-    att.mul_(torch.einsum("bcin,bcjn->bcij", Cm, Bm)[..., None])
-    att.mul_(dt[:, :, None, :, :])
+    cb = torch.einsum("bcin,bcjn->bcij", Cm, Bm)[..., None]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        att = (att.masked_fill(~causal, -torch.inf).exp() * cb
+               * dt[:, :, None, :, :])
+    else:
+        att.masked_fill_(~causal, -torch.inf).exp_()
+        att.mul_(cb)
+        att.mul_(dt[:, :, None, :, :])
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", att, x.to(att.dtype))
     del att
 

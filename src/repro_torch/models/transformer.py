@@ -1,6 +1,7 @@
-"""The transformer pool's dense, MoE, RWKV6, hybrid and audio families,
-ported from `repro/models/transformer.py`: layer kinds `full`, `global`
-and `local` (a sliding window over a ring cache) with a SwiGLU MLP or a
+"""The transformer pool, every family, ported from
+`repro/models/transformer.py`: layer kinds `full`, `global`, `self` (full
+causal attention) and `local` (a sliding window over a ring cache) with a
+SwiGLU MLP or a
 mixture-of-experts FFN (`models/moe.py`: mixtral, qwen3-moe); the
 attention-free `rwkv` kind (`models/rwkv6.py`), whose cache is an
 `RWKVState`; zamba2's `mamba` kind (`models/mamba2.py`, an `SSMState`)
@@ -10,7 +11,10 @@ at each application; and whisper's encoder-decoder: `enc` layers
 (bidirectional self-attention with RoPE, the GeLU MLP) over the frames
 plus sinusoidal positions (`params["enc"]`), and `selfcross` decoder
 layers (causal self-attention, then tanh-gated cross-attention over the
-encoder's output, whose k/v a prefill encodes into a `CrossCache`).
+encoder's output, whose k/v a prefill encodes into a `CrossCache`); and
+the VLM's `cross` kind (llama-3.2-vision): no self-attention, a
+tanh(xgate)-gated cross-attention over the image tokens `img`, then the
+MLP, its `CrossCache` filled by each prefill.
 
 Parameters keep the JAX tree: `embed`, `final_norm`, `head` (untied
 only), `stack` (one dict per pattern position, every leaf stacked over
@@ -19,7 +23,8 @@ there), `tail` (the layers a partial last repeat leaves), `shared` and
 `enc` where the family has them, so `convert.from_numpy` carries a JAX
 tree across one to one.  Caches are stacked the same way.  JAX scans
 the repeats; here a Python loop runs layer by layer over per-layer
-views.
+views (a tensor's `unbind(0)`, so the backward stacks a leaf's gradient
+once).
 
 The paper's technique enters once per call through `quantize_tree`; an
 exported tree's packed `QTensor` leaves pass through it and every weight
@@ -33,15 +38,26 @@ Handed a tree it prepared, it returns it as it is, so a runtime casts
 once and every step reads the prepared tree; the bits are those of JAX's
 per-call cast.
 
+Training.  `forward(training=True, noise=...)` samples every quantizable
+master stochastically with straight-through gradients (`_train_quant`:
+`cfg.quant` as it is, the compute-dtype cast after the sample), before
+the layer loop, so no recomputed region draws noise; the embedding and
+an untied head stay fp32 masters, cast where they are read, as JAX's are.
+With `cfg.remat` and gradients on, each repeat of the pattern (and each
+encoder layer) is one non-reentrant `torch.utils.checkpoint`, as JAX
+checkpoints its scan body; `remat_policy="dots"` keeps the weight
+products' outputs (`aten.mm`, products without batch dims, as JAX's
+`dots_with_no_batch_dims_saveable`).  `cfg.parallel_block` gives the
+attention kinds PaLM's parallel block.  `lm_loss` is JAX's: the nll, plus
+0.01 x the MoE aux loss, plus 1e-4 x mean(logz^2).  No `torch.autocast`:
+the same tensors are cast as in JAX.
+
 An MoE layer routes without drops (capacity = its token count) exactly
 when the call carries one token a row (S = 1, a decode step), as JAX's
 `no_drop=x.shape[1] == 1`.  A dead continuous-batching row's RWKV or
 SSM state is frozen bit for bit under `live` (`_freeze_dead`).  The
 cached step passes `decode` to the recurrent mixers explicitly, as JAX's
 does: a prefill of one token takes the chunked scan, not the step.
-
-The VLM family (kind `cross` over image tokens) is refused by
-`check_ported`: it waits for ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -49,6 +65,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint as CP
 
 from repro_torch.core.qlinear import quantize_tree, winit
 from repro_torch.core.qtensor import (QTensor, export_packed, is_qtensor,
@@ -62,23 +80,24 @@ from repro_torch.serve.kvcache import (AttnCache, CrossCache, cache_init,
                                        cache_positions, cache_update)
 
 ATTN_KINDS = ("full", "global", "local")
+SELF_KINDS = ATTN_KINDS + ("self",)  # causal self-attention kinds
 DECODE_MARGIN = 128  # extra cache slots beyond the spec'd context length
-# the layer kinds of each ported family
+# the layer kinds of each family
 PORTED_KINDS = {"dense": set(ATTN_KINDS), "moe": set(ATTN_KINDS),
                 "ssm": {"rwkv"}, "hybrid": {"mamba", "shared"},
-                "audio": {"selfcross"}}
+                "audio": {"selfcross"}, "vlm": {"self", "cross"}}
 
 
 def check_ported(cfg) -> None:
-    """Refuse a config outside the ported families: dense and MoE over the
-    attention kinds, the SSM family's rwkv kind, the hybrid family's mamba
-    and shared kinds, and the audio family's selfcross decoder."""
+    """Refuse a config whose layer kinds its family does not run: dense
+    and MoE over the attention kinds, the SSM family's rwkv kind, the
+    hybrid family's mamba and shared kinds, the audio family's selfcross
+    decoder and the vlm family's self and cross kinds."""
     pat, _, tail = expand_pattern(cfg)
     if not set(pat + tail) <= PORTED_KINDS.get(cfg.family, set()):
         raise NotImplementedError(
-            f"{cfg.name} (the {cfg.family} family) waits for ROADMAP Queue "
-            f"1 item 9; the port serves the dense, moe, ssm (rwkv), hybrid "
-            f"and audio families")
+            f"{cfg.name}: the {cfg.family} family does not run the kinds "
+            f"{sorted(set(pat + tail))}")
 
 
 # ---------------------------------------------------------------------------
@@ -112,9 +131,10 @@ def owns_params(kind: str) -> bool:
 
 
 def block_init(gen: torch.Generator, cfg, kind: str) -> dict:
-    """One block's parameters: a mamba or rwkv mixer, or attention (with a
-    cross-attention after it for selfcross) and an MLP (`moe` in its place
-    when the config has experts; GeLU in the audio family)."""
+    """One block's parameters: a mamba or rwkv mixer, or attention (a
+    cross-attention with its gate for the cross kind; a cross-attention
+    after it for selfcross) and an MLP (`moe` in its place when the config
+    has experts; GeLU in the audio family)."""
     d, dev = cfg.d_model, gen.device
     zeros = lambda: torch.zeros((d,), device=dev)
     if kind == "mamba":
@@ -122,7 +142,8 @@ def block_init(gen: torch.Generator, cfg, kind: str) -> dict:
     if kind == "rwkv":
         return {"ln1": zeros(), "ln2": zeros(),
                 "mix": R.rwkv6_init(gen, cfg)}
-    p = {"norm1": zeros(), "norm2": zeros(), "attn": L.attn_init(gen, cfg)}
+    p = {"norm1": zeros(), "norm2": zeros(),
+         "attn": L.attn_init(gen, cfg, cross=kind == "cross")}
     if kind == "selfcross":
         p["normc"] = zeros()
         p["xattn"] = L.attn_init(gen, cfg, cross=True, kv_d=d)
@@ -188,11 +209,12 @@ def model_init(gen: torch.Generator, cfg, *, packed: bool = False) -> dict:
 
 
 class ServeTree(dict):
-    """A parameter tree `_serve_quant` prepared: matmul weights quantized
-    and cast, the embedding (and an untied head) cast to the compute
-    dtype, `layers`, the per-layer (kind, params) views in run order (the
-    shared block at each shared application), and `enc_layers`, the
-    encoder's per-layer views (empty outside the audio family)."""
+    """A parameter tree prepared for a forward: matmul weights quantized
+    and cast (`_serve_quant` once for serving, `_train_quant` once per
+    training forward), `layers`, the per-layer (kind, params) views in run
+    order (the shared block at each shared application), and
+    `enc_layers`, the encoder's per-layer views (empty outside the audio
+    family)."""
     layers: list
     enc_layers: list
 
@@ -208,7 +230,35 @@ def _layer_view(tree, r: int):
     return tree_map(one, tree)
 
 
+def _split(tree, n: int) -> list:
+    """The n per-layer views of a stacked parameter subtree: a tensor's
+    `unbind(0)` (whose backward stacks the layers' gradients once), a
+    QTensor's codes and scale sliced."""
+    if isinstance(tree, dict):
+        parts = {k: _split(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    if is_qtensor(tree):
+        return [_layer_view(tree, r) for r in range(n)]
+    return list(tree.unbind(0))
+
+
+def _prepare(q: ServeTree, cfg) -> ServeTree:
+    """Attach the per-layer views to a quantized tree."""
+    pat, rep, tail = expand_pattern(cfg)
+    views = [_split(q["stack"][i], rep) if owns_params(k) else None
+             for i, k in enumerate(pat)]
+    q.layers = [(k, q["shared"] if k == "shared" else views[i][r])
+                for r in range(rep) for i, k in enumerate(pat)]
+    q.layers += [(k, q["shared"] if k == "shared" else p)
+                 for k, p in zip(tail, q["tail"])]
+    q.enc_layers = (_split(q["enc"]["stack"], cfg.n_enc_layers)
+                    if "enc" in q else [])
+    return q
+
+
 def _serve_quant(params: dict, cfg) -> ServeTree:
+    """The serving tree: deterministic quantization, the embedding (and an
+    untied head) cast to the compute dtype once."""
     if isinstance(params, ServeTree):
         return params
     spec = dataclasses.replace(cfg.quant, stochastic=False)
@@ -217,16 +267,17 @@ def _serve_quant(params: dict, cfg) -> ServeTree:
     q["embed"] = q["embed"].to(dt)
     if "head" in q and not is_qtensor(q["head"]):
         q["head"] = q["head"].to(dt)
-    pat, rep, tail = expand_pattern(cfg)
-    view = lambda k, i, r: (q["shared"] if k == "shared"
-                            else _layer_view(q["stack"][i], r))
-    q.layers = [(k, view(k, i, r)) for r in range(rep)
-                for i, k in enumerate(pat)]
-    q.layers += [(k, q["shared"] if k == "shared" else p)
-                 for k, p in zip(tail, q["tail"])]
-    q.enc_layers = ([_layer_view(q["enc"]["stack"], r)
-                     for r in range(cfg.n_enc_layers)] if "enc" in q else [])
-    return q
+    return _prepare(q, cfg)
+
+
+def _train_quant(params: dict, cfg, noise) -> ServeTree:
+    """The training forward's tree: `cfg.quant` as it is (stochastic
+    binary/ternary samples from `noise`, straight-through gradients), cast
+    to the compute dtype after the sample; the embedding and head stay
+    the fp32 masters, cast where they are read, so their gradients round
+    as JAX's do."""
+    return _prepare(ServeTree(quantize_tree(
+        params, cfg.quant, compute_dtype=cfg.torch_dtype, noise=noise)), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -247,11 +298,19 @@ def _mlp_or_moe(p: dict, x: torch.Tensor, cfg, *,
 
 def _attn_full(p: dict, x: torch.Tensor, cfg, kind: str,
                positions: torch.Tensor, xsrc: Optional[torch.Tensor] = None):
-    """The uncached block (the eval forward, the encoder); returns (x, moe
-    aux).  selfcross attends over the cross source `xsrc` after its
-    self-attention; enc's self-attention is not causal."""
+    """The uncached block (the training and eval forward, the encoder);
+    returns (x, moe aux).  cross attends over the cross source `xsrc` in
+    place of a self-attention, selfcross after its self-attention; enc's
+    self-attention is not causal.  A parallel block's attention and MLP
+    read one pre-norm."""
     h = L.rms_norm(x, p["norm1"])
-    if kind == "selfcross":
+    if cfg.parallel_block and kind in SELF_KINDS:
+        o = L.attn_apply(p["attn"], h, cfg, kind=kind, positions=positions)
+        y, aux = _mlp_or_moe(p, h, cfg)
+        return x + o + y, aux
+    if kind == "cross":
+        x = x + L.attn_apply(p["attn"], h, cfg, kind="cross", kv_src=xsrc)
+    elif kind == "selfcross":
         x = x + L.attn_apply(p["attn"], h, cfg, kind="full",
                              positions=positions)
         hc = L.rms_norm(x, p["normc"])
@@ -284,22 +343,41 @@ def _self_attn_cached(p_attn: dict, h: torch.Tensor, cfg, cache: AttnCache,
     return o, cache
 
 
-def _attn_cached(p: dict, x: torch.Tensor, cfg, kind: str, cache: AttnCache,
+def _cross_attn_cached(p_attn: dict, h: torch.Tensor, cfg,
+                       xcache: CrossCache) -> torch.Tensor:
+    """Gated cross-attention of h over a cross cache (not causal, no
+    RoPE)."""
+    q = L.attn_q(p_attn, h, cfg)
+    o = L.attention(q, xcache.k, xcache.v, causal=False)
+    return L.attn_out(p_attn, o, cfg, cross=True)
+
+
+def _attn_cached(p: dict, x: torch.Tensor, cfg, kind: str,
+                 cache: Optional[AttnCache],
                  xcache: Optional[CrossCache] = None, live=None):
-    """The prefill/decode block; returns (x, new cache).  selfcross then
-    attends over the cross cache `xcache` (not causal, no RoPE).  An MoE
-    layer drops no token when the call carries one a row."""
+    """The prefill/decode block; returns (x, new cache).  cross attends
+    over the cross cache `xcache` in place of a self-attention (it has no
+    kv cache: None in, None out); selfcross attends over it after its
+    self-attention.  An MoE layer drops no token when the call carries one
+    a row."""
     h = L.rms_norm(x, p["norm1"])
-    o, cache = _self_attn_cached(p["attn"], h, cfg, cache,
-                                 window=_window(cfg, kind), live=live)
-    x = x + L.attn_out(p["attn"], o, cfg)
+    no_drop = x.shape[1] == 1
+    if cfg.parallel_block and kind in SELF_KINDS:
+        o, cache = _self_attn_cached(p["attn"], h, cfg, cache,
+                                     window=_window(cfg, kind), live=live)
+        y, _ = _mlp_or_moe(p, h, cfg, no_drop=no_drop)
+        return x + L.attn_out(p["attn"], o, cfg) + y, cache
+    if kind == "cross":
+        x = x + _cross_attn_cached(p["attn"], h, cfg, xcache)
+    else:
+        o, cache = _self_attn_cached(p["attn"], h, cfg, cache,
+                                     window=_window(cfg, kind), live=live)
+        x = x + L.attn_out(p["attn"], o, cfg)
     if kind == "selfcross":
-        hc = L.rms_norm(x, p["normc"])
-        q = L.attn_q(p["xattn"], hc, cfg)
-        o = L.attention(q, xcache.k, xcache.v, causal=False)
-        x = x + L.attn_out(p["xattn"], o, cfg, cross=True)
+        x = x + _cross_attn_cached(p["xattn"], L.rms_norm(x, p["normc"]),
+                                   cfg, xcache)
     h = L.rms_norm(x, p["norm2"])
-    y, _ = _mlp_or_moe(p, h, cfg, no_drop=x.shape[1] == 1)
+    y, _ = _mlp_or_moe(p, h, cfg, no_drop=no_drop)
     return x + y, cache
 
 
@@ -351,15 +429,21 @@ def _kind_cache(cfg, kind: str, batch: int, cap: int, src_len: int, dtype,
                 *, per_slot: bool = False, lead: tuple = (),
                 device=None) -> dict:
     """The cache of one layer of `kind`: {"attn": AttnCache} (a shared
-    application's own), {"rwkv": RWKVState}, {"ssm": SSMState}, or for
-    selfcross {"attn", "cross": CrossCache of `src_len` zero rows}."""
+    application's own), {"rwkv": RWKVState}, {"ssm": SSMState}, for cross
+    {"cross": CrossCache of `src_len` zero rows}, for selfcross both."""
     if kind == "rwkv":
         return {"rwkv": R.state_init(cfg, batch, dtype, per_slot=per_slot,
                                      lead=lead, device=device)}
     if kind == "mamba":
         return {"ssm": M.state_init(cfg, batch, dtype, per_slot=per_slot,
                                     lead=lead, device=device)}
-    if kind in ("full", "global", "shared"):
+    shape = lead + (batch, src_len, cfg.n_kv, cfg.hd)
+    cross = lambda: CrossCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device))
+    if kind == "cross":
+        return {"cross": cross()}
+    if kind in ("full", "global", "self", "shared"):
         c = cap if not cfg.swa_all else min(cfg.window + DECODE_MARGIN, cap)
         ring = cfg.swa_all
     elif kind == "local":
@@ -371,18 +455,15 @@ def _kind_cache(cfg, kind: str, batch: int, cap: int, src_len: int, dtype,
     out = {"attn": cache_init(batch, c, cfg.n_kv, cfg.hd, dtype, ring=ring,
                               per_slot=per_slot, lead=lead, device=device)}
     if kind == "selfcross":
-        shape = lead + (batch, src_len, cfg.n_kv, cfg.hd)
-        out["cross"] = CrossCache(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device))
+        out["cross"] = cross()
     return out
 
 
 def init_caches(cfg, batch: int, context: int, *, src_len: int = 0,
                 dtype=None, per_slot: bool = False, device=None) -> dict:
     """Stacked cache tree matching the parameter tree (`src_len` rows of
-    cross source for the audio family).  With `per_slot` every position
-    counter is per row (B,): the continuous-batching pool."""
+    cross source for the audio and vlm families).  With `per_slot` every
+    position counter is per row (B,): the continuous-batching pool."""
     dtype = dtype or cfg.torch_dtype
     cap = context + DECODE_MARGIN
     pat, rep, tail = expand_pattern(cfg)
@@ -402,7 +483,10 @@ def init_caches(cfg, batch: int, context: int, *, src_len: int = 0,
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    return params["embed"][tokens].to(cfg.torch_dtype)
+    """The rows of `tokens`, cast to the compute dtype.  `F.embedding`, a
+    gather whose backward sums a row's gradients in a fixed order on the
+    card: a training rerun there is bit-equal."""
+    return F.embedding(tokens, params["embed"]).to(cfg.torch_dtype)
 
 
 def _head(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -458,9 +542,10 @@ def _apply_kind(p: dict, x: torch.Tensor, cfg, kind: str, cache: dict, *,
                 decode: bool, live=None, xsrc=None):
     """One layer of `kind` against its cache; returns (x, new cache).  A
     shared application's `p` is the shared block, run as kind full.  A
-    selfcross prefill (not decoding, a source given) first encodes the
-    source into a new cross cache, as JAX's does on every prefill; other
-    steps read the cross cache and leave it out of what they return."""
+    cross or selfcross prefill (not decoding, a source given) first
+    encodes the source into a new cross cache, as JAX's does on every
+    prefill; other steps read the cross cache and leave it out of what
+    they return."""
     if kind in ("rwkv", "mamba"):
         key = "rwkv" if kind == "rwkv" else "ssm"
         block = _rwkv_block if kind == "rwkv" else _mamba_block
@@ -471,10 +556,14 @@ def _apply_kind(p: dict, x: torch.Tensor, cfg, kind: str, cache: dict, *,
     xc = cache.get("cross")
     fresh = xc is not None and not decode and xsrc is not None
     if fresh:
-        xc = CrossCache(*L.attn_kv(p["xattn"], xsrc, cfg))
+        xc = CrossCache(*L.attn_kv(
+            p["xattn" if kind == "selfcross" else "attn"], xsrc, cfg))
     x, c = _attn_cached(p, x, cfg, "full" if kind == "shared" else kind,
-                        cache["attn"], xc, live)
-    return x, ({"attn": c, "cross": xc} if fresh else {"attn": c})
+                        cache.get("attn"), xc, live)
+    out = {} if c is None else {"attn": c}
+    if fresh:
+        out["cross"] = xc
+    return x, out
 
 
 def _step_cached(qparams: ServeTree, x: torch.Tensor, caches: dict, cfg, *,
@@ -507,26 +596,53 @@ def _step_cached(qparams: ServeTree, x: torch.Tensor, caches: dict, cfg, *,
     return x, {"stack": new_stack, "tail": tuple(new_tail)}
 
 
+def _save_dots():
+    """The selective-checkpoint contexts of `remat_policy="dots"`: keep the
+    outputs of the products without batch dims (the weight matmuls, which
+    reach the dispatcher as `aten.mm`), recompute the rest."""
+    keep = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        del ctx, args, kwargs
+        return (CP.CheckpointPolicy.MUST_SAVE if op in keep
+                else CP.CheckpointPolicy.PREFER_RECOMPUTE)
+    return CP.create_selective_checkpoint_contexts(policy)
+
+
+def _remat(cfg, fn, *args):
+    """`fn(*args)`, recomputed in the backward instead of kept when
+    `cfg.remat` and gradients are on (nothing inside draws random
+    numbers: the noise was drawn before)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    kw = {"context_fn": _save_dots} if cfg.remat_policy == "dots" else {}
+    return CP.checkpoint(fn, *args, use_reentrant=False,
+                         preserve_rng_state=False, **kw)
+
+
 def _run_encoder(qparams: ServeTree, frames: torch.Tensor,
                  cfg) -> torch.Tensor:
     """The audio encoder over precomputed frame embeddings (B, S_src, d):
-    sinusoidal positions added, the bidirectional enc layers, the final
-    norm.  The conv/mel frontend is a stub, as in JAX."""
+    sinusoidal positions added, the bidirectional enc layers (each one
+    recomputed region under remat), the final norm.  The conv/mel frontend
+    is a stub, as in JAX."""
     x = frames.to(cfg.torch_dtype)
     S = frames.shape[1]
     x = x + L.sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     for p in qparams.enc_layers:
-        x, _ = _attn_full(p, x, cfg, "enc", positions)
+        x, _ = _remat(cfg, _attn_full, p, x, cfg, "enc", positions)
     return L.rms_norm(x, qparams["enc"]["final_norm"])
 
 
 def _cross_source(qparams: ServeTree, cfg, enc_frames, img):
     """The cross-attention source of a call: the encoded frames for the
-    audio family, None for the others."""
-    if img is not None:
-        raise NotImplementedError("image tokens (the vlm family) wait for "
-                                  "ROADMAP Queue 1 item 9")
+    audio family, the image tokens in the compute dtype for the vlm
+    family, None for the others."""
+    if cfg.family == "vlm":
+        if img is None:
+            raise ValueError(f"{cfg.name} needs its image tokens (img)")
+        return img.to(cfg.torch_dtype)
     if cfg.family != "audio":
         return None
     if enc_frames is None:
@@ -534,21 +650,11 @@ def _cross_source(qparams: ServeTree, cfg, enc_frames, img):
     return _run_encoder(qparams, enc_frames, cfg)
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg, *,
-            enc_frames: Optional[torch.Tensor] = None,
-            img: Optional[torch.Tensor] = None,
-            last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The eval forward over a whole sequence (no caches, deterministic
-    quantization).  tokens (B, S), and for the audio family `enc_frames`
-    (B, S_src, d) -> (logits (B, S, Vp), the MoE layers' summed aux loss).
-    The training forward (stochastic quantization, remat) is not ported."""
-    qparams = _serve_quant(params, cfg)
-    xsrc = _cross_source(qparams, cfg, enc_frames, img)
-    x = _embed(qparams, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=x.device)
-    aux = torch.zeros((), device=x.device)
-    for kind, p in qparams.layers:
+def _layers_full(x: torch.Tensor, aux: torch.Tensor, layers: list, cfg,
+                 positions: torch.Tensor, xsrc):
+    """Uncached layers over a whole sequence; returns (x, aux + their MoE
+    aux)."""
+    for kind, p in layers:
         if kind == "rwkv":
             x, _ = _rwkv_block(p, x, cfg, None, False)
         elif kind == "mamba":
@@ -557,10 +663,57 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
             x, a = _attn_full(p, x, cfg, "full" if kind == "shared" else kind,
                               positions, xsrc)
             aux = aux + a
+    return x, aux
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg, *,
+            training: bool = False, noise=None,
+            enc_frames: Optional[torch.Tensor] = None,
+            img: Optional[torch.Tensor] = None,
+            last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward over a whole sequence (no caches).  tokens (B, S), for
+    the audio family `enc_frames` (B, S_src, d), for the vlm family `img`
+    (B, N_img, d) -> (logits (B, S, Vp) fp32, the MoE layers' summed aux
+    loss).  `training` quantizes with `cfg.quant` as it is (stochastic
+    samples from `noise`: {path: u} or `qlinear.step_noise`), otherwise
+    deterministically (the serving tree).  Under remat each repeat of the
+    pattern is one recomputed region; the tail layers are not, as in
+    JAX."""
+    qparams = (_train_quant(params, cfg, noise) if training
+               else _serve_quant(params, cfg))
+    xsrc = _cross_source(qparams, cfg, enc_frames, img)
+    x = _embed(qparams, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=x.device)
+    aux = torch.zeros((), device=x.device)
+    pat, rep, _ = expand_pattern(cfg)
+    n = len(pat)
+    for r in range(rep):
+        x, aux = _remat(cfg, _layers_full, x, aux,
+                        qparams.layers[r * n:(r + 1) * n], cfg, positions,
+                        xsrc)
+    x, aux = _layers_full(x, aux, qparams.layers[rep * n:], cfg, positions,
+                          xsrc)
     x = L.rms_norm(x, qparams["final_norm"])
     if last_only:
         x = x[:, -1:]
     return _head(qparams, x, cfg), aux
+
+
+def lm_loss(params: dict, batch: dict, cfg, *, training: bool = True,
+            noise=None, aux_weight: float = 0.01, z_weight: float = 1e-4):
+    """batch {'tokens': (B, S), 'targets': (B, S), and 'img' or
+    'enc_frames' where the family reads one} -> (loss, {'nll', 'moe_aux'}):
+    the mean nll, plus `aux_weight` x the MoE aux loss, plus `z_weight` x
+    mean(logz^2)."""
+    logits, aux = forward(params, batch["tokens"], cfg, training=training,
+                          noise=noise, img=batch.get("img"),
+                          enc_frames=batch.get("enc_frames"))
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    nll = torch.mean(logz - tgt)
+    loss = nll + aux_weight * aux + z_weight * torch.mean(torch.square(logz))
+    return loss, {"nll": nll, "moe_aux": aux}
 
 
 def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg, *,
@@ -568,9 +721,9 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg, *,
             img: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """Process a prompt (or one prompt chunk) into the caches.  Returns the
     last token's logits (B, Vp) and the caches.  The audio family encodes
-    `enc_frames` on every call and replaces its cross caches with their
-    k/v.  JAX's `n` (bucket padding rewound off the caches) has no
-    counterpart: chunks run at their own length."""
+    `enc_frames` (the vlm family casts `img`) on every call and replaces
+    its cross caches with their k/v.  JAX's `n` (bucket padding rewound off
+    the caches) has no counterpart: chunks run at their own length."""
     qparams = _serve_quant(params, cfg)
     xsrc = _cross_source(qparams, cfg, enc_frames, img)
     x = _embed(qparams, tokens, cfg)

@@ -69,8 +69,8 @@ throwaway request before the clock starts.  Refused: a device mesh
 (`mesh=`, with `tick_hlo`), which waits for ROADMAP Queue 1 item 9; a
 prefix cache over ring (sliding-window) caches, whose live window need
 not start at column 0; and, with JAX's messages, runtimes with `extras`
-(cross-attention sources: whisper serves in lockstep), speculation and a
-prefix cache over a "whole" runtime.
+(cross-attention sources: whisper and the VLM serve in lockstep),
+speculation and a prefix cache over a "whole" runtime.
 """
 from __future__ import annotations
 

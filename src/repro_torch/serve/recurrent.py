@@ -1,6 +1,7 @@
 """Serving runtimes, ported from `repro/serve/recurrent.py`: one stateful
 prefill/decode interface over the paper's BN-LSTM/GRU and the transformer
-pool's dense, MoE, RWKV6, hybrid (zamba2) and audio (whisper) families.
+pool's dense, MoE, RWKV6, hybrid (zamba2), audio (whisper) and vlm
+(llama-3.2-vision) families.
 
     rt = serving_runtime(cfg, params)          # on the card by default
     state = rt.init_state(batch, context)
@@ -17,7 +18,8 @@ per-layer views), so no step re-casts a weight; its state is the stacked
 kv caches (an `RWKVState` for rwkv layers, an `SSMState` for mamba ones,
 a `CrossCache` beside a selfcross layer's kv cache), sized by
 `configs.shapes.decode_context`.  `extras` are the keyword inputs every
-prefill passes on (the audio family's `enc_frames`); the engine refuses
+prefill passes on (the audio family's `enc_frames`, the vlm family's
+`img`); the engine refuses
 a runtime that has them, as JAX's does.  Its `chunk_granularity` says
 how the engine may split a prompt: "token" anywhere, "whole" (MoE, whose
 tokens compete for capacity across the call, and rwkv and mamba, whose
@@ -139,11 +141,13 @@ class RNNRuntime:
 
 class TransformerRuntime:
     """Serving session of the transformer pool's dense (llama3, qwen3,
-    gemma3), MoE (mixtral, qwen3-moe), RWKV6, hybrid (zamba2) and audio
-    (whisper) families.  `params` is the model's tree, fp masters or a
-    packed export (`core.qtensor.export_packed`); the state is the stacked
-    caches of `transformer.init_caches`.  `extras` (moved to the device)
-    go to every prefill: whisper's `enc_frames` (B, S_src, d)."""
+    gemma3), MoE (mixtral, qwen3-moe), RWKV6, hybrid (zamba2), audio
+    (whisper) and vlm (llama-3.2-vision) families.  `params` is the
+    model's tree, fp masters or a packed export
+    (`core.qtensor.export_packed`); the state is the stacked caches of
+    `transformer.init_caches`.  `extras` (moved to the device) go to every
+    prefill: whisper's `enc_frames` (B, S_src, d), the VLM's `img` (B,
+    N_img, d)."""
 
     family = "transformer"
 
@@ -171,9 +175,9 @@ class TransformerRuntime:
 
     def init_state(self, batch: int, context: int, *,
                    per_slot: bool = False) -> dict:
-        """Zero caches for `context` tokens; the audio family's cross caches
-        hold `decode_context`'s source length until a prefill replaces
-        them."""
+        """Zero caches for `context` tokens; the audio and vlm families'
+        cross caches hold `decode_context`'s source length until a prefill
+        replaces them."""
         _, src = decode_context(self.cfg, context)
         return T.init_caches(self.cfg, batch, context, src_len=src,
                              per_slot=per_slot, device=self.device)
@@ -230,8 +234,7 @@ class TransformerRuntime:
 def serving_runtime(cfg, params: dict, **kw):
     """The one constructor: an RNNConfig gives an `RNNRuntime` over the
     {'params', 'state'} variables, a ModelConfig a `TransformerRuntime`
-    (dense, MoE, RWKV6, hybrid and audio families; the VLM waits for
-    ROADMAP Queue 1 item 9)."""
+    (every family of the pool)."""
     if isinstance(cfg, BL.RNNConfig):
         return RNNRuntime(cfg, params, **kw)
     return TransformerRuntime(cfg, params, **kw)

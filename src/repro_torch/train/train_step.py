@@ -1,17 +1,22 @@
-"""The paper's BN-LSTM/GRU train step, ported from the RNN path of
-`repro/train/train_step.py` (no mesh, no gradient compression):
+"""Train steps for the transformer pool and the paper's BN-LSTM/GRU,
+ported from the single-device branches of `repro/train/train_step.py` (no
+mesh, no gradient compression):
 
     grads -> clip -> AdamW/SGD -> master-weight clip to [-alpha, alpha]
 
 The final clip is the paper's algorithm (it keeps the Bernoulli
-probabilities in [0, 1]).  BN running statistics thread through the state.
+probabilities in [0, 1]); it applies to the quantizable 'W*' leaves
+(`qlinear.clip_tree`) or the RNN's recurrent and input matrices.  BN
+running statistics thread through the RNN's state.
 
 Randomness.  JAX's `TrainState.rng` key becomes `noise_seed`: the noise of
-step s (the state's `opt.step`) is drawn from a generator on the training
-device seeded from (noise_seed, s) alone, so a resumed run draws the same
-noise as an uninterrupted one without saving generator state.  A caller may
-inject the noise instead (`step(..., noise=...)`), which is how the tests
-feed the port the very arrays the JAX step draws.
+step s (the state's `opt.step`) is drawn from generators on the training
+device seeded from (noise_seed, s) alone (the transformer's one a leaf,
+salted with the leaf's crc32 as JAX folds it, `qlinear.step_noise`), so a
+resumed run draws the same noise as an uninterrupted one without saving
+generator state.  A caller may inject the noise instead (`step(...,
+noise=...)`), which is how the tests feed the port the very arrays the JAX
+step draws.
 
 Gradients.  `torch.autograd.grad` returns None for a leaf the loss does not
 reach (the gate BNs' additive terms, fixed at 0, and the unused cell-norm
@@ -26,10 +31,11 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import bnlstm as BL
+from repro_torch.core import quantize as Q
+from repro_torch.core.qlinear import clip_tree, step_noise as leaf_noise
 from repro_torch.core.qtensor import tree_leaves, tree_map
+from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import OptConfig, OptState, opt_init, opt_update
-
-_MASK64 = (1 << 64) - 1
 
 
 class TrainState(NamedTuple):
@@ -46,20 +52,12 @@ def train_state_init(params: Any, opt_cfg: OptConfig, noise_seed: int,
                       bn_state=bn_state)
 
 
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
 def _step_generator(noise_seed: int, step: int,
                     device: torch.device) -> torch.Generator:
     """The generator of step `step`'s noise: a pure function of
     (noise_seed, step), on `device`."""
-    seed = _splitmix64(((int(noise_seed) & 0xFFFFFFFF) << 32)
-                       | (int(step) & 0xFFFFFFFF))
-    return torch.Generator(device=device).manual_seed(seed & ((1 << 63) - 1))
+    seed = Q.step_seed(noise_seed, step) & ((1 << 63) - 1)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def step_noise(state: TrainState) -> list:
@@ -70,20 +68,50 @@ def step_noise(state: TrainState) -> list:
     return BL.draw_noise(state.params, gen)
 
 
-def loss_and_grads(params: Any, bn_state: Any, batch: dict,
-                   cfg: BL.RNNConfig, noise: list):
-    """(loss, new BN state, grads) of the training loss at `params`, with a
-    zero gradient for every leaf the loss does not reach."""
+def value_and_grad(loss_fn: Callable, params: Any):
+    """`loss_fn(leaves) -> (loss, aux)` and the gradient of the loss with
+    respect to every leaf of `params`, zero for a leaf it does not reach:
+    (loss, aux, grads)."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss, new_bn = BL.lm_loss({"params": leaves, "state": bn_state},
-                              batch["tokens"], batch["targets"], cfg,
-                              training=True, noise=noise)
+    loss, aux = loss_fn(leaves)
     flat = tree_leaves(leaves)
     got = torch.autograd.grad(loss, flat, allow_unused=True)
     by_id = {id(p): torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, got)}
-    grads = tree_map(lambda p: by_id[id(p)], leaves)
-    return loss.detach(), new_bn, grads
+    return loss.detach(), aux, tree_map(lambda p: by_id[id(p)], leaves)
+
+
+def loss_and_grads(params: Any, bn_state: Any, batch: dict,
+                   cfg: BL.RNNConfig, noise: list):
+    """(loss, new BN state, grads) of the training loss at `params`, with a
+    zero gradient for every leaf the loss does not reach."""
+    return value_and_grad(
+        lambda leaves: BL.lm_loss({"params": leaves, "state": bn_state},
+                                  batch["tokens"], batch["targets"], cfg,
+                                  training=True, noise=noise), params)
+
+
+def make_train_step(cfg, opt_cfg: OptConfig) -> Callable:
+    """The transformer pool's step(state, batch, noise=None) -> (state,
+    metrics): `transformer.lm_loss` (stochastic quantization with
+    straight-through gradients) and its gradients, then `opt_update`
+    (clip, AdamW/SGD, the schedule), then `clip_tree`.  `noise` overrides
+    the step's own draw (`qlinear.step_noise(noise_seed, step)`): a
+    {path: u} mapping of every quantizable leaf."""
+
+    def step(state: TrainState, batch: dict, noise=None):
+        if noise is None:
+            noise = leaf_noise(int(state.noise_seed), int(state.opt.step))
+        loss, aux, grads = value_and_grad(
+            lambda leaves: T.lm_loss(leaves, batch, cfg, training=True,
+                                     noise=noise), state.params)
+        params, opt, m2 = opt_update(grads, state.opt, state.params, opt_cfg)
+        metrics = {"loss": loss, "nll": aux["nll"].detach(),
+                   "moe_aux": aux["moe_aux"].detach(), **m2}
+        return state._replace(params=clip_tree(params, cfg.quant),
+                              opt=opt), metrics
+
+    return step
 
 
 def make_rnn_train_step(cfg: BL.RNNConfig, opt_cfg: OptConfig) -> Callable:

@@ -338,12 +338,19 @@ def test_launcher_serves_whisper_reduced(capsys):
 
 
 def test_vlm_is_still_refused():
+    """The VLM is ported now (`model_init`, its runtime, lockstep serving);
+    what is still refused, as for whisper, is its engine: a runtime with
+    a cross-attention source, with JAX's reason."""
     from repro_torch.launch import serve
     cfg = get_config("llama-3.2-vision-90b").reduced()
-    for fn in (T.check_ported,
-               lambda c: T.model_init(torch.Generator().manual_seed(0), c),
-               lambda c: R.serving_runtime(c, {}, device="cpu")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            fn(cfg)
-    with pytest.raises(SystemExit, match="Queue 1 item 9"):
-        serve.main(["--arch", "llama-3.2-vision-90b", "--device", "cpu"])
+    T.check_ported(cfg)
+    params = T.model_init(torch.Generator().manual_seed(0), cfg)
+    img = torch.randn((2, cfg.n_img_tokens, cfg.d_model))
+    rt = R.serving_runtime(cfg, params, extras={"img": img}, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="needs per-request source encodings"):
+        ServeEngine(rt, cfg.vocab, slots=2, max_context=16)
+    with pytest.raises(NotImplementedError,
+                       match="needs per-request source encodings"):
+        serve.main(["--arch", "llama-3.2-vision-90b", "--device", "cpu",
+                    "--traffic", "--requests", "2"])

@@ -18,9 +18,10 @@ and non-finite logits; and the MoE path's per-expert shapes (qwen3-moe's
 codes, with one MoE layer and one rwkv layer against their CPU run; and
 the hybrid and audio paths' shapes (zamba2's Win at N = 8384, whisper's
 K = 512 and its encoder's M = 6000) with reduced zamba2 and whisper
-runtimes against their CPU run.  The
-GEMV, the GEMM and the tick are also launched twice and must repeat bit
-for bit.
+runtimes against their CPU run; and the vlm's (d 8192 and d_ff 28,672
+at decode rows and M = 512, its cross K/V at M = 6400), with one training
+step of every reduced arch against its CPU step.  The GEMV, the GEMM and
+the tick are also launched twice and must repeat bit for bit.
 
 Tolerances: the packed products are exact (weights are -1/0/+1), so the
 GEMV and GEMM differ from the exact sum only by fp32 summation error, which
@@ -899,3 +900,106 @@ def test_hybrid_and_audio_runtimes_on_the_card_match_the_cpu(card, arch):
                 torch.testing.assert_close(got, want, rtol=tol, atol=tol)
             else:
                 assert (got - want).abs().max() <= 0.02 * want.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the vlm serving path (d 8192, d_ff 28,672, the cross K/V over 4 x 1600
+# image tokens) and the pool's training step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("K,N,rows", [
+    *((8192, 8192, r) for r in (1, 4, 8, 512)),     # vlm Wq, Wo
+    *((8192, 1024, r) for r in (1, 4, 8, 512)),     # vlm self Wk, Wv
+    *((8192, 28672, r) for r in (1, 4, 8, 512)),    # vlm Wgate, Wup
+    *((28672, 8192, r) for r in (1, 4, 8, 512)),    # vlm Wdown
+    (8192, 1024, 6400)])                            # the cross layer's Wk
+def test_vlm_shapes_match_plain(card, K, N, rows):
+    """llama-3.2-vision-90b's projections at decode rows and its B = 4,
+    prompt-128 prefill (M = 512), and its cross K/V over 4 x 1600 image
+    tokens (M = 6400), the codes a layer's slice of stacked codes: held to
+    the fp64 product within 1e-5 of |x| @ |w| (the dense weight decoded
+    directly: the identity trick would take K rows of the plain version),
+    two launches bit for bit."""
+    rng = np.random.default_rng(K + N + rows)
+    stacked = _codes(rng, 2 * (K // 16), N).reshape(2, K // 16, N).to(card)
+    codes = stacked[1]
+    x = torch.from_numpy(np.tanh(rng.normal(size=(rows, K))).astype(
+        np.float32)).to(card)
+    fn = PK.packed_gemv if rows <= 8 else PK.packed_matmul
+    got = fn(x, codes, mode="ternary")
+    again = fn(x, codes, mode="ternary")
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if rows > 512:  # the plain version runs row by row: its ends
+        got, x = torch.cat([got[:500], got[-500:]]), torch.cat([x[:500],
+                                                                x[-500:]])
+    want = PK.packed_matmul_plain(x, codes, mode="ternary")
+    w = Q.unpack_ternary(codes, K).double()
+    exact = x.double() @ w
+    tol = 1e-5 * (x.double().abs() @ w.abs())
+    for out in (got, want):
+        assert ((out.double() - exact).abs() <= tol).all()
+    assert dispatch.LAUNCHES[fn.__name__] == 2
+
+
+@pytest.mark.parametrize("arch", [
+    "qwen3-0.6b", "qwen3-1.7b", "llama3-8b", "gemma3-27b", "mixtral-8x7b",
+    "qwen3-moe-30b-a3b", "rwkv6-7b", "zamba2-1.2b", "whisper-base",
+    "llama-3.2-vision-90b"])
+def test_reduced_train_step_on_the_card_matches_the_cpu(card, arch):
+    """One training step of a reduced arch (fp32, channel scales and
+    zero-init leaves moved off init) on the card against the CPU, on one
+    state, batch and injected noise: every leaf's gradient within 1e-4
+    relative L2 (zero where the CPU's is), the step's loss and gradient
+    norm within 1e-4 relative, the new masters within 1e-4 (cuBLAS and
+    the CPU sum in other orders; the MoE's gather backward is a
+    scatter-add of its own order on the card).  No kernel launches: the
+    training forward multiplies by the sampled fp weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import qlinear as QL
+    from repro_torch.core.qtensor import tree_paths
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).reduced()
+    g = torch.Generator().manual_seed(0)
+    params = T.model_init(g, cfg)
+    for path, leaf in tree_paths(params):
+        if (path[-1] in ("xgate", "bfc1", "bfc2", "lora_B", "wB", "u",
+                         "conv_b") or "norm" in path[-1]
+                or path[-1].startswith(("s", "ln"))):
+            leaf.add_(0.2 * torch.randn(leaf.shape, generator=g))
+    pol, draw = cfg.quant.policy(), QL.step_noise(1, 0)
+    noise = {"/".join(p): draw("/".join(p), l) for p, l in tree_paths(params)
+             if pol.matches_name(p[-1], "/".join(p), l.dim())}
+    n = 16 if cfg.family == "audio" else 32
+    batch = {k: torch.randint(0, cfg.vocab, (2, n), generator=g)
+             for k in ("tokens", "targets")}
+    if cfg.family == "audio":
+        batch["enc_frames"] = torch.randn((2, 32, cfg.d_model), generator=g)
+    if cfg.family == "vlm":
+        batch["img"] = torch.randn((2, cfg.n_img_tokens, cfg.d_model),
+                                   generator=g)
+    grads = [TS.value_and_grad(lambda leaves: T.lm_loss(
+        leaves, b, cfg, training=True, noise=noise), p)[2]
+        for p, b in ((params, batch),
+                     (tree_to(params, card), tree_to(batch, card)))]
+    for (path, c), d in zip(tree_paths(grads[0]), tree_leaves(grads[1])):
+        d = d.cpu()
+        if not torch.any(c):
+            assert not torch.any(d), path
+            continue
+        rel = ((d - c).norm() / c.norm()).item()
+        assert rel <= 1e-4, (path, rel)
+    # SGD: an update proportional to the gradient (AdamW's first step is
+    # +-lr on an element whose gradient is rounding, whatever its size)
+    opt = OPT.OptConfig(kind="sgd", lr=1e-2, clip_norm=1.0)
+    step = TS.make_train_step(cfg, opt)
+    cpu, mc = step(TS.train_state_init(params, opt, 1), batch, noise=noise)
+    dev, md = step(TS.train_state_init(tree_to(params, card), opt, 1),
+                   tree_to(batch, card), noise=noise)
+    torch.cuda.synchronize()
+    for k in ("loss", "grad_norm"):
+        assert abs(float(md[k]) - float(mc[k])) <= 1e-4 * abs(float(mc[k])), k
+    for a, b in zip(tree_leaves(dev.params), tree_leaves(cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    assert not dispatch.LAUNCHES

@@ -20,6 +20,7 @@ below it, up to 1.7e-5 absolute at gemma3's sixth layer, binary.  Building block
 within 1e-5.
 """
 import dataclasses
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -171,8 +172,25 @@ def test_quantize_tree_serving_branch_matches_jax(mode):
     bf = QL.quantize_tree(tp, tspec, compute_dtype=torch.bfloat16)
     assert bf["stack"][0]["attn"]["Wq"].dtype == torch.bfloat16
     assert bf["stack"][0]["attn"]["sq"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="training"):
-        QL.quantize_tree(tp, Q.QuantSpec(mode="ternary"))
+    # the training branch: a stochastic spec samples with the noise JAX
+    # folds in per leaf (crc32 of its path), to JAX's values and dtype
+    key = jax.random.PRNGKey(4)
+    noise = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
+        name = JQ.path_str(path)
+        if jspec.policy().matches(path, leaf):
+            k = jax.random.fold_in(key, zlib.crc32(name.encode()) & 0x7FFFFFFF)
+            noise[name] = torch.from_numpy(np.array(
+                jax.random.uniform(k, leaf.shape, leaf.dtype)))
+    js = JQL.quantize_tree(jp, dataclasses.replace(jspec, stochastic=True),
+                           key, compute_dtype=jnp.bfloat16)
+    ts = QL.quantize_tree(tp, dataclasses.replace(tspec, stochastic=True),
+                          compute_dtype=torch.bfloat16, noise=noise)
+    for (_, j), (_, t) in zip(jax.tree_util.tree_leaves_with_path(js),
+                              tree_paths(ts)):
+        assert np.array_equal(t.float().numpy(),
+                              np.asarray(j).astype(np.float32))
+        assert str(t.dtype).split(".")[-1] == str(j.dtype)
 
 
 def test_stacked_leaves_export_like_jax():
@@ -358,9 +376,17 @@ def test_verify_step_matches_jax_and_decode_steps(arch, tree):
 
 
 def test_other_kinds_are_refused():
-    for arch in ("llama-3.2-vision-90b",):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            T.model_init(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            T.check_ported(cfg)
+    """Every family's config is ported now (the vlm's self and cross kinds
+    included: `model_init` builds it); a config whose pattern holds kinds
+    its family does not run is still refused."""
+    for arch in ARCH_IDS:
+        T.check_ported(get_config(arch).reduced())
+    cfg = get_config("llama-3.2-vision-90b").reduced()
+    tree = T.model_init(torch.Generator().manual_seed(0), cfg)
+    assert "xgate" in tree["stack"][4]["attn"]
+    odd = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                              block_pattern=("full", "cross"))
+    for fn in (T.check_ported,
+               lambda c: T.model_init(torch.Generator().manual_seed(0), c)):
+        with pytest.raises(NotImplementedError, match="does not run"):
+            fn(odd)

@@ -224,10 +224,20 @@ def test_ring_caches_refuse_rollback_and_prefix_snapshots():
 
 
 def test_serving_runtime_refuses_other_families():
-    for arch in ("llama-3.2-vision-90b",):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            R.serving_runtime(cfg, {}, device="cpu")
+    """The vlm family serves (its image tokens as the runtime's `extras`);
+    a config whose kinds its family does not run is refused."""
+    cfg = get_config("llama-3.2-vision-90b").reduced()
+    params = T.model_init(torch.Generator().manual_seed(0), cfg)
+    img = torch.randn((2, cfg.n_img_tokens, cfg.d_model),
+                      generator=torch.Generator().manual_seed(1))
+    rt = R.serving_runtime(cfg, params, extras={"img": img}, device="cpu")
+    out, _ = R.drive_session(rt, torch.zeros((2, 3), dtype=torch.int64),
+                             cfg.vocab, gen=2, temperature=0.0)
+    assert out.shape == (2, 2)
+    odd = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                              block_pattern=("cross",))
+    with pytest.raises(NotImplementedError, match="does not run"):
+        R.serving_runtime(odd, {}, device="cpu")
 
 
 def test_launcher_serves_qwen3_reduced(capsys):
@@ -245,6 +255,7 @@ def test_launcher_serves_qwen3_reduced(capsys):
     assert m["spec_k"] == 2 and 0.0 <= m["accept_rate"] <= 1.0
     text = capsys.readouterr().out
     assert "transformer family, cpu" in text and "speculative: k=2" in text
-    for arch in ("llama-3.2-vision-90b",):
-        with pytest.raises(SystemExit, match="Queue 1 item 9"):
-            serve.main(["--arch", arch, "--device", "cpu"])
+    out = serve.main(["--arch", "llama-3.2-vision-90b", "--reduced",
+                      "--device", "cpu", "--gen", "3", "--prompt-len", "5",
+                      "--batch", "2"])
+    assert out.shape == (2, 3)
