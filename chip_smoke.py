@@ -5,7 +5,8 @@ dense, MoE, RWKV6, hybrid, audio and vlm serving paths (qwen3-0.6B,
 qwen3-moe-30b-a3b, rwkv6-7b, zamba2-1.2b, whisper-base and
 llama-3.2-vision-90b at full width, mixtral-8x7b at its widths) and the
 pool's training path (qwen3-0.6b at full width, every other family at
-its reduced size) on one NVIDIA card.
+its reduced size), with compressed data-parallel training of both
+families, on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -209,7 +210,29 @@ Phases, in order; any failure exits non-zero before the last line:
                 then, counted, lockstep B = 4, prompt 128, gen 32 with a
                 decode step and a prefill profiled, the engine's refusal
                 of a runtime with extras, and its CLI at the same shape;
-  14. result  — the kernels JSON line (each kernel's launches on every
+  14. compressed DP — `repro_torch.launch.train --pipeline --quick
+                --compress-grads` at rnn-paper's full width (60 steps a
+                leg, B = 32, T = 100, a data mesh of one rank over NCCL):
+                SIGTERM, exit 43 and the resume, the legs' final
+                checkpoints bit-equal with their residual, the residual
+                non-zero and finite, the export served through the engine
+                byte for byte like drive_session(B=1), the accept rate,
+                launches counted (the engine's tick and GEMV must launch);
+                one reduced compressed RNN step and one pool step with the
+                model noise and the compression draws injected, the card's
+                params, residual and BN state within 1e-5 (relative L2 a
+                leaf) of the CPU's; the gradient compression's bytes (fp32
+                against 2-bit codes), a compressed rnn-paper step against
+                an uncompressed one (timed in turns) and the compression's
+                device time a step and its share (torch.profiler); then
+                qwen3-0.6b at full width, 3 compressed steps at B = 8, T =
+                512 through `make_train_step(mesh=make_host_mesh(),
+                compress_grads=True)`: finite losses, a non-zero residual,
+                a step's ms, idle share and peak memory against phase
+                12's.  The compressed step launches no kernel: its new work
+                is elementwise passes over every gradient leaf and one
+                all-reduce;
+  15. result  — the kernels JSON line (each kernel's launches on every
                 path), the card line, and {"ok": true, "device": {...}}
                 last.
 
@@ -3045,6 +3068,338 @@ def vlm_phase(report: dict, card: str) -> dict:
     return vlm
 
 
+# ---------------------------------------------------------------------------
+# phase 14: compressed data parallelism
+# ---------------------------------------------------------------------------
+
+COMPRESS_PIPELINE_ARGS = ["--pipeline", "--quick", "--compress-grads",
+                          "--arch", "rnn-paper", "--steps", "60", "--batch",
+                          "32", "--seq", "100", "--device", "cuda"]
+CARD_CPU_REL = 1e-5  # card against CPU, a compressed step's state leaves
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 distance of `got` from `want` (both tensors), in fp64."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def compression_cost(mesh, grads, state, step_fn, batch) -> dict:
+    """Device time of one compressed step (torch.profiler: busy, idle
+    share) and of its compression alone (`compress_tree` with the step's
+    own draw, then the mean over the data axes) on the same gradients, and
+    the compression's share of the step's busy time."""
+    from repro_torch.train import compress as C
+    from repro_torch.train import train_step as TS
+
+    def compress():
+        TS.mean_trees(mesh, *C.compress_tree(
+            grads, C.step_noise(grads, 1, 0, 0), state.residual))
+
+    compress()
+    step_fn(state, batch)
+    by_step, wall_step = device_profile(lambda: step_fn(state, batch), 1)
+    by_comp, wall_comp = device_profile(compress, 1)
+    busy, idle = busy_idle(by_step, wall_step, 1)
+    cbusy, _ = busy_idle(by_comp, wall_comp, 1)
+    top = sorted(by_comp.items(), key=lambda kv: -kv[1])[:4]
+    return {"step_profiled_wall_ms": wall_step * 1e3,
+            "step_device_busy_ms": None if busy is None else busy / 1e3,
+            "step_idle_share": idle,
+            "compress_wall_ms": wall_comp * 1e3,
+            "compress_device_ms": None if cbusy is None else cbusy / 1e3,
+            "compress_share": (None if busy is None or cbusy is None
+                               else cbusy / busy),
+            "compress_top": [(k[:48], v) for k, v in top]}
+
+
+def print_cost(label: str, c: dict) -> None:
+    print(f"  {label}: a compressed step profiled "
+          f"{c['step_profiled_wall_ms']:.1f} ms, device busy {num(c['step_device_busy_ms'], '.2f')} ms, idle "
+          f"{num(c['step_idle_share'], '.3f')}; the compression and the mean "
+          f"alone {num(c['compress_device_ms'], '.2f')} ms of device time "
+          f"({c['compress_wall_ms']:.1f} ms wall), "
+          f"{num(c['compress_share'], '.3f')} of the step's; top "
+          + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in c["compress_top"]),
+          flush=True)
+
+
+def in_turns(fns: dict, reps: int = 5) -> dict:
+    """Median host ms a call of each of `fns` (synchronized), timed in
+    turns: a b b a, `reps` calls each time."""
+    import torch
+    order = list(fns) + list(fns)[::-1]
+    got: dict = {k: [] for k in fns}
+    for k in order:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            got[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: sorted(v)[len(v) // 2] for k, v in got.items()}
+
+
+def card_against_cpu(kind: str) -> dict:
+    """One reduced compressed step, the model noise and the compression
+    draws injected, over a data mesh of one rank: on the CPU (gloo), then
+    on the card (NCCL); params, residual and BN state held within
+    CARD_CPU_REL relative L2 a leaf.  Each side makes its group and
+    destroys it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_rnn_config, rnn_paper
+    from repro_torch.core import bnlstm as BL
+    from repro_torch.core import qlinear as QL
+    from repro_torch.core.qtensor import tree_paths, tree_to
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import compress as C
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    opt = OptConfig(lr=1e-3, warmup_steps=20, clip_norm=1.0)
+    g = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(5)
+    if kind == "rnn":
+        cfg = rnn_paper.reduced(get_rnn_config("rnn-paper"))
+        var = BL.rnn_lm_init(g, cfg, device="cpu")
+        state = TS.train_state_init(var["params"], opt, 1,
+                                    bn_state=var["state"], compress=True)
+        noise = TS.step_noise(state)
+        make, B, S = TS.make_rnn_train_step, 8, 32
+    else:
+        cfg = get_config("qwen3-0.6b").reduced()
+        state = TS.train_state_init(T.model_init(g, cfg), opt, 1,
+                                    compress=True)
+        pol, draw = cfg.quant.policy(), QL.step_noise(1, 0)
+        noise = {"/".join(p): draw("/".join(p), l)
+                 for p, l in tree_paths(state.params)
+                 if pol.matches_name(p[-1], "/".join(p), l.dim())}
+        make, B, S = TS.make_train_step, 2, 32
+    toks = rng.integers(0, cfg.vocab, (B, S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "targets": torch.from_numpy(toks[:, 1:])}
+    comp = list(C.step_noise(state.params, 1, 0, 0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        mesh = M.make_host_mesh(device=dev)
+        st, m = make(cfg, opt, mesh=mesh, compress_grads=True)(
+            tree_to(state, dev), tree_to(batch, dev),
+            noise=tree_to(noise, dev), comp_noise=tree_to(comp, dev))
+        out[dev] = (st, float(m["loss"]))
+        dist.destroy_process_group()
+    (cpu, cpu_loss), (card, card_loss) = out["cpu"], out["cuda"]
+    worst = {}
+    for f in ("params", "residual", "bn_state"):
+        for (path, a), (_, b) in zip(tree_paths(getattr(card, f)),
+                                     tree_paths(getattr(cpu, f))):
+            worst[f] = max(worst.get(f, 0.0), rel_l2(a, b))
+    row = {"cpu_loss": cpu_loss, "card_loss": card_loss,
+           "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss),
+           "worst_rel": worst,
+           "residual_abs_sum": float(sum(
+               x.abs().sum() for _, x in tree_paths(card.residual)))}
+    if not (all(v <= CARD_CPU_REL for v in worst.values())
+            and row["loss_rel"] <= CARD_CPU_REL
+            and row["residual_abs_sum"] > 0):
+        fail(f"compressed {kind} step, card against CPU: {row}")
+    print(f"  card against CPU, one compressed {kind} step (reduced): loss "
+          f"{card_loss:.6f} (rel {row['loss_rel']:.1e}); worst leaf "
+          + ", ".join(f"{k} {v:.1e}" for k, v in worst.items())
+          + f" (limit {CARD_CPU_REL:g})", flush=True)
+    return row
+
+
+def compressed_dp_phase(report: dict, card: str) -> dict:
+    """Compressed data parallelism on one card (an NCCL group of one
+    rank): `launch.train --pipeline --quick --compress-grads` at rnn-paper's
+    full width (60 steps a leg, B = 32, T = 100): SIGTERM, exit 43 and the
+    resume, both legs' final checkpoints bit-equal with their residual, the
+    residual non-zero and finite, the export served through the engine byte
+    for byte like drive_session(B=1), the accept rate; launches counted
+    across it (the engine's fused tick and GEMV must launch).  Then, in
+    process, the gradient compression's bytes, a compressed step against
+    an uncompressed one (timed in turns) and the compression's device time
+    a step; qwen3-0.6b at full width, 3 compressed steps at B = 8, T = 512
+    through `make_train_step(mesh=make_host_mesh(), compress_grads=True)`
+    (finite loss, non-zero residual, a step's ms, idle share, peak memory
+    against phase 12's); and a reduced compressed RNN step and pool step,
+    card against CPU.  Returns the counted launches."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import bnlstm as BL
+    from repro_torch.core import qlinear as QL
+    from repro_torch.core.qtensor import tree_leaves
+    from repro_torch.data.loader import to_device
+    from repro_torch.data.synth import token_stream
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.train import compress as C
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    out = {"card": card}
+    t_phase = time.perf_counter()
+
+    def secs(t):
+        torch.cuda.synchronize()
+        return round(time.perf_counter() - t, 1)
+
+    # 1. the rnn-paper pipeline with --compress-grads
+    base = ROOT / "build" / "compress_pipeline"
+    shutil.rmtree(base, ignore_errors=True)
+    argv = COMPRESS_PIPELINE_ARGS + ["--ckpt-dir", str(base),
+                                     "--results-dir", str(base / "results")]
+    dispatch.reset_counts()   # ---- the counted compressed run starts here
+    t0 = time.perf_counter()
+    train, serve, spec = launch_train.main(argv)
+    launches = dict(dispatch.LAUNCHES)
+    # ---- the counted compressed run ends here
+    for k, v in train["child_launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    out["pipeline_s"] = secs(t0)
+    if dispatch.PLAIN_CALLS:
+        fail(f"plain versions ran in the compressed pipeline: "
+             f"{dict(dispatch.PLAIN_CALLS)}")
+    res = train.get("residual_abs_sum")
+    if not (train["resume_bit_exact"] and train["restart_exit_code"] == 43
+            and serve["engine_byte_parity"] and spec["greedy_equal_plain"]
+            and res is not None and 0 < res < float("inf")):
+        fail(f"compressed pipeline rows {train} {serve} {spec}")
+    keys = json.loads((base / "straight" / "step_00000060" /
+                       "manifest.json").read_text())["leaves"]
+    if not any(k.startswith("residual.") for k in keys):
+        fail("the compressed pipeline's checkpoint holds no residual")
+    for k in ("packed_gemv", "fused_tick"):
+        if not launches.get(k):
+            fail(f"kernel {k} was never launched in the compressed "
+                 f"pipeline: {launches}")
+    out.update(rows=[train, serve, spec], launches=launches)
+    print(f"  compressed pipeline: SIGTERM at step {train['sigterm_at_step']}"
+          f", exit 43, resumed from {train['resumed_from_step']}; "
+          f"checkpoints bit-equal, residual included (|r| summed "
+          f"{res:.4f}); final val BPC {train['final_val_bpc']:.4f} "
+          f"(phase 8, uncompressed: "
+          f"{report['pipeline']['rows'][0]['final_val_bpc']:.4f}); engine "
+          f"streams == drive_session(B=1); accept rate "
+          f"{spec['accept_rate']:.3f}; {out['pipeline_s']} s; launches "
+          f"{launches}", flush=True)
+    shutil.rmtree(base, ignore_errors=True)
+
+    # 2. card against CPU (each side in its own group)
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = {k: card_against_cpu(k) for k in ("rnn", "pool")}
+    out["card_vs_cpu_s"] = secs(t0)
+
+    # 3. rnn-paper at full width in process: bytes, cost, share
+    t0 = time.perf_counter()
+    mesh = M.make_host_mesh(device="cuda")
+    args = launch_train.build_argparser().parse_args(TRAIN_ARGS)
+    corpus = launch_train.rnn_corpus(args)
+    cfg = launch_train.rnn_cfg(args, corpus)
+    opt = launch_train.opt_config(args)
+    var = BL.rnn_lm_init(torch.Generator().manual_seed(args.seed), cfg,
+                         device="cuda")
+    batch = to_device(corpus.batch("train", 0, args.batch, args.seq), "cuda")
+    plain_fn = TS.make_rnn_train_step(cfg, opt)
+    comp_fn = TS.make_rnn_train_step(cfg, opt, mesh=mesh,
+                                     compress_grads=True)
+    plain_st = TS.train_state_init(var["params"], opt, 1,
+                                   bn_state=var["state"])
+    comp_st = TS.train_state_init(var["params"], opt, 1,
+                                  bn_state=var["state"], compress=True)
+    full, packed = C.compressed_bytes(var["params"])
+    ms = in_turns({"plain": lambda: plain_fn(plain_st, batch),
+                   "compressed": lambda: comp_fn(comp_st, batch)})
+    grads = TS.loss_and_grads(comp_st.params, comp_st.bn_state, batch, cfg,
+                              TS.step_noise(comp_st))[2]
+    cost = compression_cost(mesh, grads, comp_st, comp_fn, batch)
+    out["rnn"] = {"fp32_bytes": full, "code_bytes": packed,
+                  "ratio": full / packed, "step_ms": ms, **cost,
+                  "phase7_profiled_step_us":
+                      report["training"]["profile_step"]["wall_us"]}
+    print(f"  rnn-paper (H = {cfg.d_hidden}, B = {args.batch}, T = "
+          f"{args.seq}): the mean moves {full / 1e6:.3f} MB of fp32 a step, "
+          f"{packed / 1e6:.3f} MB as 2-bit codes ({full / packed:.1f}x); a "
+          f"step {ms['compressed']:.1f} ms compressed against "
+          f"{ms['plain']:.1f} ms plain (in turns; phase 7's profiled step "
+          f"{out['rnn']['phase7_profiled_step_us'] / 1e3:.1f} ms)",
+          flush=True)
+    print_cost("rnn-paper", cost)
+    del grads, plain_st, comp_st
+    out["rnn_s"] = secs(t0)
+
+    # 4. qwen3-0.6b at full width: 3 compressed steps
+    t0 = time.perf_counter()
+    qcfg = pool_config("qwen3-0.6b")
+    qopt = OptConfig(lr=1e-3, warmup_steps=20, decay_steps=20, clip_norm=1.0)
+    state = TS.train_state_init(
+        T.model_init(torch.Generator("cuda").manual_seed(0), qcfg), qopt, 1,
+        compress=True)
+    step = TS.make_train_step(qcfg, qopt, mesh=mesh, compress_grads=True)
+    qbatch = to_device(token_stream(0, 8, 512, qcfg.vocab, seed=0), "cuda")
+    full, packed = C.compressed_bytes(state.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        state, m = step(state, qbatch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = float(sum(x.abs().sum() for x in tree_leaves(state.residual)))
+    if not (all(l == l and abs(l) < 1e9 for l in losses) and 0 < res
+            < float("inf")):
+        fail(f"qwen3-0.6b compressed steps: losses {losses}, |residual| {res}")
+    plain_state = TS.train_state_init(state.params, qopt, 1)
+    plain = TS.make_train_step(qcfg, qopt)
+    ms = in_turns({"plain": lambda: plain(plain_state, qbatch),
+                   "compressed": lambda: step(state, qbatch)}, reps=2)
+    del plain_state
+    loss_fn = lambda leaves: T.lm_loss(
+        leaves, qbatch, qcfg, training=True,
+        noise=QL.step_noise(1, int(state.opt.step)))
+    grads = TS.value_and_grad(loss_fn, state.params)[2]
+    cost = compression_cost(mesh, grads, state, step, qbatch)
+    del grads
+    phase12 = report["pool_training"]["step"]
+    out["qwen3"] = {"losses": losses, "step_ms": walls, "in_turns_ms": ms,
+                    "residual_abs_sum": res, "peak_gb": peak,
+                    "phase12_peak_gb": phase12["peak_gb"],
+                    "phase12_step_ms": phase12["host_ms"],
+                    "fp32_bytes": full, "code_bytes": packed, **cost}
+    print(f"  qwen3-0.6b (28 layers, B = 8, T = 512): 3 compressed steps, "
+          f"loss {[round(l, 4) for l in losses]}, {walls[-1]:.1f} ms a "
+          f"step (the first {walls[0]:.1f}); in turns {ms['compressed']:.1f}"
+          f" ms compressed against {ms['plain']:.1f} ms plain (phase 12's "
+          f"plain step {phase12['host_ms']:.1f} ms); peak {peak:.2f} GB "
+          f"against "
+          f"phase 12's {phase12['peak_gb']:.2f} GB; the mean moves "
+          f"{full / 1e9:.3f} GB of fp32 a step, {packed / 1e9:.3f} GB as "
+          f"2-bit codes ({full / packed:.1f}x); |residual| summed {res:.2f}",
+          flush=True)
+    print_cost("qwen3-0.6b", cost)
+    del state, step
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["qwen3_s"] = secs(t0)
+    out["wall_s"] = secs(t_phase)
+    report["compressed_dp"] = out
+    print(f"  compressed DP phase: {out['wall_s']} s on {card} (pipeline "
+          f"{out['pipeline_s']} s, card against CPU {out['card_vs_cpu_s']} "
+          f"s, rnn-paper {out['rnn_s']} s, qwen3-0.6b {out['qwen3_s']} s)",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3131,6 +3486,10 @@ def main() -> int:
     # 13. the VLM at full width
     print("vlm:", flush=True)
     vlm_launches = vlm_phase(report, card)
+
+    # 14. compressed data parallelism
+    print("compressed DP:", flush=True)
+    compress_launches = compressed_dp_phase(report, card)
     pool, ha = report["pool"], report["hybrid_audio"]
     all_rows = (rows + report["transformer"]["kernel_rows"]
                 + pool["qwen3_moe"]["kernel_rows"]
@@ -3139,7 +3498,7 @@ def main() -> int:
                 + ha["zamba2"]["kernel_rows"] + ha["whisper"]["kernel_rows"]
                 + report["vlm"]["kernel_rows"])
 
-    # 14. result
+    # 15. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
@@ -3162,6 +3521,8 @@ def main() -> int:
                         "hybrid_launches": hybrid_launches.get(name, 0),
                         "audio_launches": audio_launches.get(name, 0),
                         "vlm_launches": vlm_launches.get(name, 0),
+                        "compress_launches":
+                            compress_launches.get(name, 0),
                         "max_abs_err": max(x["max_abs_err"] for x in all_rows
                                            if x["name"] == name),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -15,13 +15,12 @@ as its parameters.  Fed the same
 weights, both packages compute the same function.
 
 A JAX `TrainState` (params, opt, rng, bn_state, residual) becomes the
-port's `TrainState`: params, `opt.step`/`m`/`v` and `bn_state` (None for
-a transformer's state) carry across, so a JAX-made state trains on in the
+port's `TrainState`: params, `opt.step`/`m`/`v`, `bn_state` (None for
+a transformer's state) and gradient compression's `residual` (None when
+compression is off) carry across, so a JAX-made state trains on in the
 port.  The JAX PRNG key cannot: `jax.random` and torch generators draw
 different numbers, so the port's `noise_seed` is the caller's
 (`noise_seed=`), and the two runs sample different weights from there on.
-Gradient compression is not ported, so a state with a `residual` is
-refused.
 
 `to_numpy` goes the other way; a port `TrainState` becomes a dict of the
 JAX state's fields without `rng` (`opt` an `OptState` of numpy), which
@@ -56,7 +55,7 @@ def _tensor(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a).copy())
+    return torch.from_numpy(np.array(a, order="C"))  # a copy, 0-d kept 0-d
 
 
 def from_numpy(tree: Any, device: Optional[str | torch.device] = None, *,
@@ -69,16 +68,14 @@ def from_numpy(tree: Any, device: Optional[str | torch.device] = None, *,
             return None
         fields = getattr(x, "_fields", None)
         if fields is not None and frozenset(fields) == _JAX_TRAIN_STATE:
-            if x.residual is not None:
-                raise ValueError("gradient compression is not ported: the "
-                                 "state carries a `residual`")
             opt = OptState(step=_tensor(np.asarray(x.opt.step, np.int32)),
                            m=conv(x.opt.m),
                            v=None if x.opt.v is None else conv(x.opt.v))
             return TrainState(params=conv(x.params), opt=opt,
                               noise_seed=torch.tensor(noise_seed,
                                                       dtype=torch.int64),
-                              bn_state=conv(x.bn_state))
+                              bn_state=conv(x.bn_state),
+                              residual=conv(x.residual))
         if fields is None and all(hasattr(x, a) for a in _ATTN_CACHE):
             return AttnCache(k=conv(x.k), v=conv(x.v), pos=conv(x.pos),
                              ring=bool(x.ring))
@@ -114,7 +111,8 @@ def to_numpy(tree: Any) -> Any:
         return None
     if isinstance(tree, TrainState):  # the JAX state's fields but `rng`
         return {"params": to_numpy(tree.params), "opt": to_numpy(tree.opt),
-                "bn_state": to_numpy(tree.bn_state), "residual": None}
+                "bn_state": to_numpy(tree.bn_state),
+                "residual": to_numpy(tree.residual)}
     if isinstance(tree, QTensor):
         return {"codes": tree.codes.cpu().numpy().view(np.uint32),
                 "k": tree.k, "mode": tree.mode, "alpha": tree.alpha,

@@ -1,9 +1,11 @@
-"""Device feeding, ported from `repro/data/loader.py` without the mesh.
+"""Device feeding, ported from `repro/data/loader.py`.
 
 `Prefetcher` assembles the batches of steps k+1 .. k+depth on a worker
 thread and puts them on the training device while step k runs.  The data
 pipeline is step-indexed (a batch is a pure function of its step), so
-dropping the queue on a restart loses nothing.
+dropping the queue on a restart loses nothing.  Given a mesh, each rank
+takes its contiguous block [r*B/D, (r+1)*B/D) of the global batch, what
+`NamedSharding(P('data'))` puts on device r in JAX (`data_block`).
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from repro_torch.launch import mesh as M
+
 
 def to_device(batch: dict, device: torch.device) -> dict:
     """numpy batch -> tensors on `device`, token ids as int64."""
@@ -21,15 +25,31 @@ def to_device(batch: dict, device: torch.device) -> dict:
             for k, v in batch.items()}
 
 
+def data_block(batch: dict, mesh) -> dict:
+    """Data replica r's rows [r*B/D, (r+1)*B/D) of every array of a global
+    batch of B rows over D replicas."""
+    r, d = M.data_index(mesh)
+    out = {}
+    for k, v in batch.items():
+        if len(v) % d:
+            raise ValueError(f"global batch {len(v)} ({k}) does not divide "
+                             f"over {d} data replicas")
+        n = len(v) // d
+        out[k] = v[r * n:(r + 1) * n]
+    return out
+
+
 class Prefetcher:
     """Pulls batches from `make_batch(step)` on a worker thread, `depth`
-    steps ahead, placing them on `device`.  Iterating yields (step, batch);
-    an error in the worker is raised on the consumer's side."""
+    steps ahead, placing them (this rank's block of them, given a `mesh`)
+    on `device`.  Iterating yields (step, batch); an error in the worker is
+    raised on the consumer's side."""
 
     def __init__(self, make_batch: Callable[[int], dict], start_step: int,
-                 device: torch.device, depth: int = 2):
+                 device: torch.device, depth: int = 2, mesh=None):
         self.make_batch = make_batch
         self.device = device
+        self.mesh = mesh
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._step = start_step
@@ -40,7 +60,10 @@ class Prefetcher:
         step = self._step
         while not self._stop.is_set():
             try:
-                b = to_device(self.make_batch(step), self.device)
+                b = self.make_batch(step)
+                if self.mesh is not None:
+                    b = data_block(b, self.mesh)
+                b = to_device(b, self.device)
             except Exception as e:  # surfaced on the consumer side
                 self.q.put(e)
                 return

@@ -48,14 +48,34 @@ it never writes).  --quick: at most 60 steps, evals every 20.
   PYTHONPATH=src python -m repro_torch.launch.train --pipeline --quick \\
       --reduced --device cpu
 
-Not ported yet, and refused: --compress-grads and --mesh-model (mesh
-training, ROADMAP Queue 1 item 9).  --pipeline is rnn-only, as in JAX.
+Data parallelism runs one process a device (`launch/mesh.py`): under
+`torchrun` (`python -m torch.distributed.run --nproc-per-node N -m
+repro_torch.launch.train ...`) each rank trains on `cuda:LOCAL_RANK` (NCCL)
+or the CPU (gloo), rank 0 logs and writes the checkpoints, and a SIGTERM
+on any rank checkpoints and exits 43 on all.  --compress-grads ternarizes
+each replica's gradient with error feedback before the data-parallel mean
+(`train/compress.py`); the state then carries the residual.  As in JAX,
+the rnn-paper run builds a data mesh over every rank for it, one rank
+included (a group of one rank on a free local port), and trains its
+uncompressed steps on the whole batch on each rank; a transformer arch
+builds its mesh from `train/elastic.best_mesh_shape(world, --mesh-model,
+--batch)` when there is more than one rank (JAX's `mesh: ...` banner;
+ranks the plan drops leave), and at one rank trains the plain step with a
+zero residual.  A plan with a model axis above 1 is refused: tensor
+parallelism waits for ROADMAP Queue 1 item 9.  --pipeline is rnn-only, as
+in JAX, and passes --compress-grads to its legs.
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --arch qwen3-0.6b \\
+      --reduced --device cpu --compress-grads --steps 4
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -69,6 +89,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import (ARCH_IDS, RNN_ARCH_IDS, get_config,
                                   get_rnn_config, rnn_paper)
@@ -78,8 +99,11 @@ from repro_torch.data.loader import Prefetcher, to_device
 from repro_torch.data.synth import markov_bytes, token_stream
 from repro_torch.data.text import ByteCorpus
 from repro_torch.kernels import dispatch
+from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as T
 from repro_torch.train import checkpoint as CK
+from repro_torch.train import compress as C
+from repro_torch.train.elastic import best_mesh_shape, make_mesh_from_plan
 from repro_torch.train.fault_tolerance import (RESTART_EXIT_CODE,
                                                PreemptionHandler, StepTimer,
                                                StragglerMonitor)
@@ -90,13 +114,6 @@ from repro_torch.train.train_step import (make_rnn_eval, make_rnn_train_step,
 SRC = Path(__file__).resolve().parents[2]
 RESULTS = SRC.parent / "results" / "benchmarks"
 RESULT_NAME = "torch_train_rnn.json"  # never JAX's train_rnn.json
-
-NOT_PORTED = {
-    "compress_grads": "--compress-grads waits for mesh training "
-                      "(ROADMAP Queue 1 item 9)",
-    "mesh_model": "--mesh-model waits for mesh training "
-                  "(ROADMAP Queue 1 item 9)",
-}
 
 
 def build_argparser():
@@ -140,9 +157,11 @@ def build_argparser():
     ap.add_argument("--results-dir", default=str(RESULTS),
                     help=f"where --pipeline writes {RESULT_NAME}")
     ap.add_argument("--compress-grads", action="store_true",
-                    help=NOT_PORTED["compress_grads"])
+                    help="ternary gradient compression with error feedback "
+                         "before the data-parallel mean")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help=NOT_PORTED["mesh_model"])
+                    help="the model axis the mesh plan keeps (a plan "
+                         "above 1 waits for ROADMAP Queue 1 item 9)")
     return ap
 
 
@@ -195,23 +214,55 @@ def _print_launches() -> None:
           flush=True)
 
 
+def _comp_line(params, replicas: int) -> None:
+    full, packed = C.compressed_bytes(params)
+    print(f"grad compression: {replicas} data replica(s); the mean moves "
+          f"{full / 1e6:.2f} MB of fp32 a step, {packed / 1e6:.2f} MB as "
+          f"2-bit codes ({full / packed:.1f}x)", flush=True)
+
+
+def _preempted(handler, mesh) -> bool:
+    """The preemption flag, agreed by every rank of the job's mesh."""
+    return (handler.preempted if mesh is None
+            else M.any_rank(handler.preempted, mesh))
+
+
 def run_rnn(args, handler=None):
     """Train the paper's BN-LSTM char-LM; returns the final TrainState.
     `handler` replaces the SIGTERM/SIGINT `PreemptionHandler`."""
-    device = dispatch.resolve_device(args.device)
+    device = M.local_device(args.device)
     corpus = rnn_corpus(args)
     cfg = rnn_cfg(args, corpus)
     print(f"rnn-paper: cell={cfg.cell} hidden={cfg.d_hidden} "
           f"vocab={cfg.vocab} quant={cfg.quant.mode} "
           f"corpus={len(corpus.data)} tokens device={device}", flush=True)
 
+    # a data mesh over every rank: the compressed step's, and the job's
+    # barrier; an uncompressed step keeps the whole batch on every rank
+    made, job = False, None
+    if args.compress_grads or M.world_size() > 1:
+        made = M.init_group(device)
+        job = M.make_host_mesh(device=device)
+    mesh = job if args.compress_grads else None
+    try:
+        return _train_rnn(args, handler, device, corpus, cfg, job, mesh)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _train_rnn(args, handler, device, corpus, cfg, job, mesh):
     opt_cfg = opt_config(args)
     var = BL.rnn_lm_init(torch.Generator().manual_seed(args.seed), cfg,
                          device=device)
     state = train_state_init(var["params"], opt_cfg, args.seed + 1,
-                             bn_state=var["state"])
-    step_fn = make_rnn_train_step(cfg, opt_cfg)
+                             bn_state=var["state"],
+                             compress=args.compress_grads)
+    step_fn = make_rnn_train_step(cfg, opt_cfg, mesh=mesh,
+                                  compress_grads=args.compress_grads)
     evaluate = make_rnn_eval(cfg)
+    if mesh is not None:
+        _comp_line(state.params, M.data_index(mesh)[1])
 
     def val_bpc(st) -> float:
         bpcs = [float(evaluate(st, to_device(corpus.batch(
@@ -234,8 +285,11 @@ def run_rnn(args, handler=None):
             # so the resumed run re-derives them identically
             curve = [e for e in _read_curve(curve_path)
                      if e["step"] <= start_step]
-            curve_path.write_text(
-                "".join(json.dumps(e) + "\n" for e in curve))
+            if job is not None:  # every rank has read it
+                M.barrier(job)
+            if M.rank() == 0:
+                curve_path.write_text(
+                    "".join(json.dumps(e) + "\n" for e in curve))
             scale0 = plateau.replay([e["val_bpc"] for e in curve])
             print(f"resumed from step {start_step} "
                   f"(lr_scale {scale0} from {len(curve)} journaled evals)",
@@ -243,10 +297,10 @@ def run_rnn(args, handler=None):
 
     own_handler = handler is None
     handler = handler or PreemptionHandler()
-    monitor = StragglerMonitor(n_hosts=1)
+    monitor = StragglerMonitor(n_hosts=M.world_size())
     prefetch = Prefetcher(
         lambda s: corpus.batch("train", s, args.batch, args.seq),
-        start_step, device)
+        start_step, device, mesh=mesh)
     scale = plateau.scale
     t_start = time.time()
     try:
@@ -256,7 +310,7 @@ def run_rnn(args, handler=None):
             with StepTimer() as tm:
                 state, metrics = step_fn(state, batch, scale)
                 _sync(device)
-            monitor.record(0, tm.dt)
+            monitor.record(M.rank(), tm.dt)
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"step {step:6d} loss {float(metrics['loss']):.4f} "
                       f"bpc {float(metrics['bpc']):.3f} "
@@ -269,17 +323,17 @@ def run_rnn(args, handler=None):
                 scale = plateau.update(v)
                 print(f"eval  step {done:6d} val_bpc {v:.4f} "
                       f"lr_scale {scale}", flush=True)
-                if curve_path is not None:
+                if curve_path is not None and M.rank() == 0:
                     with curve_path.open("a") as f:
                         f.write(json.dumps({"step": done, "val_bpc": v})
                                 + "\n")
             if ckpt and done % args.ckpt_every == 0 and done < args.steps:
                 ckpt.save_async(state, done)
-            if handler.preempted:
+            if _preempted(handler, job):
                 print("preempted: checkpointing and exiting 43", flush=True)
                 if ckpt:
                     ckpt.wait()
-                    CK.save(state, args.ckpt_dir, done)
+                    CK.save(state, args.ckpt_dir, done, mesh=job)
                 _print_launches()
                 sys.exit(RESTART_EXIT_CODE)
     finally:
@@ -288,7 +342,7 @@ def run_rnn(args, handler=None):
             handler.restore()
     if ckpt:
         ckpt.wait()
-        CK.save(state, args.ckpt_dir, args.steps)
+        CK.save(state, args.ckpt_dir, args.steps, mesh=job)
     dt = time.time() - t_start
     print(f"done: {args.steps - start_step} steps in {dt:.1f}s "
           f"({(args.steps - start_step) / max(dt, 1e-9):.2f} steps/s)")
@@ -301,12 +355,38 @@ def run_rnn(args, handler=None):
 # ---------------------------------------------------------------------------
 
 
+def train_mesh(args, world: int, device: torch.device):
+    """The transformer launcher's mesh, elastic as JAX's: none on one rank;
+    on several, `best_mesh_shape(world, --mesh-model, --batch)` with JAX's
+    banner, refused when its model axis is above 1 (tensor parallelism is
+    not ported); None on a rank the plan drops, which says so."""
+    plan = best_mesh_shape(world, want_model=args.mesh_model,
+                           global_batch=args.batch)
+    print(f"mesh: {dict(zip(plan.axes, plan.shape))}, per-replica batch "
+          f"{plan.per_replica_batch}, dropped {plan.dropped_devices} devices",
+          flush=True)
+    if plan.shape[-1] > 1:
+        raise SystemExit(f"--mesh-model {args.mesh_model}: the plan "
+                         f"{dict(zip(plan.axes, plan.shape))} has a model "
+                         f"axis; tensor parallelism waits for ROADMAP Queue "
+                         f"1 item 9")
+    replicas = math.prod(plan.shape[:-1])
+    if args.batch % replicas:
+        raise SystemExit(f"--batch {args.batch} does not divide over "
+                         f"{replicas} data replicas")
+    mesh = make_mesh_from_plan(plan, device)
+    if mesh is None:
+        print(f"rank {M.rank()}: the plan uses the first {replicas} of "
+              f"{world} ranks; this one leaves", file=sys.stderr, flush=True)
+    return mesh
+
+
 def run_transformer(args, handler=None):
     """Train a transformer-pool arch on tokens (--reduced to its smoke
     size, --quant overriding its quantization, with channel scales);
-    returns the final TrainState.  `handler` replaces the SIGTERM/SIGINT
-    `PreemptionHandler`."""
-    device = dispatch.resolve_device(args.device)
+    returns the final TrainState (None on a rank the mesh plan drops).
+    `handler` replaces the SIGTERM/SIGINT `PreemptionHandler`."""
+    device = M.local_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -321,6 +401,21 @@ def run_transformer(args, handler=None):
                          f"stream does not carry; train it through "
                          f"train_step.make_train_step with a batch that "
                          f"holds them")
+    made, mesh = False, None
+    world = M.world_size()
+    try:
+        if world > 1:
+            made = M.init_group(device)
+            mesh = train_mesh(args, world, device)
+            if mesh is None:
+                return None
+        return _train_transformer(args, handler, device, cfg, mesh)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _train_transformer(args, handler, device, cfg, mesh):
     if args.data == "synthetic":
         make_batch = lambda s: token_stream(s, args.batch, args.seq,
                                             cfg.vocab, seed=args.seed)
@@ -341,8 +436,12 @@ def run_transformer(args, handler=None):
                         decay_steps=args.steps, clip_norm=1.0)
     params = T.model_init(torch.Generator(device).manual_seed(args.seed),
                           cfg)
-    state = train_state_init(params, opt_cfg, args.seed + 1)
-    step_fn = make_train_step(cfg, opt_cfg)
+    state = train_state_init(params, opt_cfg, args.seed + 1,
+                             compress=args.compress_grads)
+    step_fn = make_train_step(cfg, opt_cfg, mesh=mesh,
+                              compress_grads=args.compress_grads)
+    if mesh is not None and args.compress_grads:
+        _comp_line(state.params, M.data_index(mesh)[1])
 
     start_step = 0
     ckpt = None
@@ -355,8 +454,8 @@ def run_transformer(args, handler=None):
 
     own_handler = handler is None
     handler = handler or PreemptionHandler()
-    monitor = StragglerMonitor(n_hosts=1)
-    prefetch = Prefetcher(make_batch, start_step, device)
+    monitor = StragglerMonitor(n_hosts=M.world_size())
+    prefetch = Prefetcher(make_batch, start_step, device, mesh=mesh)
     t_start = time.time()
     try:
         for step, batch in prefetch:
@@ -365,7 +464,7 @@ def run_transformer(args, handler=None):
             with StepTimer() as tm:
                 state, metrics = step_fn(state, batch)
                 _sync(device)
-            monitor.record(0, tm.dt)
+            monitor.record(M.rank(), tm.dt)
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"step {step:6d} loss {float(metrics['loss']):.4f} "
                       f"lr {float(metrics['lr']):.2e} "
@@ -374,11 +473,11 @@ def run_transformer(args, handler=None):
             done = step + 1
             if ckpt and done % args.ckpt_every == 0 and done < args.steps:
                 ckpt.save_async(state, done)
-            if handler.preempted:
+            if _preempted(handler, mesh):
                 print("preempted: checkpointing and exiting 43", flush=True)
                 if ckpt:
                     ckpt.wait()
-                    CK.save(state, args.ckpt_dir, done)
+                    CK.save(state, args.ckpt_dir, done, mesh=mesh)
                 _print_launches()
                 sys.exit(RESTART_EXIT_CODE)
     finally:
@@ -387,7 +486,7 @@ def run_transformer(args, handler=None):
             handler.restore()
     if ckpt:
         ckpt.wait()
-        CK.save(state, args.ckpt_dir, args.steps)
+        CK.save(state, args.ckpt_dir, args.steps, mesh=mesh)
     dt = time.time() - t_start
     print(f"done: {args.steps - start_step} steps in {dt:.1f}s "
           f"({(args.steps - start_step) / max(dt, 1e-9):.2f} steps/s)")
@@ -420,6 +519,8 @@ def _child_cmd(args, ckpt_dir: Path) -> list:
         cmd += ["--opt", args.opt]
     if args.device is not None:
         cmd += ["--device", args.device]
+    if args.compress_grads:
+        cmd.append("--compress-grads")
     return cmd
 
 
@@ -481,7 +582,7 @@ def _ckpt_bit_equal(a: Path, b: Path) -> bool:
 def run_rnn_pipeline(args) -> list:
     """train -> checkpoint -> SIGTERM restart -> export -> serve, asserted
     (see the module docstring).  Returns the result rows."""
-    from repro_torch.core.qtensor import tree_nbytes
+    from repro_torch.core.qtensor import tree_leaves, tree_nbytes
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.recurrent import (RNNRuntime, drive_session,
                                              speculative_draft)
@@ -541,8 +642,12 @@ def run_rnn_pipeline(args) -> list:
         var = BL.rnn_lm_init(torch.Generator().manual_seed(args.seed), cfg,
                              device=device)
         template = train_state_init(var["params"], opt_cfg, args.seed + 1,
-                                    bn_state=var["state"])
+                                    bn_state=var["state"],
+                                    compress=args.compress_grads)
         trained = CK.restore(template, dir_b, args.steps)
+        if trained.residual is not None:  # NaN or inf if any element is
+            rows[0]["residual_abs_sum"] = float(sum(
+                x.abs().sum() for x in tree_leaves(trained.residual)))
 
         mode = cfg.quant.mode if cfg.quant.mode != "none" else "ternary"
         qvar = BL.serving_variables(trained.params, trained.bn_state, cfg)
@@ -645,19 +750,16 @@ def run_rnn_pipeline(args) -> list:
 
 def main(argv=None, handler=None):
     args = build_argparser().parse_args(argv)
-    asked = {"compress_grads": args.compress_grads,
-             "mesh_model": args.mesh_model != 1}
-    for flag, on in asked.items():
-        if on:
-            raise SystemExit(f"not ported yet: {NOT_PORTED[flag]}")
     if args.pipeline:
         if args.arch not in RNN_ARCH_IDS:
             raise SystemExit("--pipeline is the rnn-paper train->serve "
                              "proof; run it with --arch rnn-paper")
         return run_rnn_pipeline(args)
-    if args.arch in RNN_ARCH_IDS:
-        return run_rnn(args, handler)
-    return run_transformer(args, handler)
+    run = run_rnn if args.arch in RNN_ARCH_IDS else run_transformer
+    if M.rank() == 0:  # rank 0 logs for the job: its ranks hold one state
+        return run(args, handler)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        return run(args, handler)
 
 
 if __name__ == "__main__":

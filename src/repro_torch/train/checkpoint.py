@@ -6,7 +6,8 @@
 
 A key is the leaf's dotted path in the JAX package's flatten order:
 `params.layers.0.wx`, `opt.step`, `opt.m.layers.0.wx`,
-`bn_state.layers.0.bn_x.mean`, ...  The port's `TrainState` has the JAX
+`bn_state.layers.0.bn_x.mean`, `residual.layers.0.wx` (gradient
+compression's error feedback), ...  The port's `TrainState` has the JAX
 state's leaves except its `rng` key, in whose place it keeps
 `noise_seed`.  Restoring a JAX checkpoint therefore ignores `rng` and keeps
 the template's `noise_seed`; every other template leaf must be in the
@@ -20,6 +21,10 @@ each save removes orphaned partial writes and all but the newest `keep`.
 `AsyncCheckpointer.save_async` copies the tree to host memory at once and
 writes the files on a worker thread; `wait()` joins it and re-raises its
 error.
+
+In a job of several ranks every rank holds the same state: rank 0 writes,
+and `save` given the job's mesh holds every rank at a barrier until the
+files are in place.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.qtensor import tree_map, tree_map_with_path, tree_paths
+from repro_torch.launch import mesh as M
 
 SEP = "."
 SHARD = "shard_00000"  # the JAX layout's shard of process 0: the port runs one
@@ -53,9 +59,20 @@ def _host(x) -> np.ndarray:
 
 
 def save(tree: Any, directory: str | Path, step: int, *,
-         keep: int = 3) -> Path:
-    """Synchronous atomic save.  Returns the final checkpoint path."""
+         keep: int = 3, mesh=None) -> Path:
+    """Synchronous atomic save by rank 0; with a `mesh`, every rank of it
+    waits at a barrier until the save is done.  Returns the final
+    checkpoint path."""
     directory = Path(directory)
+    final = directory / f"step_{step:08d}"
+    if M.rank() == 0:
+        _write(tree, directory, step, keep)
+    if mesh is not None:
+        M.barrier(mesh)
+    return final
+
+
+def _write(tree: Any, directory: Path, step: int, keep: int) -> None:
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
     tmp = directory / f"step_{step:08d}.tmp-{uuid.uuid4().hex[:8]}"
@@ -74,7 +91,6 @@ def save(tree: Any, directory: str | Path, step: int, *,
         shutil.rmtree(final)
     os.replace(tmp, final)
     _gc(directory, keep)
-    return final
 
 
 def _gc(directory: Path, keep: int) -> None:
@@ -132,12 +148,15 @@ class AsyncCheckpointer:
         self._error: Optional[BaseException] = None
 
     def save_async(self, tree: Any, step: int) -> None:
+        """Rank 0 writes; another rank returns at once."""
         self.wait()
+        if M.rank() != 0:
+            return
         host_tree = tree_map(_host, tree)
 
         def work():
             try:
-                save(host_tree, self.directory, step, keep=self.keep)
+                _write(host_tree, self.directory, step, self.keep)
             except BaseException as e:  # re-raised on wait()
                 self._error = e
 

@@ -1,8 +1,8 @@
 """Train steps for the transformer pool and the paper's BN-LSTM/GRU,
-ported from the single-device branches of `repro/train/train_step.py` (no
-mesh, no gradient compression):
+ported from `repro/train/train_step.py`:
 
-    grads -> clip -> AdamW/SGD -> master-weight clip to [-alpha, alpha]
+    grads -> [ternary compression + the data-parallel mean]
+          -> clip -> AdamW/SGD -> master-weight clip to [-alpha, alpha]
 
 The final clip is the paper's algorithm (it keeps the Bernoulli
 probabilities in [0, 1]); it applies to the quantizable 'W*' leaves
@@ -22,6 +22,24 @@ Gradients.  `torch.autograd.grad` returns None for a leaf the loss does not
 reach (the gate BNs' additive terms, fixed at 0, and the unused cell-norm
 BN of a GRU); `jax.grad` returns zeros there, and so does the step, so the
 global norm and the Adam moments see the same tree.
+
+Data parallelism.  JAX's `shard_map` over the mesh's data axes becomes one
+process a rank: each step is given its rank's block of the global batch
+(`data.loader.Prefetcher`), computes its local loss and gradients, and
+averages over the data axes with one all-reduce (`launch.mesh.data_mean`,
+JAX's `pmean`), so every rank holds the same state after the update.  With
+`compress_grads` the local gradients are first ternarized with error
+feedback (`train.compress`), and the mean takes the compressed gradients,
+the new residual, the loss and the pool's `nll` or the RNN's new BN
+running statistics; the RNN's batch statistics are then its local batch's,
+as in JAX.  The compression noise of step s is the port's own
+(`compress.step_noise`: noise_seed, s, the data rank, the leaf) or
+injected (`comp_noise=`).  The pool's uncompressed step on a mesh averages
+its gradients, loss, `nll` and `moe_aux` likewise, which is the
+global-batch gradient JAX's SPMD step computes (the MoE's load-balancing
+term is then the mean of the local batches' terms).  The RNN's uncompressed
+step ignores the mesh, as JAX's does: it keeps exact global-batch
+statistics, so its caller feeds it the whole batch.
 """
 from __future__ import annotations
 
@@ -33,8 +51,11 @@ import torch
 from repro_torch.core import bnlstm as BL
 from repro_torch.core import quantize as Q
 from repro_torch.core.qlinear import clip_tree, step_noise as leaf_noise
-from repro_torch.core.qtensor import tree_leaves, tree_map
+from repro_torch.core.qtensor import (tree_leaves, tree_map,
+                                       tree_map_with_path, tree_paths)
+from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as T
+from repro_torch.train import compress as C
 from repro_torch.train.optimizer import OptConfig, OptState, opt_init, opt_update
 
 
@@ -43,13 +64,18 @@ class TrainState(NamedTuple):
     opt: OptState
     noise_seed: torch.Tensor  # () int64; replaces JAX's `rng` key
     bn_state: Any = None
+    # gradient-compression error-feedback residual (None = compression off)
+    residual: Any = None
 
 
 def train_state_init(params: Any, opt_cfg: OptConfig, noise_seed: int,
-                     bn_state: Any = None) -> TrainState:
+                     bn_state: Any = None, compress: bool = False
+                     ) -> TrainState:
     return TrainState(params=params, opt=opt_init(params, opt_cfg),
                       noise_seed=torch.tensor(noise_seed, dtype=torch.int64),
-                      bn_state=bn_state)
+                      bn_state=bn_state,
+                      residual=(tree_map(torch.zeros_like, params)
+                                if compress else None))
 
 
 def _step_generator(noise_seed: int, step: int,
@@ -91,45 +117,98 @@ def loss_and_grads(params: Any, bn_state: Any, batch: dict,
                                   training=True, noise=noise), params)
 
 
-def make_train_step(cfg, opt_cfg: OptConfig) -> Callable:
-    """The transformer pool's step(state, batch, noise=None) -> (state,
-    metrics): `transformer.lm_loss` (stochastic quantization with
-    straight-through gradients) and its gradients, then `opt_update`
-    (clip, AdamW/SGD, the schedule), then `clip_tree`.  `noise` overrides
-    the step's own draw (`qlinear.step_noise(noise_seed, step)`): a
-    {path: u} mapping of every quantizable leaf."""
+def _compressed(state: TrainState, grads: Any, mesh, comp_noise, at):
+    """The local gradients compressed with error feedback: (grads, new
+    residual), drawing the step's own noise unless it is given.  `at` is
+    (noise_seed, step), read before the step's work was queued: reading
+    the device's step counter later would wait for that work."""
+    if comp_noise is None:
+        comp_noise = C.step_noise(grads, *at, M.data_index(mesh)[0])
+    return C.compress_tree(grads, comp_noise, state.residual)
 
-    def step(state: TrainState, batch: dict, noise=None):
+
+def mean_trees(mesh, *trees):
+    """`data_mean` of every leaf of `trees` in one all-reduce; the trees
+    back, in their structures."""
+    paths = [tree_paths(t) for t in trees]
+    flat = iter(M.data_mean(mesh, [x for ps in paths for _, x in ps]))
+    out = []
+    for t, ps in zip(trees, paths):
+        got = {p: next(flat) for p, _ in ps}
+        out.append(tree_map_with_path(lambda p, _: got[p], t))
+    return out
+
+
+def make_train_step(cfg, opt_cfg: OptConfig, mesh=None,
+                    compress_grads: bool = False) -> Callable:
+    """The transformer pool's step(state, batch, noise=None,
+    comp_noise=None) -> (state, metrics): `transformer.lm_loss`
+    (stochastic quantization with straight-through gradients) and its
+    gradients, then `opt_update` (clip, AdamW/SGD, the schedule), then
+    `clip_tree`.  `noise` overrides the step's own draw
+    (`qlinear.step_noise(noise_seed, step)`): a {path: u} mapping of every
+    quantizable leaf.  With a `mesh` the batch is this rank's block and the
+    gradients are averaged over the data axes, compressed first with
+    `compress_grads` (the module docstring); `comp_noise` overrides the
+    compression's draw (one u a leaf, in flatten order)."""
+    compress = compress_grads and mesh is not None
+
+    def step(state: TrainState, batch: dict, noise=None, comp_noise=None):
+        at = (int(state.noise_seed), int(state.opt.step))
         if noise is None:
-            noise = leaf_noise(int(state.noise_seed), int(state.opt.step))
+            noise = leaf_noise(*at)
         loss, aux, grads = value_and_grad(
             lambda leaves: T.lm_loss(leaves, batch, cfg, training=True,
                                      noise=noise), state.params)
+        nll, residual = aux["nll"].detach(), state.residual
+        if compress:
+            grads, residual = _compressed(state, grads, mesh, comp_noise, at)
+            grads, residual, (loss, nll) = mean_trees(
+                mesh, grads, residual, [loss, nll])
+            metrics = {"loss": loss, "nll": nll}
+        else:
+            moe_aux = aux["moe_aux"].detach()
+            if mesh is not None:
+                grads, (loss, nll, moe_aux) = mean_trees(
+                    mesh, grads, [loss, nll, moe_aux])
+            metrics = {"loss": loss, "nll": nll, "moe_aux": moe_aux}
         params, opt, m2 = opt_update(grads, state.opt, state.params, opt_cfg)
-        metrics = {"loss": loss, "nll": aux["nll"].detach(),
-                   "moe_aux": aux["moe_aux"].detach(), **m2}
-        return state._replace(params=clip_tree(params, cfg.quant),
-                              opt=opt), metrics
+        metrics.update(m2)
+        return state._replace(params=clip_tree(params, cfg.quant), opt=opt,
+                              residual=residual), metrics
 
     return step
 
 
-def make_rnn_train_step(cfg: BL.RNNConfig, opt_cfg: OptConfig) -> Callable:
-    """step(state, batch, lr_scale=1.0, noise=None) -> (state, metrics).
-    `lr_scale` is the plateau schedule's hook; `noise` overrides the
-    step's own draw (`step_noise`)."""
+def make_rnn_train_step(cfg: BL.RNNConfig, opt_cfg: OptConfig, mesh=None,
+                        compress_grads: bool = False) -> Callable:
+    """step(state, batch, lr_scale=1.0, noise=None, comp_noise=None) ->
+    (state, metrics).  `lr_scale` is the plateau schedule's hook; `noise`
+    overrides the step's own draw (`step_noise`).  With `compress_grads`
+    and a `mesh`, the batch is this rank's block: the local gradients are
+    compressed with error feedback and averaged over the data axes with
+    the new residual, the loss and the new BN running statistics
+    (local-batch BN, as in JAX); `comp_noise` overrides the compression's
+    draw."""
+    compress = compress_grads and mesh is not None
 
     def step(state: TrainState, batch: dict, lr_scale=1.0,
-             noise: Optional[list] = None):
+             noise: Optional[list] = None, comp_noise=None):
+        at = (int(state.noise_seed), int(state.opt.step))
         if noise is None:
             noise = step_noise(state)
         loss, new_bn, grads = loss_and_grads(state.params, state.bn_state,
                                              batch, cfg, noise)
+        residual = state.residual
+        if compress:
+            grads, residual = _compressed(state, grads, mesh, comp_noise, at)
+            grads, residual, new_bn, (loss,) = mean_trees(
+                mesh, grads, residual, new_bn, [loss])
         params, opt, m2 = opt_update(grads, state.opt, state.params, opt_cfg,
                                      lr_scale)
         metrics = {"loss": loss, "bpc": loss / math.log(2.0), **m2}
         return state._replace(params=BL.clip_masters(params, cfg), opt=opt,
-                              bn_state=new_bn), metrics
+                              bn_state=new_bn, residual=residual), metrics
 
     return step
 

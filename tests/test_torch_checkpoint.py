@@ -202,13 +202,53 @@ def test_launcher_trains_on_the_cpu(capsys):
     assert len(losses) == 4 and np.isfinite(losses).all()
 
 
-@pytest.mark.parametrize("flag,queue", [
-    (["--pipeline", "--compress-grads"], "Queue 1 item 9"),
-    (["--compress-grads"], "Queue 1 item 9"),
-    (["--mesh-model", "2"], "Queue 1 item 9")])
-def test_launcher_refuses_what_is_not_ported(flag, queue):
-    with pytest.raises(SystemExit, match=queue):
-        LT.main(ARGS + flag)
+@pytest.mark.parametrize("flag", [
+    ["--pipeline", "--quick", "--compress-grads", "--steps", "6"],
+    ["--compress-grads", "--steps", "4", "--eval-every", "2"],
+    ["--arch", "qwen3-0.6b", "--mesh-model", "2", "--steps", "2"]])
+def test_launcher_runs_what_it_refused(flag, tmp_path, capsys):
+    """--compress-grads, --pipeline --compress-grads (its legs carry the
+    flag) and --mesh-model 2 were refused until compressed DP was ported;
+    at one rank each now trains.  The RNN builds its data mesh of one rank
+    and carries a residual; the pool trains the plain step with a zero
+    residual, and a model axis of 2 on one rank plans (1, 1), as JAX's
+    launcher runs on one device."""
+    got = LT.main(ARGS + flag + ["--ckpt-dir", str(tmp_path / "ckpt"),
+                                 "--results-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert not torch.distributed.is_initialized()  # its group is gone
+    if "--pipeline" in flag:
+        train = got[0]
+        assert "--compress-grads" in LT._child_cmd(
+            LT.build_argparser().parse_args(ARGS + flag), tmp_path)
+        assert train["resume_bit_exact"] and train["restart_exit_code"] == 43
+        assert 0 < train["residual_abs_sum"] < float("inf")
+        ckpt = tmp_path / "ckpt" / "straight" / "step_00000006" / CK.SHARD
+        assert any(p.name.startswith("residual.") for p in ckpt.iterdir())
+    elif "--compress-grads" in flag:
+        assert int(got.opt.step) == 4
+        assert "grad compression: 1 data replica(s)" in out
+        assert sum(float(x.abs().sum()) for x in tree_leaves(got.residual)) > 0
+    else:
+        assert int(got.opt.step) == 2 and got.residual is None
+        assert "mesh:" not in out  # one rank: no plan, as in JAX
+
+
+@pytest.mark.parametrize("world,model,batch,why", [
+    (2, 2, 8, "Queue 1 item 9"), (8, 4, 8, "Queue 1 item 9"),
+    (2, 1, 3, "does not divide")])
+def test_launcher_refuses_a_model_axis(world, model, batch, why, capsys):
+    """A mesh plan with a model axis above 1 is refused (tensor
+    parallelism waits for ROADMAP Queue 1 item 9), after JAX's banner, and
+    so is a global batch the plan's replicas do not divide; neither makes
+    a process group."""
+    args = LT.build_argparser().parse_args(
+        ["--arch", "qwen3-0.6b", "--mesh-model", str(model), "--batch",
+         str(batch)])
+    with pytest.raises(SystemExit, match=why):
+        LT.train_mesh(args, world, torch.device("cpu"))
+    assert "per-replica batch" in capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
 
 
 def test_launcher_needs_a_card_unless_asked_for_the_cpu():

@@ -20,7 +20,9 @@ the hybrid and audio paths' shapes (zamba2's Win at N = 8384, whisper's
 K = 512 and its encoder's M = 6000) with reduced zamba2 and whisper
 runtimes against their CPU run; and the vlm's (d 8192 and d_ff 28,672
 at decode rows and M = 512, its cross K/V at M = 6400), with one training
-step of every reduced arch against its CPU step.  The GEMV, the GEMM and
+step of every reduced arch against its CPU step; and gradient compression
+on the card against the CPU, bit for bit, with one compressed step of
+each family over an NCCL group of one rank.  The GEMV, the GEMM and
 the tick are also launched twice and must repeat bit for bit.
 
 Tolerances: the packed products are exact (weights are -1/0/+1), so the
@@ -1003,3 +1005,91 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(card, arch):
     for a, b in zip(tree_leaves(dev.params), tree_leaves(cpu.params)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
     assert not dispatch.LAUNCHES
+
+
+# --- compressed data parallelism ---------------------------------------------
+
+
+@pytest.fixture
+def no_group():
+    """A test's process groups are gone after it (each side of a card
+    against CPU comparison makes its own: NCCL on the card, gloo on the
+    CPU)."""
+    import torch.distributed as dist
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_compression_on_the_card_equals_the_cpu(card):
+    """`ternary_compress` and `compress_tree` on CUDA tensors, bit for bit
+    the CPU's for the same u: a max, one IEEE division by a same-device
+    tensor, a strict compare and a multiply, all exact or rounded alike."""
+    from repro_torch.train import compress as C
+    g = torch.Generator().manual_seed(0)
+    grads = {"wh": 0.1 * torch.randn((1000, 4000), generator=g),
+             "b": 0.01 * torch.randn(4000, generator=g),
+             "zero": torch.zeros(64)}
+    res = {k: 1e-3 * torch.randn(v.shape, generator=g)
+           for k, v in grads.items()}
+    u = list(C.step_noise(grads, 1, 7, 0))
+    cpu = C.compress_tree(grads, u, res)
+    dev = C.compress_tree(tree_to(grads, card), tree_to(u, card),
+                          tree_to(res, card))
+    for a, b in zip(tree_leaves(cpu), tree_leaves(dev)):
+        assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+    drawn = list(C.step_noise(tree_to(grads, card), 1, 7, 0))
+    assert all(d.device.type == "cuda" for d in drawn)
+
+
+@pytest.mark.parametrize("kind", ["rnn", "pool"])
+def test_compressed_step_in_an_nccl_group_of_one(card, kind, no_group):
+    """One compressed step over a data mesh of one rank, NCCL on the card
+    and gloo on the CPU, the model noise and the compression draws
+    injected: params and BN state within 1e-5 relative L2 a leaf (the
+    compressed values are 0 or +-max|g|, so the update barely feels the
+    gradients' fp32 sums in other orders); the residual, g - t, carries
+    g's own summation error, and is held as this file holds a gradient,
+    within 1e-4 (1.8e-5 measured on an RNN bias, a sum over the batch and
+    the time steps that nearly cancels); and non-zero."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_rnn_config, rnn_paper
+    from repro_torch.core import qlinear as QL
+    from repro_torch.core.qtensor import tree_paths
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import compress as C
+    opt = OPT.OptConfig(lr=1e-3, warmup_steps=20, clip_norm=1.0)
+    g = torch.Generator().manual_seed(0)
+    if kind == "rnn":
+        cfg = rnn_paper.reduced(get_rnn_config("rnn-paper"))
+        var = BL.rnn_lm_init(g, cfg, device="cpu")
+        state = TS.train_state_init(var["params"], opt, 1,
+                                    bn_state=var["state"], compress=True)
+        noise, make = TS.step_noise(state), TS.make_rnn_train_step
+    else:
+        cfg = get_config("qwen3-0.6b").reduced()
+        state = TS.train_state_init(T.model_init(g, cfg), opt, 1,
+                                    compress=True)
+        pol, draw = cfg.quant.policy(), QL.step_noise(1, 0)
+        noise = {"/".join(p): draw("/".join(p), l)
+                 for p, l in tree_paths(state.params)
+                 if pol.matches_name(p[-1], "/".join(p), l.dim())}
+        make = TS.make_train_step
+    toks = torch.randint(0, cfg.vocab, (4, 33), generator=g)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    comp = list(C.step_noise(state.params, 1, 0, 0))
+    got = {}
+    for dev in ("cpu", card):
+        mesh = M.make_host_mesh(device=dev)
+        got[str(dev)] = make(cfg, opt, mesh=mesh, compress_grads=True)(
+            tree_to(state, dev), tree_to(batch, dev),
+            noise=tree_to(noise, dev), comp_noise=tree_to(comp, dev))[0]
+        dist.destroy_process_group()
+    cpu, dev = got["cpu"], got[str(card)]
+    assert sum(float(x.abs().sum()) for x in tree_leaves(dev.residual)) > 0
+    for f, tol in (("params", 1e-5), ("residual", 1e-4), ("bn_state", 1e-5)):
+        for (path, a), b in zip(tree_paths(getattr(cpu, f)),
+                                tree_leaves(getattr(dev, f))):
+            rel = (b.cpu() - a).norm().item() / max(a.norm().item(), 1e-30)
+            assert rel <= tol, (f, path, rel)

@@ -372,20 +372,31 @@ def test_step_noise_is_a_function_of_seed_and_step():
 
 
 def test_jax_train_state_converts_and_back():
+    """A JAX RNN TrainState carries across and back, its gradient
+    compression residual too (None when compression is off)."""
     jcfg, _ = _cfgs("gru", "binary", hidden=16, layers=1)
     var = JBL.rnn_lm_init(jax.random.PRNGKey(0), jcfg)
     jst = JTS.train_state_init(var["params"], JOPT.OptConfig(kind="sgd"),
                                jax.random.PRNGKey(1), bn_state=var["state"])
     tst = convert.from_numpy(_np(jst), device="cpu", noise_seed=5)
     assert int(tst.noise_seed) == 5 and tst.opt.v is None
+    assert tst.residual is None and tst.opt.step.shape == ()
     back = convert.to_numpy(tst)
+    assert back["residual"] is None
     again = jst._replace(params=back["params"], opt=JOPT.OptState(*back["opt"]),
                          bn_state=back["bn_state"])
     for a, b in zip(jax.tree.leaves(again), jax.tree.leaves(jst)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    with pytest.raises(ValueError, match="residual"):
-        convert.from_numpy(_np(jst._replace(residual=var["params"])),
-                           device="cpu")
+    jres = jst._replace(residual=jax.tree.map(lambda x: 0.01 * x,
+                                              var["params"]))
+    tst = convert.from_numpy(_np(jres), device="cpu")
+    _assert_trees(jres.residual, tst.residual, rtol=0, atol=0)
+    back = convert.to_numpy(tst)
+    _assert_trees(jres.residual, convert.from_numpy(back["residual"], "cpu"),
+                  rtol=0, atol=0)
+    for a, b in zip(jax.tree.leaves(back["residual"]),
+                    jax.tree.leaves(jres.residual)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 # --- data ----------------------------------------------------------------------
