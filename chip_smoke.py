@@ -6,18 +6,20 @@ qwen3-moe-30b-a3b, rwkv6-7b, zamba2-1.2b, whisper-base and
 llama-3.2-vision-90b at full width, mixtral-8x7b at its widths) and the
 pool's training path (qwen3-0.6b at full width, every other family at
 its reduced size), with compressed data-parallel training of both
-families, on one NVIDIA card.
+families, and the model axis (a tensor-parallel training step and the mesh
+engine, at one rank), on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero before the last line:
   1. card     — nvidia-smi name and power limit, torch and CUDA versions;
-  2. build    — compile the four CUDA kernels from `src/repro_torch/csrc`
+  2. build    — compile the five CUDA kernels from `src/repro_torch/csrc`
                 (one nvcc each, all at once) and print the ptxas report:
-                `packed_gemv`, `packed_matmul` and `fused_tick` must spill
-                no register;
-                then the SASS of `packed_gemv` must hold no float multiply,
-                and that of `packed_matmul` bf16 tensor-core HMMAs;
+                `packed_gemv`, `packed_matmul`, `fused_tick` and
+                `ordered_bmm` must spill no register;
+                then the SASS of `packed_gemv` and of `packed_matmul` (the
+                GEMV's kernel over 8-row tiles, so a row's sum order does
+                not follow the row count) must hold no float multiply;
   3. kernels  — the launch floor (the device time of a one-element
                 in-place add on the same stream); then, at the main path's
                 shapes, hold each kernel against its plain PyTorch version
@@ -26,9 +28,12 @@ Phases, in order; any failure exits non-zero before the last line:
                 bound and one PyTorch library call where one computes the
                 same function: the GEMV at bp = 4 (B = 4 prefill, ternary),
                 1 (the engine's prompt step, ternary) and 8 (binary), the GEMM at M = 16 (B = 16 prefill) and 32
-                (packed eval), each launched twice and held bit-equal; the
-                tick at B = 4 and 16, each held against the plain version on
-                its own inputs;
+                (packed eval), each launched twice and held bit-equal, the
+                GEMM's rows bit-equal to the GEMV's and to its own at other
+                row counts; the tick at B = 4 and 16, each held against the
+                plain version on its own inputs; ordered_bmm, attention's
+                two products, at qwen3's decode and prefill shapes, a row's
+                bits the same at any batch and row count;
   4. main path — rnn-paper at full width (char-PTB BN-LSTM, H = 1000,
                 ternary, random weights from a seed, BN statistics, BN
                 scales and biases moved off init): rnn_lm_init ->
@@ -65,8 +70,9 @@ Phases, in order; any failure exits non-zero before the last line:
                 the front door's loopback smoke (a streamed request, a
                 hangup that cancels, a prefix hit, over 127.0.0.1); and
                 two layers at H = 256, where chunked and whole prefill
-                meet different kernels: the state held to 1e-5, bit
-                equality and differing streams reported;
+                meet the GEMV and the GEMM at other row counts: the chunked
+                state bit-equal to the whole prompt's, every engine stream
+                equal to drive_session(B=1);
   7. training — rnn-paper at full width through `repro_torch.launch.train`
                 (batch 32, seq 100, 20 steps, eval and checkpoint every 10,
                 synthetic corpus), with the launch counters zeroed just
@@ -104,14 +110,13 @@ Phases, in order; any failure exits non-zero before the last line:
                 packed GEMVs a decode step, 196 GEMMs a prefill), a decode
                 step and a prefill under torch.profiler; the engine over 32
                 requests of synth_traffic(seed=0) (prompts U[1, 128], gen
-                U[1, 32], T 0.8, top-k 40) at 8 slots, chunk 32, the
-                sampled streams equal to drive_session(B=1) counted and,
-                run greedy, every divergence at a top-2 logit gap below
-                0.1; speculative k = 4 (bf16 masters, ternary draft, 8
+                U[1, 32], T 0.8, top-k 40) at 8 slots, chunk 32, every
+                stream, sampled and run greedy, equal to
+                drive_session(B=1); speculative k = 4 (bf16 masters, ternary draft, 8
                 greedy requests: accept rate, streams equal to the plain
                 engine's); 8 requests behind a 64-token prefix (at least 7
                 prefix-cache hits); the engine, speculative and prefix runs
-                on a cut of 14 of the 28 layers;
+                on a cut of 8 of the 28 layers;
   10. pool    — the transformer pool's MoE and RWKV6 families, ternary with
                 channel scales, bf16, random weights from a seed, each tree
                 drawn a layer at a time on the card and exported as it is
@@ -131,9 +136,8 @@ Phases, in order; any failure exits non-zero before the last line:
                 slots over 8 requests of synth_traffic(seed=0) (prompts
                 U[1, 128], gen U[1, 16]: host-bound steps cut the count;
                 the lockstep run on the same cut),
-                one prefill chunk a prompt, its sampled streams against
-                drive_session(B=1) counted, its greedy streams held to
-                diverge only at top-2 gaps below 0.1 as in phase 9,
+                one prefill chunk a prompt, every stream, sampled and
+                greedy, equal to drive_session(B=1),
                 speculation and a prefix cache refused with JAX's messages;
                 mixtral-8x7b at its widths (d 4096, 8 experts of 14336,
                 top-2, window 4096 on every layer) and 2 layers: the GEMV at
@@ -168,8 +172,9 @@ Phases, in order; any failure exits non-zero before the last line:
                 memory within 16 times its inputs, the first 256 outputs
                 against the unrolled step); then, counted: zamba2's lockstep
                 B = 4, prompt 128, gen 32 with a decode step and a prefill
-                profiled, its engine over 16 requests (gen U[1, 32]) held
-                as rwkv6's, and its CLI;
+                profiled, its engine (on a cut of 12 of its 38 mamba
+                layers) over 16 requests (gen U[1, 32]) held as rwkv6's,
+                and its CLI;
                 whisper's lockstep B = 4, prompt 32, gen 32 over 1500
                 frames with the encoder's share of a prefill, and its CLI;
                 the engine refuses whisper (a runtime with extras), as
@@ -209,7 +214,8 @@ Phases, in order; any failure exits non-zero before the last line:
                 M = 6400 on the cross layer's Wk, held as in phase 9;
                 then, counted, lockstep B = 4, prompt 128, gen 32 with a
                 decode step and a prefill profiled, the engine's refusal
-                of a runtime with extras, and its CLI at the same shape;
+                of a runtime with extras, and its CLI (B = 4, prompt 32,
+                gen 8);
   14. compressed DP — `repro_torch.launch.train --pipeline --quick
                 --compress-grads` at rnn-paper's full width (60 steps a
                 leg, B = 32, T = 100, a data mesh of one rank over NCCL):
@@ -232,7 +238,15 @@ Phases, in order; any failure exits non-zero before the last line:
                 12's.  The compressed step launches no kernel: its new work
                 is elementwise passes over every gradient leaf and one
                 all-reduce;
-  15. result  — the kernels JSON line (each kernel's launches on every
+  15. mesh    — the model axis at one rank, a ("data", "model") mesh of
+                (1, 1) over NCCL: a qwen3-0.6b bf16 training step (B = 4,
+                T = 256) through the tensor-parallel DTensor step, its
+                params and moments bit-equal to the plain step's; the mesh
+                engine (make_serve_mesh("data=1")) over an fp qwen3-0.6b on
+                8 of its 28 layers, every stream equal to the mesh=None
+                engine's and tick_collectives() == 0; the packed tree
+                refused on a mesh with JAX's reason;
+  16. result  — the kernels JSON line (each kernel's launches on every
                 path), the card line, and {"ok": true, "device": {...}}
                 last.
 
@@ -468,9 +482,13 @@ def packed_bound(qt, rows: int) -> tuple[float, str]:
 
 
 def gemm_bound(qt, rows: int) -> tuple[float, str]:
-    """The bound of the GEMM's route to x (rows, k) @ unpack(codes): its
-    bytes, or the three bf16 products of the exact split (x = hi + mid +
-    lo), 3 * 2 * rows * k * N flops at the bf16 tensor-core rate."""
+    """The bound of x (rows, k) @ unpack(codes) at M > 8: its bytes, or the
+    three bf16 products of the exact split (x = hi + mid + lo), 3 * 2 *
+    rows * k * N flops at the bf16 tensor-core rate, the fastest way the
+    card computes this exact product.  The kernel since PR 21 adds on the
+    CUDA cores in the GEMV's order (a row's bits independent of the row
+    count); its rows also carry `fp32_add_bound_ms`, that design's own
+    bound, so the table shows what the order costs."""
     flops = 3 * 2 * rows * qt.k * qt.codes.shape[1]
     return bound(packed_bytes(qt, rows), flops / BF16_FLOP_S)
 
@@ -556,31 +574,24 @@ def sass_functions(so_path: Path) -> dict:
 
 
 def sass_check(gemv_so: Path, matmul_so: Path) -> dict:
-    """The packed_gemv kernels must hold no float multiply (integer IMAD for
-    addresses is fine); the packed_matmul kernels must multiply on the
-    tensor cores (HMMA, bf16 in, fp32 out).  Returns instruction counts."""
-    gemv = {f: body for f, body in sass_functions(gemv_so).items()
-            if "packed_gemv" in f}
-    if not gemv:
-        fail("no packed_gemv function found in the SASS")
+    """The kernels of both libraries must hold no float multiply (integer
+    IMAD for addresses is fine): `packed_gemv`'s instances, and
+    `packed_matmul`'s, which are the GEMV's kernel at 8 rows over row
+    tiles.  Returns instruction counts."""
     counts = {}
-    for f, body in gemv.items():
-        bad = [l.strip() for l in body
-               if MULTIPLY_OPS.search(l) and not CONSTANT_MOVE.search(l)]
-        if bad:
-            fail(f"float multiply in {f}: {bad[:4]}")
-        text = "\n".join(body)
-        counts[f] = {op: len(re.findall(rf"\b{op}\b", text))
-                     for op in ("FADD", "LOP3", "IMAD")}
-    gemm = {f: body for f, body in sass_functions(matmul_so).items()
-            if "packed_matmul" in f}
-    if not gemm:
-        fail("no packed_matmul function found in the SASS")
-    for f, body in gemm.items():
-        hmma = sum(1 for l in body if re.search(r"\bHMMA\.16816\.F32\.BF16\b", l))
-        if not hmma:
-            fail(f"no bf16 HMMA in {f}")
-        counts[f] = {"HMMA.16816.F32.BF16": hmma}
+    for label, so in (("packed_gemv", gemv_so), ("packed_matmul", matmul_so)):
+        funcs = {f: body for f, body in sass_functions(so).items()
+                 if "packed_gemv" in f}
+        if not funcs:
+            fail(f"no packed_gemv kernel found in the SASS of {label}")
+        for f, body in funcs.items():
+            bad = [l.strip() for l in body
+                   if MULTIPLY_OPS.search(l) and not CONSTANT_MOVE.search(l)]
+            if bad:
+                fail(f"float multiply in {label}'s {f}: {bad[:4]}")
+            text = "\n".join(body)
+            counts[f"{label}:{f}"] = {op: len(re.findall(rf"\b{op}\b", text))
+                                      for op in ("FADD", "LOP3", "IMAD")}
     return counts
 
 
@@ -660,6 +671,7 @@ def kernels_phase(report: dict) -> list:
                 fail(f"packed_matmul {mode} M={M}: max abs err {err}")
             if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
                 fail(f"packed_matmul {mode} M={M}: two launches differ")
+            rows_invariant(f"packed_matmul {mode}", x, qt.codes, mode, got)
             w = torch.nn.functional.pad(qt.dequantize() / qt.alpha,
                                         (0, 0, 0, K - qt.k))
             b_ms, b_by = gemm_bound(qt, M)
@@ -673,7 +685,8 @@ def kernels_phase(report: dict) -> list:
                 lambda: torch.matmul(x, w), b_ms, b_by))
             rows[-1]["fp32_add_bound_ms"] = packed_bound(qt, M)[0]
         print(f"  packed_matmul {mode}: M=16,32 match plain; two launches "
-              f"bit-equal", flush=True)
+              f"bit-equal; every row the GEMV's bits at any row count",
+              flush=True)
 
     # -- fused_tick: LSTM/GRU x ternary/binary x L in {1, 2}, dead rows --------
     for cell in ("lstm", "gru"):
@@ -747,6 +760,7 @@ def kernels_phase(report: dict) -> list:
             print(f"  fused_tick {cell}/{mode}: L=1,2 match plain; dead rows "
                   f"bit-exact; greedy == argmax", flush=True)
     rows += quantize_pack_rows(g)
+    rows += ordered_bmm_rows(g)
     report["kernel_rows"] = rows
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
     print("  kernel         shape                                        err       "
@@ -758,6 +772,86 @@ def kernels_phase(report: dict) -> list:
               f"({us(r['plain_wall_ms'])})  {us(r['library_ms'])} "
               f"({us(r['library_wall_ms'])})  {r['bound_ms'] * 1e3:.2f} "
               f"({r['bound_by']})", flush=True)
+    return rows
+
+
+def ordered_bmm_rows(g) -> list:
+    """ordered_bmm, attention's two products, at qwen3-0.6B's serving shapes
+    (B = 4: 32 (row, kv head) pairs, G = 2 query heads a kv head, hd 128):
+    the scores of a decode step over 160 cache columns (M = 2, K = 128, P
+    = 160) and of a 128-token prefill (M = 256, P = 256), and the values
+    of that prefill (M = 256, K = 256, P = 128); held with the plain
+    version to the fp64 product within 1e-5 of |a| @ |b|, two launches
+    bit-equal, and a row's bits the same at any batch and row count (the
+    first pairs alone, a row alone, a prefix of rows)."""
+    import torch
+    from repro_torch.kernels import ordered_bmm as OB
+    rows = []
+    for label, N, M, K, P in (("scores, decode", 32, 2, 128, 160),
+                              ("scores, prefill", 32, 256, 128, 256),
+                              ("values, prefill", 32, 256, 256, 128)):
+        a = torch.randn(N, M, K, generator=g).cuda()
+        b = torch.randn(N, K, P, generator=g).cuda()
+        got = OB.ordered_bmm(a, b)
+        again = OB.ordered_bmm(a, b)
+        want = OB.ordered_bmm_plain(a, b)
+        exact = a.double() @ b.double()
+        tol = 1e-5 * (a.double().abs() @ b.double().abs())
+        for out in (got, want):
+            if not ((out.double() - exact).abs() <= tol).all():
+                fail(f"ordered_bmm {label}: off the fp64 product by "
+                     f"{(out.double() - exact).abs().max().item()}")
+        bits = lambda t: t.contiguous().view(torch.int32)
+        if not torch.equal(bits(got), bits(again)):
+            fail(f"ordered_bmm {label}: two launches differ")
+        for sub in (OB.ordered_bmm(a[:1], b[:1]), OB.ordered_bmm(a[5:8],
+                                                              b[5:8])):
+            n0 = 0 if sub.shape[0] == 1 else 5
+            if not torch.equal(bits(sub), bits(got[n0:n0 + sub.shape[0]])):
+                fail(f"ordered_bmm {label}: a pair's bits follow the batch")
+        for lo, hi in ((0, 1), (M - 1, M), (0, max(1, M // 3))):
+            sub = OB.ordered_bmm(a[:, lo:hi].contiguous(), b)
+            if not torch.equal(bits(sub), bits(got[:, lo:hi])):
+                fail(f"ordered_bmm {label}: rows {lo}..{hi} follow the row "
+                     f"count")
+        b_ms, b_by = bound(4 * (N * M * K + N * K * P + N * M * P),
+                           2 * N * M * K * P / FP32_FLOP_S)
+        rows.append(timed_row(
+            "ordered_bmm", f"{label} a({N},{M},{K}) b({N},{K},{P})",
+            (got - want).abs().max().item(),
+            lambda: OB.ordered_bmm(a, b), lambda: OB.ordered_bmm_plain(a, b),
+            lambda: torch.bmm(a, b), b_ms, b_by))
+    # the norms' means of squares (`layers.mean_square`) in a decode step
+    # at B = 4: rows of 1024 (qwen3) and 4096 (rwkv6, zamba2) against a
+    # column of ones, P = 1, the kernel's dot path; its bits must be the
+    # tiled path's (the same column twice, P = 2) at any row count
+    for K in (1024, 4096):
+        x = torch.randn(1, 4, K, generator=g).cuda()
+        a = x * x
+        b = torch.ones(1, K, 1, device="cuda")
+        got = OB.ordered_bmm(a, b)
+        want = OB.ordered_bmm_plain(a, b)
+        tiled = OB.ordered_bmm(a, torch.cat([b, b], dim=-1))[..., :1]
+        one = OB.ordered_bmm(a[:, 2:3].contiguous(), b)
+        bits = lambda t: t.contiguous().view(torch.int32)
+        exact = a.double() @ b.double()
+        if not ((got.double() - exact).abs() <= 1e-5 * exact).all():
+            fail(f"ordered_bmm norm K={K}: off the fp64 sum by "
+                 f"{(got.double() - exact).abs().max().item()}")
+        if not (torch.equal(bits(got), bits(tiled))
+                and torch.equal(bits(one), bits(got[:, 2:3]))):
+            fail(f"ordered_bmm norm K={K}: the dot path's bits differ from "
+                 f"the tiled path's or follow the row count")
+        b_ms, b_by = bound(4 * (4 * K + K + 4), 2 * 4 * K / FP32_FLOP_S)
+        rows.append(timed_row(
+            "ordered_bmm", f"norm, decode a(1,4,{K}) b(1,{K},1)",
+            (got - want).abs().max().item(),
+            lambda: OB.ordered_bmm(a, b), lambda: OB.ordered_bmm_plain(a, b),
+            lambda: torch.bmm(a, b), b_ms, b_by))
+    print("  ordered_bmm: scores and values at qwen3's shapes match plain "
+          "within 1e-5 of |a| @ |b|; two launches bit-equal; a row's bits "
+          "the same at any batch and row count; the norms' row sums (P = "
+          "1) the tiled path's bits", flush=True)
     return rows
 
 
@@ -1046,11 +1140,12 @@ def tick_row_bits(rt) -> None:
 def two_layer_parity() -> dict:
     """Two layers at H = 256 (ternary, off init): layer 1's x-side
     projection takes a whole chunk in the engine and the whole prompt in
-    drive_session, so past 8 tokens the GEMV meets the GEMM (or two GEMM
-    plans meet).  For prompts of 5 to 40 tokens in chunks of 8 and 32: is
-    the chunked state bit-equal to the whole prompt's, and how far apart
-    (it must stay within 1e-5)?  And an engine at 16 slots over 24 mixed
-    requests: how many streams differ from drive_session(B=1)."""
+    drive_session, so past 8 tokens the GEMV meets the GEMM at other row
+    counts.  For prompts of 5 to 40 tokens in chunks of 8 and 32 the
+    chunked state must be bit-equal to the whole prompt's (the GEMM sums a
+    row in the GEMV's order, whatever the row count), and an engine at 16
+    slots over 24 mixed requests must give every stream drive_session(B=1)
+    gives it."""
     import dataclasses
 
     import numpy as np
@@ -1077,9 +1172,9 @@ def two_layer_parity() -> dict:
                 _, st = rt.prefill_chunk(toks[:, lo:lo + chunk], st)
             err = max((st.h - whole.h).abs().max().item(),
                       (st.c - whole.c).abs().max().item())
-            if err > 1e-5:
+            if not (bits(st.h, whole.h) and bits(st.c, whole.c)):
                 fail(f"L=2 prompt {S} in chunks of {chunk}: state {err} from "
-                     f"the whole prompt's")
+                     f"the whole prompt's, not bit-equal")
             out["prefill"][f"S={S} chunk={chunk}"] = {
                 "bits_equal": bits(st.h, whole.h) and bits(st.c, whole.c),
                 "max_abs": err}
@@ -1096,12 +1191,12 @@ def two_layer_parity() -> dict:
                 rt, torch.as_tensor(np.asarray(r.prompt, np.int64))[None],
                 cfg.vocab, gen=r.max_tokens, temperature=r.temperature,
                 top_k=r.top_k, seed=r.seed)[0][0].tolist() for r in reqs)
-    unequal = [k for k, v in out["prefill"].items() if not v["bits_equal"]]
-    print(f"  L=2, H=256: chunked prefill bit-equal to whole except "
-          f"{unequal} (max abs "
-          f"{max(v['max_abs'] for v in out['prefill'].values()):.2e}, limit "
-          f"1e-5); engine streams differing from drive_session(B=1): "
-          f"{out['streams_differ']} of 24", flush=True)
+    if any(out["streams_differ"].values()):
+        fail(f"L=2 engine streams differ from drive_session(B=1): "
+             f"{out['streams_differ']} of 24")
+    print(f"  L=2, H=256: chunked prefill bit-equal to the whole prompt's "
+          f"for prompts 5..40 in chunks of 8 and 32; every engine stream "
+          f"== drive_session(B=1) (24 of 24, chunks 8 and 32)", flush=True)
     return out
 
 
@@ -1575,6 +1670,27 @@ def summation_check(name: str, got, want, x, w) -> float:
     return (got - want).abs().max().item()
 
 
+def rows_invariant(name: str, x, codes, mode: str, got) -> None:
+    """Batch invariance of the packed row sums: the GEMM's output rows
+    `got` of x (M > 8) must equal, bit for bit, the GEMV's on its first 8
+    rows and on single rows, and the GEMM's over a 9-row prefix and a
+    17-row tail: a row's bits depend neither on the row count nor on the
+    route (GEMV or GEMM), as a chunked prompt needs."""
+    import torch
+    from repro_torch.kernels import packed_matmul as PK
+    M = x.shape[0]
+    checks = [(slice(0, 8), PK.packed_gemv)]
+    checks += [(slice(i, i + 1), PK.packed_gemv) for i in (0, M // 2, M - 1)]
+    checks += [(slice(0, 9), PK.packed_matmul)]
+    if M > 17:
+        checks += [(slice(M - 17, M), PK.packed_matmul)]
+    for sl, fn in checks:
+        part = fn(x[sl].contiguous(), codes, mode=mode)
+        if not torch.equal(part.view(torch.int32), got[sl].view(torch.int32)):
+            fail(f"{name}: rows {sl.start}..{sl.stop - 1} by {fn.__name__} "
+                 f"differ from the same rows of the M = {M} GEMM")
+
+
 def layer_kernel_rows(label: str, packed: dict, plan, stack=None) -> list:
     """packed_gemv (<= 8 rows) and packed_matmul (more) on layer 0's codes
     of each (block, weight, row counts) of `plan` (a stacked expert leaf:
@@ -1615,6 +1731,8 @@ def layer_kernel_rows(label: str, packed: dict, plan, stack=None) -> list:
             if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
                 fail(f"{fn.__name__} {label} {name} M={M}: two launches "
                      f"differ")
+            if M > 8:
+                rows_invariant(f"{label} {name}", x, codes, qt.mode, got)
             plan_ = (PK.gemv_plan(M, K, N, mode=qt.mode) if M <= 8
                      else PK.matmul_plan(M, K, N, mode=qt.mode))
             b_ms, b_by = (packed_bound if M <= 8 else gemm_bound)(one, M)
@@ -1626,6 +1744,8 @@ def layer_kernel_rows(label: str, packed: dict, plan, stack=None) -> list:
                 lambda: plain(x, codes, mode=qt.mode),
                 lambda: torch.matmul(x, w), b_ms, b_by, reps=100,
                 plain_reps=1 if M > 512 else 3))
+            if M > 8:
+                rows[-1]["fp32_add_bound_ms"] = packed_bound(one, M)[0]
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
     where = "layer 0" if qt.codes.dim() > 2 else "block"
     print(f"  {label} {where}, ternary: kernel == plain within 1e-5 of "
@@ -1663,7 +1783,6 @@ def first_divergence(rt, req, tokens: list, ctx: int):
     return None
 
 
-GAP_TOL = 0.1  # greedy divergences must fall at top-2 logit gaps below this
 
 
 def transformer_phase(report: dict) -> dict:
@@ -1776,7 +1895,11 @@ def transformer_phase(report: dict) -> dict:
                             top_k=40, seed=0, warmup=True)
     delta = {k: v - before.get(k, 0) for k, v in dispatch.LAUNCHES.items()}
     lg = m.pop("last_logits")
-    want = {"packed_gemv": 196 * (GEN + 1), "packed_matmul": 196 * 2}
+    # ordered_bmm a step: attention's two products and four norms (two
+    # pre-norms, q and k) a layer, and the final norm; GEN + 1 decode steps
+    # and two prefills
+    want = {"packed_gemv": 196 * (GEN + 1), "packed_matmul": 196 * 2,
+            "ordered_bmm": (6 * 28 + 1) * (GEN + 3)}
     if delta != want or not torch.isfinite(lg).all() or toks.shape != (B, GEN):
         fail(f"qwen3 lockstep: launches {delta} (want {want}), tokens "
              f"{toks.shape}")
@@ -1828,7 +1951,9 @@ def transformer_phase(report: dict) -> dict:
     masters = T.model_init(torch.Generator("cuda").manual_seed(0), ecfg)
     ert = TransformerRuntime(ecfg, export_packed(masters, ecfg.quant),
                              device="cuda")
-    per_tick = 7 * QWEN_ENGINE_LAYERS
+    # a layer 7 packed GEMVs and 6 ordered_bmm (attention, norms); the
+    # final norm
+    per_tick = 13 * QWEN_ENGINE_LAYERS + 1
     P, G = 128, 32
     reqs = synth_traffic(cfg.vocab, requests=32, rate=1e3, prompt_len=P,
                          gen=G, temperature=0.8, top_k=40, seed=0)
@@ -1855,19 +1980,20 @@ def transformer_phase(report: dict) -> dict:
         d = first_divergence(ert, r, gby[r.rid], P + G)
         if d is not None:
             gaps.append({"rid": r.rid, "step": d[0], "gap": d[1]})
-    if any(g["gap"] > GAP_TOL for g in gaps):
-        fail(f"qwen3 engine: a greedy stream left drive_session(B=1) at a "
-             f"top-2 gap above {GAP_TOL}: {gaps}")
+    # batch invariance: the packed products sum a row in one order at any
+    # row count and route, and attention's products do (ordered_bmm), so
+    # every stream, sampled and greedy, is the one the request gets alone
+    if equal != len(reqs) or gaps:
+        fail(f"qwen3 engine: {equal}/{len(reqs)} sampled streams == "
+             f"drive_session(B=1); greedy divergences {gaps}")
     out["engine"] = dict(em, sampled_streams_equal=equal, requests=len(reqs),
                          greedy_divergences=gaps, layers=QWEN_ENGINE_LAYERS)
     print(f"  engine on {QWEN_ENGINE_LAYERS} of the 28 layers, slots 8, chunk "
           f"32, 32 requests (prompts U[1,{P}], gen U[1,{G}], T 0.8, top-k "
           f"40): {em['agg_tok_s']:.0f} tok/s, {em['ticks']} ticks, occupancy "
-          f"{em['occupancy']:.2f}, {per_tick} packed GEMVs a tick; {equal}/{len(reqs)} sampled streams == "
-          f"drive_session(B=1); greedy: {len(reqs) - len(gaps)}/{len(reqs)} "
-          f"equal, divergences at top-2 gaps "
-          f"{[round(g['gap'], 4) for g in gaps]} (limit {GAP_TOL})",
-          flush=True)
+          f"{em['occupancy']:.2f}, {per_tick} kernel calls a tick; "
+          f"{equal}/{len(reqs)} sampled and {len(reqs) - len(gaps)}/"
+          f"{len(reqs)} greedy streams == drive_session(B=1)", flush=True)
 
     # 6. speculative k = 4: bf16 fp masters the target, their ternary export
     # the draft, 8 greedy requests
@@ -1924,7 +2050,7 @@ def transformer_phase(report: dict) -> dict:
           f"cache-off engine", flush=True)
     if plain_calls:
         fail(f"plain versions ran on the transformer path: {plain_calls}")
-    for k in ("packed_gemv", "packed_matmul"):
+    for k in ("packed_gemv", "packed_matmul", "ordered_bmm"):
         if not launches.get(k):
             fail(f"kernel {k} was never launched on the transformer path")
     out["launches"] = launches
@@ -1944,15 +2070,17 @@ def transformer_phase(report: dict) -> dict:
 # host-bound (about 0.85 s a decode step at B = 4, PERF.md), so its run is
 # cut to 8 requests of at most 16 tokens to keep the phase near 300 s
 POOL_PROMPT = 128
+ZAMBA2_ENGINE_LAYERS = 12
 POOL_ENGINE = {"qwen3-moe": (8, 16), "rwkv6-7b": (16, 32),
                "zamba2": (16, 32)}
 # Depth cuts, widths untouched, to keep the script inside its time limit
-# as phases 12 and 13 join it: qwen3-0.6B's engine, speculative and
-# prefix-cache runs (phase 9) on 14 of its 28 layers (phase 9 took 252.4
-# s at 28, 115.4 s at 8); qwen3-moe's lockstep run and engine run on 8 of
-# its 48 layers (at 48 they took 117.9 and 119 s of host-bound time),
-# rwkv6's engine on 8 of its 32 layers (100.4 s at 32)
-QWEN_ENGINE_LAYERS = 14
+# as phases join it: qwen3-0.6B's engine, speculative and prefix-cache
+# runs (phase 9) on 8 of its 28 layers (phase 9 took 252.4 s at 28, 173 s
+# at 14 once the norms and attention ran ordered_bmm); qwen3-moe's
+# lockstep run and engine run on 8 of its 48 layers (at 48 they took 117.9
+# and 119 s of host-bound time), rwkv6's engine on 8 of its 32 layers
+# (100.4 s at 32), zamba2's on 12 of its 38 (75 s at 38)
+QWEN_ENGINE_LAYERS = 8
 MOE_SERVE_LAYERS = 8
 RWKV_ENGINE_LAYERS = 8
 
@@ -2179,9 +2307,11 @@ def pool_engine(label: str, rt) -> dict:
     """The engine at 8 slots over POOL_ENGINE[label] requests of
     synth_traffic(seed=0) (prompts U[1, POOL_PROMPT], gen U[1, G], T 0.8,
     top-k 40), each prompt one prefill chunk: tok/s, ticks,
-    occupancy; the sampled streams equal to drive_session(B=1) counted,
-    then the same requests greedy, each divergence's top-2 logit gap
-    reported; and JAX's refusals of speculation and a prefix cache."""
+    occupancy; every stream equal to drive_session(B=1), sampled and then
+    the same requests greedy (the rounding that followed the row count,
+    the GEMM's K split and route, cuBLAS's attention products and the SSD
+    step's readout, is gone); and JAX's refusals of speculation and a
+    prefix cache."""
     import dataclasses
     import numpy as np
     import torch
@@ -2229,21 +2359,19 @@ def pool_engine(label: str, rt) -> dict:
         d = first_divergence(rt, r, gby[r.rid], P + G)
         if d is not None:
             gaps.append({"rid": r.rid, "step": d[0], "gap": d[1]})
-    if any(g["gap"] > GAP_TOL for g in gaps):
-        fail(f"{label} engine: a greedy stream left drive_session(B=1) at a "
-             f"top-2 gap above {GAP_TOL}: {gaps}")
+    if equal != len(reqs) or gaps:
+        fail(f"{label} engine: {equal}/{len(reqs)} sampled streams == "
+             f"drive_session(B=1); greedy divergences {gaps}")
     out = dict(em, sampled_streams_equal=equal, requests=len(reqs),
                prefill_chunks=chunks, greedy_divergences=gaps)
     print(f"  {label} engine, slots 8, whole-prompt chunks, {len(reqs)} "
           f"requests (prompts U[1,{P}], gen U[1,{G}], T 0.8, top-k 40): "
           f"{em['agg_tok_s']:.1f} tok/s, {em['ticks']} ticks, occupancy "
-          f"{em['occupancy']:.2f}, {em['tick_launches']} packed calls the "
-          f"last tick, {chunks} chunks; {equal}/{len(reqs)} "
-          f"sampled streams == drive_session(B=1); greedy "
-          f"{len(reqs) - len(gaps)}/{len(reqs)} equal, divergences at top-2 "
-          f"gaps {[round(g['gap'], 4) for g in gaps]} (limit {GAP_TOL}); "
-          f"speculation and the "
-          f"prefix cache refused", flush=True)
+          f"{em['occupancy']:.2f}, {em['tick_launches']} kernel calls the "
+          f"last tick, {chunks} chunks; {equal}/{len(reqs)} sampled and "
+          f"{len(reqs) - len(gaps)}/{len(reqs)} greedy streams == "
+          f"drive_session(B=1); speculation and the prefix cache refused",
+          flush=True)
     return out
 
 
@@ -2534,8 +2662,13 @@ def hybrid_audio_phase(report: dict, card: str) -> tuple:
     t0 = time.perf_counter()
     z["lockstep"] = pool_lockstep("zamba2", zrt, 4, 128, 32, attn_proj=0)
     z["lockstep_s"] = secs(t0)
+    # the engine on a cut of ZAMBA2_ENGINE_LAYERS mamba layers (two shared
+    # applications): a host-bound decode step at 38 layers is 100 ms
     t0 = time.perf_counter()
-    z["engine"] = pool_engine("zamba2", zrt)
+    ecut = pool_config("zamba2-1.2b", n_layers=ZAMBA2_ENGINE_LAYERS)
+    z["engine"] = pool_engine("zamba2", TransformerRuntime(
+        ecut, pool_build(ecut, off=HYBRID_OFF), device="cuda"))
+    z["engine"]["layers"] = ZAMBA2_ENGINE_LAYERS
     z["engine_s"] = secs(t0)
     toks, z["cli_launches"] = cli_launches(
         ["--arch", "zamba2-1.2b", "--batch", "4", "--prompt-len", "32",
@@ -3045,9 +3178,9 @@ def vlm_phase(report: dict, card: str) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     toks, out["cli_launches"] = cli_launches(
-        ["--arch", arch, "--batch", "4", "--prompt-len", "128", "--gen",
-         "32"])
-    if toks.shape != (4, 32) or not packed_launches(out["cli_launches"]):
+        ["--arch", arch, "--batch", "4", "--prompt-len", "32", "--gen",
+         "8"])
+    if toks.shape != (4, 8) or not packed_launches(out["cli_launches"]):
         fail(f"vlm CLI: tokens {toks.shape}, launches {out['cli_launches']}")
     out["cli_s"] = secs(t0)
     vlm, plain = dict(dispatch.LAUNCHES), dict(dispatch.PLAIN_CALLS)
@@ -3400,6 +3533,141 @@ def compressed_dp_phase(report: dict, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the model axis and the mesh engine, at one rank
+# ---------------------------------------------------------------------------
+
+MESH_LAYERS = 8      # the mesh engine's cut of qwen3's 28 layers, as phase 9
+
+
+def mesh_phase(report: dict, card: str) -> dict:
+    """The model axis at full width over a ("data", "model") mesh of (1, 1)
+    (one card: one rank, an NCCL group of one): a qwen3-0.6b bf16 training
+    step through the tensor-parallel DTensor step, bit-equal to the plain
+    step; the mesh engine (`make_serve_mesh("data=1")`) over an fp
+    qwen3-0.6b tree on a cut of MESH_LAYERS layers, every stream equal to
+    the mesh=None engine's and `tick_collectives() == 0`; and the packed
+    tree refused on a mesh with JAX's reason.  Launches counted."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import export_packed, tree_leaves, tree_map
+    from repro_torch.core.quantize import QuantSpec
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.serve import synth_traffic
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.recurrent import TransformerRuntime
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    t0 = time.perf_counter()
+    out = {}
+    dispatch.reset_counts()          # ---- the counted mesh run starts here
+    cfg = get_config("qwen3-0.6b")
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    opt = OptConfig(lr=1e-3, warmup_steps=20, clip_norm=1.0)
+    B, S = 4, 256
+    rng = np.random.default_rng(15)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + 1))).cuda()
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    params = T.model_init(torch.Generator("cuda").manual_seed(0), cfg)
+    clone = lambda t: tree_map(lambda x: x.clone(), t)
+    plain_state = TS.train_state_init(clone(params), opt, 7)
+    tp_state = TS.train_state_init(params, opt, 7)
+    M.init_group(torch.device("cuda"))
+    mesh = M.first_ranks_mesh("cuda", (1, 1), ("data", "model"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain_state, pm = TS.make_train_step(cfg, opt)(plain_state, batch)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tp_state, tm = TS._tp_step(cfg, opt, mesh)(tp_state, batch)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    leaves = tree_leaves(tp_state.params)
+    if not all(isinstance(x, DTensor) for x in leaves):
+        fail("mesh: the tensor-parallel step's state is not DTensors")
+    same = all(torch.equal(a.full_tensor(), b) for a, b in zip(
+        leaves, tree_leaves(plain_state.params))) and all(
+        torch.equal(a.full_tensor(), b) for a, b in zip(
+            tree_leaves(tp_state.opt.m), tree_leaves(plain_state.opt.m)))
+    if not same or float(tm["loss"]) != float(pm["loss"]):
+        fail(f"mesh: the DTensor step at (1, 1) is not the plain step's bits "
+             f"(loss {float(tm['loss'])} vs {float(pm['loss'])})")
+    out["train"] = {"loss": float(tm["loss"]), "plain_s": t2 - t1,
+                    "dtensor_s": t3 - t2, "batch": B, "seq": S}
+    print(f"  qwen3-0.6b bf16 train step B={B} T={S} through the DTensor "
+          f"step at (data, model) = (1, 1): params and moments bit-equal to "
+          f"the plain step's, loss {float(tm['loss']):.4f}; {t2 - t1:.2f} s "
+          f"plain, {t3 - t2:.2f} s DTensor (first calls; {card})",
+          flush=True)
+    del params, plain_state, tp_state, leaves
+
+    # the mesh engine over an fp tree, on a cut of the layers
+    ecfg = dataclasses.replace(cfg, n_layers=MESH_LAYERS).with_quant(
+        QuantSpec(mode="none"))
+    masters = T.model_init(torch.Generator("cuda").manual_seed(0), ecfg)
+    rt = TransformerRuntime(ecfg, masters, device="cuda")
+    smesh = M.make_serve_mesh("data=1", "cuda")
+    P, G = 64, 16
+    reqs = synth_traffic(cfg.vocab, requests=8, rate=1e3, prompt_len=P,
+                         gen=G, temperature=0.8, top_k=40, seed=15)
+    streams = {}
+    for label, m in (("none", None), ("mesh", smesh)):
+        eng = ServeEngine(rt, cfg.vocab, slots=4, max_context=P + G,
+                          prefill_chunk=32, mesh=m)
+        t1 = time.perf_counter()
+        comps, em = eng.run([dataclasses.replace(r) for r in reqs],
+                            realtime=False)
+        streams[label] = {c.rid: c.tokens for c in comps}
+        out[f"engine_{label}"] = dict(em, wall=time.perf_counter() - t1)
+        if m is not None:
+            out["tick_collectives"] = eng.tick_collectives()
+            out["stats_mesh"] = eng.stats()["mesh"]
+    if streams["mesh"] != streams["none"]:
+        fail("mesh engine: a stream differs from the mesh=None engine's")
+    if out["tick_collectives"] != 0:
+        fail(f"mesh engine: a data-only tick issued "
+             f"{out['tick_collectives']} collectives")
+    print(f"  mesh engine, data=1 over fp qwen3 on {MESH_LAYERS} of 28 "
+          f"layers, 4 slots, 8 requests: every stream == the mesh=None "
+          f"engine's; tick collectives 0; {out['engine_mesh']['agg_tok_s']:.1f}"
+          f" tok/s (mesh=None {out['engine_none']['agg_tok_s']:.1f})",
+          flush=True)
+    del rt
+    prt = TransformerRuntime(ecfg.with_quant(QuantSpec(mode="ternary",
+                                                       norm="channel")),
+                             export_packed(masters, QuantSpec(
+                                 mode="ternary", norm="channel")),
+                             device="cuda")
+    try:
+        ServeEngine(prt, cfg.vocab, slots=4, max_context=P + G, mesh=smesh)
+        fail("mesh engine: a packed tree on the card was not refused")
+    except NotImplementedError as e:
+        if "packed CUDA kernels are single-device launches" not in str(e):
+            fail(f"mesh engine: the packed refusal reads {e}")
+        out["packed_refusal"] = str(e)
+    launches = dict(dispatch.LAUNCHES)
+    # ---- the counted mesh run ends here
+    if not launches.get("ordered_bmm") or dispatch.PLAIN_CALLS:
+        fail(f"mesh phase launches {launches}, plain calls "
+             f"{dict(dispatch.PLAIN_CALLS)}")
+    print(f"  packed tree on the mesh refused: {out['packed_refusal'][:60]}"
+          f"...; launches {launches}", flush=True)
+    dist.destroy_process_group()
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    report["mesh"] = out
+    print(f"  mesh phase: {out['wall_s']:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3435,14 +3703,15 @@ def main() -> int:
         print(f"  {name}: {path.name} {secs:.1f} s; " + " | ".join(
             f"{fn} {regs} regs, {spill} B spilled" for fn, regs, spill in usage),
               flush=True)
-    for name in ("packed_gemv", "packed_matmul", "fused_tick"):
+    for name in ("packed_gemv", "packed_matmul", "fused_tick", "ordered_bmm"):
         spilled = [(fn, b) for fn, _, b in report["ptxas"][name] if b]
         if spilled:
             fail(f"{name} spills registers: {spilled}")
     report["sass"] = sass_check(built["packed_gemv"][0],
                                 built["packed_matmul"][0])
-    print(f"sass: packed_gemv holds no FMUL/FFMA/HMUL2/HFMA2/DMUL/DFMA/HMMA; "
-          f"packed_matmul multiplies on bf16 HMMA {report['sass']}", flush=True)
+    print(f"sass: packed_gemv and packed_matmul hold no "
+          f"FMUL/FFMA/HMUL2/HFMA2/DMUL/DFMA/HMMA {report['sass']}",
+          flush=True)
 
     # 3. kernels against their plain versions
     launch_floor(report)
@@ -3490,6 +3759,10 @@ def main() -> int:
     # 14. compressed data parallelism
     print("compressed DP:", flush=True)
     compress_launches = compressed_dp_phase(report, card)
+
+    # 15. the model axis and the mesh engine at one rank
+    print("mesh:", flush=True)
+    mesh_launches = mesh_phase(report, card)
     pool, ha = report["pool"], report["hybrid_audio"]
     all_rows = (rows + report["transformer"]["kernel_rows"]
                 + pool["qwen3_moe"]["kernel_rows"]
@@ -3498,7 +3771,7 @@ def main() -> int:
                 + ha["zamba2"]["kernel_rows"] + ha["whisper"]["kernel_rows"]
                 + report["vlm"]["kernel_rows"])
 
-    # 15. result
+    # 16. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
@@ -3506,7 +3779,13 @@ def main() -> int:
                "fused_tick": ("src/repro_torch/csrc/fused_tick.cu",
                               "src/repro/kernels/decode_step.py:114"),
                "quantize_pack": ("src/repro_torch/csrc/quantize_pack.cu",
-                                 "src/repro/kernels/packed_matmul.py:213")}
+                                 "src/repro/kernels/packed_matmul.py:213"),
+               "ordered_bmm": ("src/repro_torch/csrc/ordered_bmm.cu",
+                               "none: src/repro/models/layers.py:84 and :98 "
+                               "(attention's einsums, no TPU kernel)")}
+    # ordered_bmm's path is the transformer pool's: its launches are the
+    # counted qwen3 run's (phase 9); the others', the rnn-paper main path's
+    launches["ordered_bmm"] = transformer_launches.get("ordered_bmm", 0)
     kernels = []
     for name, (src, replaces) in sources.items():
         r = next(r for r in rows if r["name"] == name)  # the main path's shape
@@ -3523,6 +3802,7 @@ def main() -> int:
                         "vlm_launches": vlm_launches.get(name, 0),
                         "compress_launches":
                             compress_launches.get(name, 0),
+                        "mesh_launches": mesh_launches.get(name, 0),
                         "max_abs_err": max(x["max_abs_err"] for x in all_rows
                                            if x["name"] == name),
                         "ms": r["ms"], "plain_ms": r["plain_ms"],

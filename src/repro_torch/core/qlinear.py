@@ -34,7 +34,10 @@ For the transformer pool the BN of Eq. (7) becomes a learnable
 per-output-channel scale (`norm='channel'`): companion leaves 's<name>'
 made at init by `maybe_scale` and applied by `scaled` at the call site.
 
-Not ported: JAX's `constrain_param` calls (there is no mesh).
+On a mesh (tensor-parallel training, `runtime.use_mesh(param_rules=)`),
+`runtime.constrain_param` pins each sample and cast to its master's
+storage layout, and with `packed_comms` the codes to it and the unpacked
+copy to the compute layout, as JAX's; elsewhere it does nothing.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ import torch
 
 from repro_torch.core import quantize as Q
 from repro_torch.core.qtensor import is_qtensor, tree_map_with_path
+from repro_torch.runtime import constrain_param
 
 Noise = Union[Mapping[str, torch.Tensor],
               Callable[[str, torch.Tensor], torch.Tensor]]
@@ -87,10 +91,12 @@ def _policy_leaves(params: Any, spec: Q.QuantSpec, fn) -> Any:
 
 
 def _packed_roundtrip(q: torch.Tensor, master: torch.Tensor, alpha,
-                      mode: str, cast) -> torch.Tensor:
+                      mode: str, compute_dtype, cast,
+                      path: tuple) -> torch.Tensor:
     """quantize -> pack -> unpack -> times alpha -> STE: the value of `q`
     through its codes.  K not a multiple of the group takes the plain
-    cast."""
+    `cast`.  On a mesh the codes take the master's storage layout and the
+    unpacked copy the compute layout (JAX's `constrain_param` calls)."""
     group = Q.pack_group(mode)
     K, N = q.shape[-2], q.shape[-1]
     if K % group:
@@ -98,8 +104,16 @@ def _packed_roundtrip(q: torch.Tensor, master: torch.Tensor, alpha,
     pack = Q.pack_ternary if mode == "ternary" else Q.pack_binary
     unpack = Q.unpack_ternary if mode == "ternary" else Q.unpack_binary
     qs = Q.divide(q.detach().reshape(-1, K, N), alpha)
-    wq = torch.stack([unpack(pack(m), K, dtype=q.dtype) for m in qs])
-    wq = cast(alpha * wq.reshape(q.shape))
+    codes = torch.stack([pack(m) for m in qs]).reshape(
+        *q.shape[:-2], K // group, N)
+    codes = constrain_param(path, master, codes)
+    wq = torch.stack([unpack(c, K, dtype=q.dtype)
+                      for c in codes.reshape(-1, K // group, N)])
+    wq = alpha * wq.reshape(q.shape)
+    if compute_dtype is not None:
+        wq = wq.to(compute_dtype)
+    wq = constrain_param(path, master, wq, drop_axes=("data", "pod"),
+                         kind="compute")
     return Q.ste(master, wq)
 
 
@@ -112,15 +126,19 @@ def quantize_tree(params: Any, spec: Q.QuantSpec,
     ternary spec needs `noise` (a {path: u} mapping or a function of
     (path, leaf)); its samples carry straight-through gradients."""
 
-    def cast(w):
-        return w.to(compute_dtype) if compute_dtype is not None else w
-
-    def finish(q, master, alpha):
-        if spec.packed_comms:
-            return _packed_roundtrip(q, master, alpha, spec.mode, cast)
-        return cast(q)
-
     def f(name, leaf):
+        path = tuple(name.split("/"))
+
+        def cast(w):
+            w = w.to(compute_dtype) if compute_dtype is not None else w
+            return constrain_param(path, leaf, w)
+
+        def finish(q, master, alpha):
+            if spec.packed_comms:
+                return _packed_roundtrip(q, master, alpha, spec.mode,
+                                         compute_dtype, cast, path)
+            return cast(q)
+
         if not spec.enabled:
             return cast(leaf)
         alpha = Q.leaf_alpha(leaf.shape)

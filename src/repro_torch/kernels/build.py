@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("packed_gemv", "packed_matmul", "fused_tick", "quantize_pack")
+KERNELS = ("packed_gemv", "packed_matmul", "fused_tick", "quantize_pack",
+           "ordered_bmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,10 +37,10 @@ _F = ctypes.c_float
 # c_void_p, so ctypes never truncates them to 32-bit ints
 SIGNATURES = {
     "packed_gemv": ("packed_gemv_launch", [_P, _P, _P] + [_I] * 8 + [_P]),
-    "packed_matmul": ("packed_matmul_launch",
-                      [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "packed_matmul": ("packed_matmul_launch", [_P, _P, _P] + [_I] * 7 + [_P]),
     "fused_tick": ("fused_tick_launch", [_P] * 23 + [_I] * 9 + [_P]),
     "quantize_pack": ("quantize_pack_launch", [_P, _P, _P, _F, _I, _I, _I, _P]),
+    "ordered_bmm": ("ordered_bmm_launch", [_P, _P, _P] + [_I] * 4 + [_P]),
 }
 
 _libs: dict = {}

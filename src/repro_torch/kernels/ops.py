@@ -9,6 +9,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.qtensor import QTensor
 from repro_torch.core.quantize import pack_group
@@ -72,6 +73,8 @@ def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
     if x.shape[-1] != w.k:
         raise ValueError(f"qmatmul contraction mismatch: x {tuple(x.shape)} vs "
                          f"QTensor k={w.k}")
+    if isinstance(w.codes, DTensor):
+        return _qmatmul_sharded(x, w)
     y = packed_matmul(x, w.codes, w.alpha, mode=w.mode)
     if w.scale is not None:
         y = y * w.scale
@@ -86,11 +89,49 @@ def serve_matmul(x: torch.Tensor, w) -> torch.Tensor:
     chunks, reach the same bits.  On the card an fp `w` is one cuBLAS call,
     whose rounding may depend on the row count.  A weight that carries a
     gradient (the training forward's quantized weights) takes the one
-    product too, JAX's training `x @ w`."""
-    if isinstance(w, QTensor) or x.device.type != "cpu" or w.requires_grad:
+    product too, JAX's training `x @ w`, and so does a DTensor (a
+    tensor-parallel product sums over shards in any case)."""
+    if (isinstance(w, QTensor) or x.device.type != "cpu" or w.requires_grad
+            or isinstance(w, DTensor) or isinstance(x, DTensor)):
         return qmatmul(x, w)
     rows = PK.rowwise_matmul(x.reshape(-1, x.shape[-1]), w)
     return rows.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+
+
+def _qmatmul_sharded(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """`qmatmul` against codes sharded over a mesh (a DTensor in
+    `sharding.qtensor_pspecs`' layout), tensor-parallel as XLA partitions
+    JAX's: where the codes' columns are sharded each rank multiplies x by
+    its columns (the output sharded on its last dim); where their packed
+    rows are, x's matching slice of K by its rows (the output a `Partial`
+    sum, reduced where a later op needs it whole).  The product on each
+    rank is the plain one; codes are never gathered."""
+    codes = w.codes
+    mesh = codes.device_mesh
+    xd = x if isinstance(x, DTensor) else DTensor.from_local(
+        x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    want, out = [], []
+    for p, q in zip(codes.placements, xd.placements):
+        if p.is_shard(codes.dim() - 1):
+            want.append(Replicate())
+            out.append(Shard(x.dim() - 1))
+        elif p.is_shard(codes.dim() - 2):
+            want.append(Shard(x.dim() - 1))
+            out.append(Partial())
+        else:
+            keep = q.is_shard() and q.dim < x.dim() - 1
+            want.append(q if keep else Replicate())
+            out.append(want[-1])
+    xl = xd.redistribute(mesh, want).to_local()
+    cl = codes.to_local()
+    local = QTensor(codes=cl, k=cl.shape[-2] * w.group if any(
+        p.is_shard(codes.dim() - 2) for p in codes.placements) else w.k,
+                    mode=w.mode, alpha=w.alpha,
+                    scale=None if w.scale is None else (
+                        w.scale.to_local() if isinstance(w.scale, DTensor)
+                        else w.scale))
+    return DTensor.from_local(qmatmul(xl, local), mesh, out,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------

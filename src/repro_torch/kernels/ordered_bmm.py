@@ -1,0 +1,145 @@
+"""Serving products with a fixed summation order: `ordered_bmm`.
+
+Not the port of a TPU kernel.  JAX's attention is two einsums that XLA
+lowers; the port's cuBLAS products chose their algorithm, and with it the
+order a row's terms were summed in, by the batch and row counts, so a
+request's attention scores changed in their last bits with the batch it
+decoded in and the chunks its prompt was cut into (PERF.md section 6,
+`bisect_invariance.py`); so did the SSD step's readout and the norms'
+means of squares over wide rows (`layers.mean_square`).  The kernel
+(csrc/ordered_bmm.cu) sums every output's K terms in increasing k, one
+fused multiply-add a term, whatever the shapes around it, so a row's bits
+are its own.
+
+    ordered_bmm(a, b)   a (..., M, K) @ b (..., K, P), batched over the
+                        leading dims (b (K, P) is shared by all); the
+                        card's result in fp32, cast to a's dtype
+    model_bmm(a, b)     the models' call: `ordered_bmm` with autograd
+                        off (serving), the library's `a @ b` where
+                        autograd records (training: the kernel has no
+                        backward, training makes no invariance promise,
+                        and JAX's training forward is XLA's einsum)
+
+The wrapper keeps the port's device policy: on the CPU the plain product
+`a @ b` (counted), bit for bit what the attention computed before (the
+CPU's library keeps a row's bits at any row count where a head group has
+two rows or more); on the card the kernel, or an error.  `DTensor`s run
+rank by rank on their shards (`_on_shards`), by the same policy.
+"""
+from __future__ import annotations
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.kernels import build, dispatch
+
+
+def ordered_bmm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version: the library's batched product."""
+    return a @ b
+
+
+def model_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A model's batched product: `ordered_bmm` in serving, the library's
+    where autograd records (training)."""
+    if torch.is_grad_enabled():
+        return a @ b
+    return ordered_bmm(a, b)
+
+
+def ordered_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, P) with every output's terms summed in
+    increasing k on the card; the plain product on the CPU."""
+    if isinstance(a, DTensor) or isinstance(b, DTensor):
+        return _on_shards(a, b)
+    if not dispatch.on_card("ordered_bmm", a, b):
+        dispatch.count_plain("ordered_bmm")
+        return ordered_bmm_plain(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise ValueError("ordered_bmm: the kernel has no backward; a "
+                         "product that carries a gradient is `model_bmm`'s "
+                         "library product")
+    M, K, P = a.shape[-2], a.shape[-1], b.shape[-1]
+    if b.shape[-2] != K:
+        raise ValueError(f"ordered_bmm: a {tuple(a.shape)} @ b "
+                         f"{tuple(b.shape)}")
+    if b.dim() == 2:
+        # one b for every batch: a's rows stacked, one matrix product
+        lead = a.shape[:-2]
+        af = a.reshape(1, -1, K).float().contiguous()
+        bf = b.reshape(1, K, P).float().contiguous()
+    else:
+        lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        af = a.expand(*lead, M, K).reshape(-1, M, K).float().contiguous()
+        bf = b.expand(*lead, K, P).reshape(-1, K, P).float().contiguous()
+    out = torch.empty((af.shape[0], af.shape[1], P), dtype=torch.float32,
+                      device=a.device)
+    build.launch("ordered_bmm", a.device, af.data_ptr(), bf.data_ptr(),
+                 out.data_ptr(), af.shape[0], af.shape[1], K, P)
+    dispatch.count_launch("ordered_bmm")
+    return out.reshape(*lead, M, P).to(a.dtype)
+
+
+def _label(t: DTensor, dim: int, contract: int, own: int, off: int):
+    """A dim of operand t in the output's terms: "K" the contraction, "M"
+    or "P" its own output dim, else a batch dim's index in the output."""
+    if dim == contract:
+        return "K"
+    if dim == own:
+        return "M" if own == t.dim() - 2 else "P"
+    return dim + off
+
+
+def _on_shards(a, b) -> DTensor:
+    """`ordered_bmm` of DTensors, rank by rank: each rank multiplies its own
+    shards and the result carries the placements that follow.  Per mesh
+    dim: a split contraction dim is gathered first (a partial sum would
+    add the ranks' shares in the collective's order, not in k's); a batch
+    dim split in one operand is split alike in the other unless that one
+    broadcasts it; a's rows split meet b's columns whole; a `Partial`
+    operand is summed first."""
+    mesh = (a if isinstance(a, DTensor) else b).device_mesh
+    whole = [Replicate()] * mesh.ndim
+    a, b = (t if isinstance(t, DTensor)
+            else DTensor.from_local(t, mesh, whole, run_check=False)
+            for t in (a, b))
+    n = max(a.dim(), b.dim())
+    oa, ob = n - a.dim(), n - b.dim()
+    out_lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    shape = (*out_lead, a.shape[-2], b.shape[-1])
+
+    def splits(t, L, off):
+        # t splits batch dim L of the output (not a broadcast 1)
+        return L - off >= 0 and t.shape[L - off] > 1
+
+    pa, pb, po = [], [], []
+    for qa, qb in zip(a.placements, b.placements):
+        la = (_label(a, qa.dim, a.dim() - 1, a.dim() - 2, oa)
+              if isinstance(qa, Shard) else None)
+        lb = (_label(b, qb.dim, b.dim() - 2, b.dim() - 1, ob)
+              if isinstance(qb, Shard) else None)
+        la = None if la == "K" else la
+        lb = None if lb == "K" else lb
+        if la == "M":
+            lb, lo = None, n - 2
+        elif isinstance(la, int):
+            lb, lo = (la if splits(b, la, ob) else None), la
+        elif isinstance(lb, int):
+            la, lo = (lb if splits(a, lb, oa) else None), lb
+        elif lb == "P":
+            lo = n - 1
+        else:
+            lo = None
+        pa.append(Replicate() if la is None else
+                  Shard(a.dim() - 2 if la == "M" else la - oa))
+        pb.append(Replicate() if lb is None else
+                  Shard(b.dim() - 1 if lb == "P" else lb - ob))
+        po.append(Replicate() if lo is None else Shard(lo))
+    if tuple(pa) != tuple(a.placements):
+        a = a.redistribute(mesh, pa)
+    if tuple(pb) != tuple(b.placements):
+        b = b.redistribute(mesh, pb)
+    c = ordered_bmm(a.to_local(), b.to_local())
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(c, mesh, po, run_check=False, shape=shape,
+                              stride=stride)

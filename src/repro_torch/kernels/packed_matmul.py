@@ -8,10 +8,12 @@ Three kernels, each with its plain PyTorch version beside it:
                       column is sum(select(plus, x)) - sum(select(minus, x)).
                       Kernel: csrc/packed_gemv.cu, launched as `gemv_plan`
                       says.
-  * `packed_matmul` — the prefill GEMM: codes decode to -1/0/+1 and meet
-                      x in an exact fp32 product (on the card: bf16 tensor
-                      cores, x split exactly into three bf16 terms; the
-                      plain version sums row by row, as the GEMV's does).
+  * `packed_matmul` — the prefill GEMM, for any number of rows: on the
+                      card the GEMV's kernel over 8-row tiles, so a row is
+                      summed in the GEMV's order to the GEMV's bits at any
+                      row count (batch invariance: a prompt's state does
+                      not depend on its chunking); the plain version sums
+                      row by row, as the GEMV's does.
                       Kernel: csrc/packed_matmul.cu, launched as
                       `matmul_plan` says.
   * `quantize_pack` — paper Eqs. 4-6 stochastic sampling from an explicit
@@ -35,8 +37,6 @@ MODES = {"ternary": 0, "binary": 1}
 
 SMS = 132          # streaming multiprocessors of an H100 SXM
 GEMV_COLS = 32     # output columns a block of the GEMV owns (csrc kCols)
-GEMM_COLS = 128    # output columns a block of the GEMM owns (csrc BN)
-GEMM_ROWS = 16     # output rows a block of the GEMM owns: one mma tile
 MAX_CLUSTER = 8    # the portable thread block cluster size
 
 
@@ -87,18 +87,14 @@ def packed_matmul_plain(x: torch.Tensor, codes: torch.Tensor, *,
 
 
 def matmul_plan(M: int, K: int, N: int, *, mode: str) -> dict:
-    """How `packed_matmul` launches for x (M, K): a grid of blocks of 16
-    rows by 128 columns, times `cluster` blocks splitting K.  The split
-    doubles, up to 8, while the grid stays within two blocks an SM and
-    every block keeps at least two code words: at M = 16 and N = 4000, 32
-    tiles become 256 blocks."""
-    tiles = -(-N // GEMM_COLS) * -(-M // GEMM_ROWS)
-    words = K // pack_group(mode)
-    cluster = 1
-    while (cluster < MAX_CLUSTER and tiles * (2 * cluster) <= 2 * SMS
-           and 4 * cluster <= words):
-        cluster *= 2
-    return {"cluster": cluster, "blocks": tiles * cluster}
+    """How `packed_matmul` launches for x (M, K): `gemv_plan`'s column tiles
+    and K split, which read K and N only, times ceil(M / 8) row tiles of
+    the GEMV's 8-row instance.  A row's sum order, and so its bits, is
+    then the GEMV's whatever M is."""
+    plan = gemv_plan(min(M, 8), K, N, mode=mode)
+    row_tiles = -(-M // 8)
+    return {**plan, "rows": 8, "row_tiles": row_tiles,
+            "blocks": plan["blocks"] * row_tiles}
 
 
 def gemv_plan(bp: int, K: int, N: int, *, mode: str) -> dict:
@@ -162,9 +158,11 @@ def packed_matmul(x: torch.Tensor, codes: torch.Tensor, *,
     M, K = x.shape
     N = codes.shape[1]
     plan = matmul_plan(M, K, N, mode=mode)
+    vec = plan["vec"] and codes.data_ptr() % 16 == 0
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     build.launch("packed_matmul", x.device, x.data_ptr(), codes.data_ptr(),
-                 out.data_ptr(), M, K, N, MODES[mode], plan["cluster"])
+                 out.data_ptr(), M, K, N, MODES[mode], plan["cluster"],
+                 plan["tiles"], int(vec))
     dispatch.count_launch("packed_matmul")
     return out
 

@@ -159,8 +159,8 @@ def parse_mesh_spec(spec: str) -> dict:
 def make_serve_mesh(spec: str,
                     device: Optional[str | torch.device] = None) -> DeviceMesh:
     """Serving mesh for ``--mesh data=D,model=M`` over the first D*M ranks,
-    both axes always present.  Nothing serves on it yet: the mesh engine
-    and `serve --mesh` wait for ROADMAP Queue 1 item 9."""
+    both axes always present: the mesh `ServeEngine` shards its slot pool
+    over 'data' and its weights over 'model'."""
     sizes = parse_mesh_spec(spec)
     d, m = sizes["data"], sizes["model"]
     device = local_device(device)

@@ -57,8 +57,19 @@ POST /v1/generate, GET /v1/stats), with hangups cancelling and a
 prefix-state cache of --prefix-cache-mb where the runtime supports one
 (token-granularity chunks, non-ring caches; otherwise it serves without).
 
-Refused: --mesh, which waits for ROADMAP Queue 1 item 9; speculation on
-MoE, rwkv, mamba and ring-cache archs (the engine's refusal).
+--mesh data=D,model=M shards the engine of --traffic over a mesh of D * M
+ranks (`launch.mesh.make_serve_mesh`), one process a device under
+torchrun: the slot pool D-way along 'data' (D must divide --slots), the
+weights tensor-parallel along 'model'.  Every rank builds the same
+weights from --seed and runs the same scheduler; rank 0 prints.
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --reduced --device cpu --traffic --slots 4 --mesh data=2,model=2
+
+Refused: speculation on MoE, rwkv, mamba and ring-cache archs (the
+engine's refusal); --mesh with --listen (the front door is one process,
+and every rank of a mesh must see each request).
 """
 from __future__ import annotations
 
@@ -75,19 +86,34 @@ from repro_torch.core import bnlstm as BL
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as T
+from repro_torch.launch import mesh as M
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.recurrent import (RNNRuntime, TransformerRuntime,
                                          drive_session, speculative_draft)
 
-NOT_PORTED = {
-    "mesh": "--mesh (a mesh-sharded engine) waits for ROADMAP Queue 1 "
-            "item 9",
-}
+
+def say(*a, **kw) -> None:
+    """Print on rank 0 (every rank of a mesh runs the same loop)."""
+    if M.rank() == 0:
+        print(*a, **kw)
+
+
+def serve_mesh(args):
+    """Resolve --mesh into a DeviceMesh (None when unset) and announce it
+    with JAX's banner."""
+    if not args.mesh:
+        return None
+    mesh = M.make_serve_mesh(args.mesh, args.device)
+    shape = ",".join(f"{a}={n}" for a, n in
+                     zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    say(f"mesh: {shape} over {mesh.size()} device(s) — slot pool sharded "
+        f"along 'data', weights tensor-parallel along 'model'", flush=True)
+    return mesh
 
 
 def _report_bytes(rt, quant: str) -> None:
     fp, packed = rt.param_nbytes()
-    print(f"model bytes: fp32 {fp/1e6:.1f} MB -> packed({quant}) "
+    say(f"model bytes: fp32 {fp/1e6:.1f} MB -> packed({quant}) "
           f"{packed/1e6:.1f} MB ({fp/packed:.1f}x smaller)")
 
 
@@ -188,7 +214,8 @@ def run_traffic(cfg, rt, args, draft=None) -> dict:
     ctx = args.prompt_len + args.gen
     eng = ServeEngine(rt, cfg.vocab, slots=args.slots, max_context=ctx,
                       prefill_chunk=args.prefill_chunk,
-                      draft=draft, spec_k=args.spec_k if draft else 0)
+                      draft=draft, spec_k=args.spec_k if draft else 0,
+                      mesh=serve_mesh(args))
     reqs = synth_traffic(cfg.vocab, requests=args.requests, rate=args.rate,
                          prompt_len=args.prompt_len, gen=args.gen,
                          temperature=args.temperature, top_k=args.top_k,
@@ -196,26 +223,26 @@ def run_traffic(cfg, rt, args, draft=None) -> dict:
     # a chunk and a tick run once before the clock starts
     eng.warm()
     comps, m = eng.run(reqs, realtime=True)
-    print(f"traffic: {m['requests']} requests over {m['wall_s']:.2f}s "
+    say(f"traffic: {m['requests']} requests over {m['wall_s']:.2f}s "
           f"({args.rate:.1f} req/s offered, {args.slots} slots, "
           f"prefill chunk {args.prefill_chunk}, {rt.device})")
-    print(f"aggregate decode: {m['agg_tok_s']:.1f} tok/s  "
+    say(f"aggregate decode: {m['agg_tok_s']:.1f} tok/s  "
           f"occupancy: {100 * m['occupancy']:.0f}%  "
           f"ticks: {m['ticks']} (kernel calls a tick: "
           f"{m['tick_launches']})")
-    print(f"latency: p50 {m['p50_latency_s']*1e3:.0f} ms  "
+    say(f"latency: p50 {m['p50_latency_s']*1e3:.0f} ms  "
           f"p95 {m['p95_latency_s']*1e3:.0f} ms  |  "
           f"ttft: p50 {m['ttft_p50_s']*1e3:.0f} ms  "
           f"p95 {m['ttft_p95_s']*1e3:.0f} ms  "
           f"(max decode stall: {m['max_decode_stall_ticks']} chunk)")
     if draft is not None:
-        print(f"speculative: k={m['spec_k']}  "
+        say(f"speculative: k={m['spec_k']}  "
               f"accept rate {100 * m['accept_rate']:.0f}%  "
               f"({m['accepted_drafts']}/{m['drafted_tokens']} drafts over "
               f"{m['spec_rounds']} rounds)  "
               f"draft {m['draft_tok_s']:.1f} tok/s proposed")
     for c in sorted(comps, key=lambda c: c.rid)[:4]:
-        print(f"  req {c.rid}: prompt {c.prompt_len} -> {len(c.tokens)} toks "
+        say(f"  req {c.rid}: prompt {c.prompt_len} -> {len(c.tokens)} toks "
               f"({c.finished}), ttft {c.ttft_s*1e3:.0f} ms, "
               f"latency {c.latency_s*1e3:.0f} ms")
     return m
@@ -306,11 +333,21 @@ def main(argv=None):
     ap.add_argument("--prefix-cache-mb", type=int, default=64,
                     help="prefix-state cache byte budget for --listen "
                          "(0 = off)")
-    ap.add_argument("--mesh", default="", help=NOT_PORTED["mesh"])
+    ap.add_argument("--mesh", default="",
+                    help="serve --traffic on a device mesh, e.g. "
+                         "'data=4,model=2': the slot pool sharded D-way "
+                         "along 'data' (slots must divide D), the weights "
+                         "tensor-parallel along 'model'; one process a "
+                         "device (torchrun --nproc-per-node D*M)")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise SystemExit(f"not ported yet: {NOT_PORTED['mesh']}")
+    if args.mesh and not args.traffic:
+        raise SystemExit("--mesh shards the continuous-batching engine; "
+                         "run it with --traffic (the front door of "
+                         "--listen is one process, and every rank of a "
+                         "mesh must see each request)")
+    if args.mesh:  # join the ranks first: each builds on its own device
+        M.init_group(M.local_device(args.device))
     build = build_rnn if args.arch in RNN_ARCH_IDS else build_transformer
     if args.spec_k and not (args.traffic or args.listen):
         raise SystemExit("--spec-k is a continuous-batching engine mode; "

@@ -61,13 +61,20 @@ uncompressed steps on the whole batch on each rank; a transformer arch
 builds its mesh from `train/elastic.best_mesh_shape(world, --mesh-model,
 --batch)` when there is more than one rank (JAX's `mesh: ...` banner;
 ranks the plan drops leave), and at one rank trains the plain step with a
-zero residual.  A plan with a model axis above 1 is refused: tensor
-parallelism waits for ROADMAP Queue 1 item 9.  --pipeline is rnn-only, as
-in JAX, and passes --compress-grads to its legs.
+zero residual.  A plan with a model axis above 1 (--mesh-model) trains
+the pool tensor-parallel: the state is DTensors in JAX's layouts
+(`launch/sharding.py`), rank 0 writes whole tensors in JAX's checkpoint
+layout; with --compress-grads the model ranks hold whole parameters and
+the mean runs over the data axes, as JAX's shard_map step.  The RNN stays
+data-only, as JAX's.  --pipeline is rnn-only, as in JAX, and passes
+--compress-grads to its legs.
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 2 -m repro_torch.launch.train --arch qwen3-0.6b \\
       --reduced --device cpu --compress-grads --steps 4
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --arch qwen3-0.6b \\
+      --reduced --device cpu --mesh-model 2 --steps 3 --batch 4 --seq 32
 """
 from __future__ import annotations
 
@@ -160,8 +167,8 @@ def build_argparser():
                     help="ternary gradient compression with error feedback "
                          "before the data-parallel mean")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="the model axis the mesh plan keeps (a plan "
-                         "above 1 waits for ROADMAP Queue 1 item 9)")
+                    help="the model axis the mesh plan keeps: above 1 the "
+                         "pool trains tensor-parallel over DTensors")
     return ap
 
 
@@ -358,18 +365,13 @@ def _train_rnn(args, handler, device, corpus, cfg, job, mesh):
 def train_mesh(args, world: int, device: torch.device):
     """The transformer launcher's mesh, elastic as JAX's: none on one rank;
     on several, `best_mesh_shape(world, --mesh-model, --batch)` with JAX's
-    banner, refused when its model axis is above 1 (tensor parallelism is
-    not ported); None on a rank the plan drops, which says so."""
+    banner, its model axis included; None on a rank the plan drops, which
+    says so."""
     plan = best_mesh_shape(world, want_model=args.mesh_model,
                            global_batch=args.batch)
     print(f"mesh: {dict(zip(plan.axes, plan.shape))}, per-replica batch "
           f"{plan.per_replica_batch}, dropped {plan.dropped_devices} devices",
           flush=True)
-    if plan.shape[-1] > 1:
-        raise SystemExit(f"--mesh-model {args.mesh_model}: the plan "
-                         f"{dict(zip(plan.axes, plan.shape))} has a model "
-                         f"axis; tensor parallelism waits for ROADMAP Queue "
-                         f"1 item 9")
     replicas = math.prod(plan.shape[:-1])
     if args.batch % replicas:
         raise SystemExit(f"--batch {args.batch} does not divide over "

@@ -6,10 +6,12 @@ Every weight matmul goes through `kernels.ops.serve_matmul`, which takes
 an fp weight or a packed `QTensor` (the GEMV for at most 8 rows, the GEMM
 for more), so the layer code serves either tree.  On the CPU it computes
 row by row, so a row's bits do not depend on how many rows share the call
-(the engine's byte parity).  Attention is two batched products a layer;
-each has at least two rows a head group (G = Hq / Hkv >= 2 in the dense
-family), where the CPU's library rounds a row alike at any row count, and
-on the card it is cuBLAS, whose rounding may depend on the row count.
+(the engine's byte parity).  Attention is two batched products a layer
+(`kernels.ordered_bmm.model_bmm`): in serving on the card a kernel that
+sums every output's terms in one order, whatever the batch and row
+counts; in training and on the CPU the library's product, where each
+has at least two rows a head group (G = Hq / Hkv >= 2 in the dense
+family) and the library rounds a row alike at any row count.
 
 Attention is plain tensor code, as it is in the JAX package (no Pallas
 kernel there, no library attention kernel here): fp32 logits, GQA grouped
@@ -22,7 +24,9 @@ applies no RoPE and no causal mask, and gates its output by tanh(xgate),
 0 at init.  The GeLU MLP is the tanh approximation, as `jax.nn.gelu`'s
 default.
 
-Not ported: the mesh `constrain` calls.
+On a mesh the activations are DTensors and `runtime.constrain` lays them
+out at JAX's sites: the queries' heads and the MLP's hidden over 'model',
+the batch over the data axes; elsewhere it does nothing.
 """
 from __future__ import annotations
 
@@ -33,8 +37,24 @@ import torch.nn.functional as F
 
 from repro_torch.core.qlinear import maybe_scale, scaled, winit
 from repro_torch.kernels.ops import serve_matmul
+from repro_torch.kernels.ordered_bmm import model_bmm, ordered_bmm
+from repro_torch.runtime import DATA, constrain
 
 NEG_INF = -1e30
+
+
+def mean_square(x: torch.Tensor) -> torch.Tensor:
+    """mean(x * x) over the last dim, keepdim, for fp32 x.  On the card,
+    with autograd off (serving: the runtimes' steps), each row is summed
+    in one order whatever the row count (a row of `ordered_bmm` against
+    ones): the library's reduction splits a wide row otherwise by the
+    number of rows, and a request's norm, so its stream, would follow its
+    batch.  On the CPU and in training the library's mean, as before."""
+    if x.device.type != "cuda" or torch.is_grad_enabled():
+        return torch.mean(x * x, dim=-1, keepdim=True)
+    D = x.shape[-1]
+    ones = torch.ones((D, 1), dtype=torch.float32, device=x.device)
+    return ordered_bmm(x * x, ones) / D
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -42,7 +62,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     """Gemma-style RMSNorm, `1 + scale`, in fp32 inside."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    x = x * torch.rsqrt(mean_square(x) + eps)
     return (x * (1.0 + scale)).to(dt)
 
 
@@ -92,7 +112,8 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # rows (g, q) of one kv head share its keys: (B, Hkv, G*Sq, hd)
     qg = q.reshape(B, Sq, Hkv, G, hd).permute(0, 2, 3, 1, 4).reshape(
         B, Hkv, G * Sq, hd)
-    logits = (qg.float() @ k.permute(0, 2, 3, 1).float()) * (hd ** -0.5)
+    logits = model_bmm(qg.float(), k.permute(0, 2, 3, 1).float()) * (
+        hd ** -0.5)
     logits = logits.reshape(B, Hkv, G, Sq, Skv)
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
@@ -107,7 +128,7 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          torch.full((), NEG_INF, device=logits.device))
     probs = torch.softmax(logits, dim=-1).to(q.dtype).reshape(
         B, Hkv, G * Sq, Skv)
-    o = probs @ v.permute(0, 2, 1, 3)
+    o = model_bmm(probs, v.permute(0, 2, 1, 3))
     return o.reshape(B, Hkv, G, Sq, hd).permute(0, 3, 1, 2, 4).reshape(
         B, Sq, Hq, hd)
 
@@ -248,6 +269,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
         kind == "full" and cfg.window and cfg.swa_all) else 0
     if causal is None:
         causal = cfg.causal and not cross
+    q = constrain(q, DATA, None, "model", None)
     o = attention(q, k, v, causal=causal, window=window,
                   chunk=cfg.attn_chunk, softcap=cfg.attn_softcap)
     return attn_out(p, o, cfg, cross=cross)
@@ -280,9 +302,10 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     if "Wgate" in p:
         g = scaled(serve_matmul(x, p["Wgate"]), p, "Wgate", cfg.quant)
         u = scaled(serve_matmul(x, p["Wup"]), p, "Wup", cfg.quant)
-        return scaled(serve_matmul(F.silu(g) * u, p["Wdown"]), p, "Wdown",
-                      cfg.quant)
+        h = constrain(F.silu(g) * u, DATA, None, "model")
+        return scaled(serve_matmul(h, p["Wdown"]), p, "Wdown", cfg.quant)
     h = F.gelu(scaled(serve_matmul(x, p["Wfc1"]), p, "Wfc1", cfg.quant)
                + p["bfc1"].to(x.dtype), approximate="tanh")
+    h = constrain(h, DATA, None, "model")
     return (scaled(serve_matmul(h, p["Wfc2"]), p, "Wfc2", cfg.quant)
             + p["bfc2"].to(x.dtype))

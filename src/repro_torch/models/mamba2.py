@@ -26,7 +26,8 @@ dynamics (A, the dt bias, the conv, D, the norm) stay fp, the paper's
 biases-and-norms-stay-fp split.  Mixed-dtype products promote as JAX's
 do (bf16 with fp32 gives fp32).
 
-Not ported: the mesh `constrain` call.
+On a mesh the SSD heads of x are laid over 'model' (`runtime.constrain`,
+JAX's site); elsewhere it does nothing.
 """
 from __future__ import annotations
 
@@ -38,6 +39,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.qlinear import maybe_scale, scaled, winit
 from repro_torch.kernels.ops import serve_matmul
+from repro_torch.kernels.ordered_bmm import model_bmm
+from repro_torch.models.layers import mean_square
+from repro_torch.runtime import DATA, constrain
+
 
 
 class SSMState(NamedTuple):
@@ -168,8 +173,12 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = torch.exp(dt * A)                        # (B, H)
     inc = dt[:, :, None, None] * Bm[:, None, :, None] * x[:, :, None, :]
     h = h * dA[:, :, None, None] + inc
-    y = torch.einsum("bn,bhnp->bhp", Cm, h)
-    return y, h
+    # the readout sums over N in one order whatever the batch
+    # (`model_bmm`): a request's stream must not follow its neighbours
+    Bsz, H, N, P = h.shape
+    y = model_bmm(Cm[:, None, :],
+                    h.permute(0, 2, 1, 3).reshape(Bsz, N, H * P))
+    return y.reshape(Bsz, H, P), h
 
 
 def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
@@ -195,7 +204,7 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
     tail = state.conv if state is not None else None
     conv_out, new_tail = _causal_conv(conv_in, p["conv_w"], p["conv_b"], tail)
     xin, Bc, Cc = torch.split(conv_out, [di, N, N], dim=-1)
-    xh = xin.reshape(Bsz, S, H, P)
+    xh = constrain(xin.reshape(Bsz, S, H, P), DATA, None, "model", None)
     h0 = state.h if state is not None else None
 
     if decode:
@@ -212,8 +221,8 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
 
     # gated RMSNorm (mamba2): norm(y * silu(z)), fp32 inside
     g32 = (y * F.silu(z)).to(f32)
-    g = (g32 * torch.rsqrt(torch.mean(g32 * g32, dim=-1, keepdim=True)
-                           + 1e-6)).to(x.dtype) * p["norm"].to(x.dtype)
+    g = (g32 * torch.rsqrt(mean_square(g32) + 1e-6)).to(x.dtype) * \
+        p["norm"].to(x.dtype)
 
     out = scaled(serve_matmul(g, p["Wout"]), p, "Wout", cfg.quant)
     new_state = None

@@ -20,8 +20,9 @@ Dispatch and combine are index gathers and a sum over k where JAX has
 one-hot einsums: they select the same rows and gates, and only the
 combine's summation order differs (fp32, over a token's k kept choices,
 then one cast to the compute dtype, as JAX's einsum on the gates it cast
-to that dtype).  `route` still returns JAX's dense (T, E, C) dispatch and
-combine tensors, built from the same slots.
+to that dtype).  `route` returns JAX's dense (T, E, C) dispatch and
+combine tensors, built from `route_slots`' slots: one routing decision
+for every path.
 
 The experts: fp masters take one batched product a weight over every
 expert's C capacity slots, as JAX's einsum does (row by row on the CPU,
@@ -37,8 +38,11 @@ The channel scales `sgate`/`sup`/`sdown` (one per layer, shared by the
 experts) apply after each product in JAX's order: fp32 kernel sum, alpha,
 the cast to the compute dtype, then the scale (`qlinear.scaled`).
 
-Not ported: the mesh `constrain` calls and the expert/capacity sharding
-choice (`current_mesh`).
+On a mesh (`DTensor` activations) the layer runs JAX's dense one-hot
+formulation instead (`_moe_mesh`: the same routing, `route`'s dispatch
+and combine, and the experts as JAX's einsums), with JAX's `constrain`
+calls and its expert/capacity sharding choice: the index gathers above
+have shapes that depend on the data, which a `DTensor` cannot carry.
 """
 from __future__ import annotations
 
@@ -48,10 +52,13 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.qlinear import maybe_scale, scaled, winit
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels.ops import qmatmul, serve_matmul
+from repro_torch.runtime import DATA, axis_sizes, constrain, current_mesh
+
 
 GROUP_SIZE = 4096  # tokens per routing group
 CAP_ALIGN = 128    # capacity rounded up to this at large token counts
@@ -89,16 +96,18 @@ def top_k(logits: torch.Tensor, k: int):
 def route_slots(logits: torch.Tensor, cfg, cap: int):
     """logits (T, E) fp32 -> (idx (T, k) expert of each choice, gates
     (T, k) fp32, pos (T, k) its queue position in that expert, keep (T, k)
-    pos < cap, aux)."""
+    pos < cap, aux).  No shape depends on the data, so it runs on
+    `DTensor`s too."""
     T, E = logits.shape
     k = cfg.topk
     gates, idx = top_k(logits, k)
     gates = torch.softmax(gates, dim=-1)               # normalize over k
-    onehot = F.one_hot(idx, E)                         # (T, k, E) int64
+    experts = torch.arange(E, device=logits.device)
+    onehot = (idx[..., None] == experts).long()        # (T, k, E)
     oh_kt = onehot.transpose(0, 1).reshape(k * T, E)   # k-major priority
     pos_kt = torch.cumsum(oh_kt, dim=0) - oh_kt
-    pos = pos_kt.reshape(k, T, E).transpose(0, 1).gather(
-        -1, idx[..., None])[..., 0]
+    pos = torch.sum(pos_kt.reshape(k, T, E).transpose(0, 1) * onehot,
+                    dim=-1)
     keep = pos < cap
     probs = torch.softmax(logits, dim=-1)
     frac_tokens = onehot[:, 0, :].float().mean(dim=0)
@@ -108,15 +117,15 @@ def route_slots(logits: torch.Tensor, cfg, cap: int):
 
 def route(logits: torch.Tensor, cfg, cap: int):
     """JAX's form: logits (T, E) fp32 -> (dispatch (T, E, C), combine
-    (T, E, C), aux), dense one-hot tensors built from `route_slots`."""
-    T, E = logits.shape
+    (T, E, C), aux), the dense one-hot tensors of `route_slots`' slots
+    (the mesh path of `moe_apply`)."""
     idx, gates, pos, keep, aux = route_slots(logits, cfg, cap)
-    t = torch.arange(T, device=logits.device)[:, None].expand_as(idx)
-    at = (t[keep], idx[keep], pos[keep])
-    disp = torch.zeros((T, E, cap), device=logits.device)
-    comb = torch.zeros((T, E, cap), device=logits.device)
-    disp[at] = 1.0
-    comb[at] = gates[keep]
+    experts = torch.arange(logits.shape[1], device=logits.device)
+    chosen = ((idx[..., None] == experts) & keep[..., None]).float()
+    slot = (pos[..., None] == torch.arange(cap, device=logits.device)
+            ).float()                                  # (T, k, C)
+    disp = torch.einsum("tke,tkc->tec", chosen, slot)
+    comb = torch.einsum("tke,tkc->tec", chosen * gates[..., None], slot)
     return disp, comb, aux
 
 
@@ -175,12 +184,44 @@ def _kept_experts(p: dict, rows: torch.Tensor, expert: torch.Tensor,
     return out
 
 
+def _moe_mesh(p: dict, x: torch.Tensor, cfg, G: int, Tg: int,
+              cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`moe_apply` on `DTensor`s: JAX's dense formulation, einsum for
+    einsum, with its layouts.  The expert axis goes over 'model' where it
+    divides, else the CAPACITY axis (mixtral: 8 experts on a 16-way model
+    axis), so the dispatch and combine do not replicate over 'model'."""
+    if isinstance(p["Wgate"], QTensor):
+        raise NotImplementedError(
+            "a packed MoE layer on a mesh: the experts run one by one over "
+            "data-dependent row counts, which a DTensor cannot carry")
+    B, S, d = x.shape
+    xt = constrain(x.reshape(G, Tg, d), DATA, None, None)
+    logits = torch.einsum("gtd,de->gte", xt.float(), p["router"])
+    routes = [route(logits[g], cfg, cap) for g in range(G)]
+    disp = torch.stack([r[0] for r in routes]).to(x.dtype)
+    comb = torch.stack([r[1] for r in routes]).to(x.dtype)
+    aux = torch.stack([r[2] for r in routes]).mean()
+    m = axis_sizes(current_mesh()).get("model", 1)
+    espec = ("model", None) if m > 1 and cfg.n_experts % m == 0 else (
+        None, "model")
+    xe = constrain(torch.einsum("gtd,gtec->gecd", xt, disp), DATA, *espec,
+                   None)
+    mm = lambda h, n: torch.einsum("gecd,edf->gecf", h, p[n])
+    g = scaled(mm(xe, "Wgate"), p, "Wgate", cfg.quant)
+    u = scaled(mm(xe, "Wup"), p, "Wup", cfg.quant)
+    h = constrain(F.silu(g) * u, DATA, *espec, None)
+    ye = constrain(scaled(mm(h, "Wdown"), p, "Wdown", cfg.quant), DATA,
+                   *espec, None)
+    y = torch.einsum("gecd,gtec->gtd", ye, comb)
+    return y.reshape(B, S, d), aux.float()
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg, *, no_drop: bool = False,
               group_size: int = GROUP_SIZE) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y, aux loss).  SwiGLU experts, grouped routing.
     A packed tree runs only its experts with kept rows, where JAX runs
     every expert over its capacity slots (the tests hold the two
-    bit-equal)."""
+    bit-equal); a `DTensor` runs JAX's dense form (`_moe_mesh`)."""
     B, S, d = x.shape
     T = B * S
     E = cfg.n_experts
@@ -190,6 +231,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, *, no_drop: bool = False,
     G = T // Tg
     align = CAP_ALIGN if T >= CAP_ALIGN * E else 1
     cap = Tg if no_drop else capacity(Tg, cfg, align)
+    if isinstance(x, DTensor):
+        return _moe_mesh(p, x, cfg, G, Tg, cap)
 
     xt = x.reshape(T, d)
     logits = serve_matmul(xt.float(), p["router"]).reshape(G, Tg, E)

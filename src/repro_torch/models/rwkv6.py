@@ -31,7 +31,8 @@ its own on the CPU (`serve_matmul`), so a request served alone and in a
 batch reaches the same bits.  Mixed-dtype products promote as JAX's do
 (bf16 with fp32 gives fp32).
 
-Not ported: the mesh `constrain` calls.
+On a mesh r, k, v and the channel mix's hidden are laid over 'model'
+(`runtime.constrain`, JAX's sites); elsewhere it does nothing.
 """
 from __future__ import annotations
 
@@ -43,6 +44,8 @@ import torch.nn.functional as F
 from repro_torch.core.qlinear import maybe_scale, scaled, winit
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels.ops import serve_matmul
+from repro_torch.runtime import DATA, constrain
+
 
 LORA_R = 32
 WKV_SUB = 16  # sub-chunk of the intra-chunk decay split (wkv6_chunked)
@@ -232,6 +235,9 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg, *,
                        p["wB"].to(x.dtype)).float()
     logw = -torch.exp(torch.clamp(ww, -10.0, 5.0)).reshape(B, T, H, N)
 
+    r = constrain(r, DATA, None, "model", None)
+    k = constrain(k, DATA, None, "model", None)
+    v = constrain(v, DATA, None, "model", None)
     S0 = state.S if state is not None else None
     if decode:
         if S0 is None:
@@ -256,7 +262,8 @@ def rwkv6_channel_mix(p: dict, x: torch.Tensor, cfg, *,
     sx = xprev - x
     xk = x + sx * p["mu_ck"].to(x.dtype)
     xr = x + sx * p["mu_cr"].to(x.dtype)
-    k = torch.square(F.relu(_proj(p, xk, "Wck", cfg)))
+    k = constrain(torch.square(F.relu(_proj(p, xk, "Wck", cfg))), DATA,
+                  None, "model")
     kv = _proj(p, k, "Wcv", cfg)
     return torch.sigmoid(_proj(p, xr, "Wcr", cfg)) * kv, x[:, -1]
 

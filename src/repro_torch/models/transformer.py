@@ -76,8 +76,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
+from repro_torch.runtime import DATA, constrain
 from repro_torch.serve.kvcache import (AttnCache, CrossCache, cache_init,
-                                       cache_positions, cache_update)
+                                       cache_positions, cache_update,
+                                       kv_pspec)
 
 ATTN_KINDS = ("full", "global", "local")
 SELF_KINDS = ATTN_KINDS + ("self",)  # causal self-attention kinds
@@ -337,6 +339,11 @@ def _self_attn_cached(p_attn: dict, h: torch.Tensor, cfg, cache: AttnCache,
     q = L.rope(q, positions, cfg.rope_theta)
     k_new = L.rope(k_new, positions, cfg.rope_theta)
     cache = cache_update(cache, k_new, v_new, live)
+    # heads over 'model' where the cache's heads are (kv_pspec's layout),
+    # so attention reads its shard of the cache in place
+    spec = kv_pspec(*cache.k.shape[-4:-1])
+    if len(spec) > 2 and spec[2] == "model":
+        q = constrain(q, DATA, None, "model", None)
     o = L.attention(q, cache.k, cache.v, causal=True, window=window,
                     q_offset=cache.pos - S, kv_pos=cache_positions(cache),
                     chunk=cfg.attn_chunk, softcap=cfg.attn_softcap)
@@ -485,8 +492,12 @@ def init_caches(cfg, batch: int, context: int, *, src_len: int = 0,
 def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """The rows of `tokens`, cast to the compute dtype.  `F.embedding`, a
     gather whose backward sums a row's gradients in a fixed order on the
-    card: a training rerun there is bit-equal."""
-    return F.embedding(tokens, params["embed"]).to(cfg.torch_dtype)
+    card: a training rerun there is bit-equal.  On a mesh the table is
+    gathered whole first (DTensor's vocab-sharded lookup mis-sizes its
+    mask when the tokens are sharded too) and the rows laid over the data
+    axes, as JAX's `constrain`."""
+    x = F.embedding(tokens, constrain(params["embed"], None, None))
+    return constrain(x.to(cfg.torch_dtype), DATA, None, None)
 
 
 def _head(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -500,7 +511,7 @@ def _head(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         real = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
         logits = torch.where(real, logits,
                              torch.full((), -1e30, device=x.device))
-    return logits
+    return constrain(logits, DATA, None, "model")
 
 
 _STATES = {"rwkv": R.RWKVState, "ssm": M.SSMState, "cross": CrossCache}
@@ -586,6 +597,7 @@ def _step_cached(qparams: ServeTree, x: torch.Tensor, caches: dict, cfg, *,
                                  _layer_cache(caches["stack"][i], r),
                                  decode=decode, live=live, xsrc=xsrc)
             done[i].append(one)
+        x = constrain(x, DATA, None, None)
     new_stack = tuple(_restack(c, d) for c, d in zip(caches["stack"], done))
     new_tail = []
     for c in caches["tail"]:
@@ -692,6 +704,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
         x, aux = _remat(cfg, _layers_full, x, aux,
                         qparams.layers[r * n:(r + 1) * n], cfg, positions,
                         xsrc)
+        x = constrain(x, DATA, None, None)
     x, aux = _layers_full(x, aux, qparams.layers[rep * n:], cfg, positions,
                           xsrc)
     x = L.rms_norm(x, qparams["final_norm"])
@@ -709,6 +722,9 @@ def lm_loss(params: dict, batch: dict, cfg, *, training: bool = True,
     logits, aux = forward(params, batch["tokens"], cfg, training=training,
                           noise=noise, img=batch.get("img"),
                           enc_frames=batch.get("enc_frames"))
+    # the vocab gathered whole before the target's logit is picked: a
+    # DTensor's vocab-sharded gather mis-sizes its mask
+    logits = constrain(logits, DATA, None, None)
     logz = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
     nll = torch.mean(logz - tgt)

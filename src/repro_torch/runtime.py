@@ -1,0 +1,191 @@
+"""Process-wide runtime context, ported from `repro/runtime.py`: which
+logical mesh axes exist right now.
+
+Model code calls `constrain(x, *axes)` to request an activation layout;
+outside a mesh context (unit tests, one device) and on a plain tensor it
+is a no-op, inside the trainer or the mesh engine it redistributes a
+`DTensor` to the layout.  Axes that do not divide the corresponding
+dimension are dropped (8 KV heads on a 16-way 'model' axis are
+replicated), so one set of rules serves every (arch x mesh).
+
+A layout is JAX's: a tuple of entries, one a tensor dim, each None, an
+axis name or a tuple of axis names (`tuple(PartitionSpec(...))`), so a
+test compares a rule of this package with JAX's directly.  `placements`
+turns it into a `DTensor`'s placements over a `DeviceMesh` whose
+`mesh_dim_names` are JAX's axis names: a tensor dim carrying axes gets
+`Shard(dim)` on each of those mesh dims, the others `Replicate()`.  Eager
+DTensor ops then play XLA SPMD's part: a column-parallel product followed
+by a row-parallel one ends in a `Partial` sum and its all-reduce.
+
+`abstract_mesh(sizes, names)` is JAX's device-free mesh: axis sizes only,
+so rules can be built and tested for a 512-device pod without a process.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional, Sequence
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+_state = threading.local()
+
+Spec = tuple  # one entry a tensor dim: None, "axis" or ("axis", ...)
+DATA = ("pod", "data")  # the batch (data-parallel) axes of a mesh
+
+
+class AbstractMesh:
+    """Axis names and sizes, no devices (JAX's `AbstractMesh`)."""
+
+    def __init__(self, sizes: Sequence[int], names: Sequence[str]):
+        self.mesh_dim_names = tuple(names)
+        self.shape = dict(zip(self.mesh_dim_names, (int(s) for s in sizes)))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def abstract_mesh(sizes: Sequence[int], names: Sequence[str]) -> AbstractMesh:
+    return AbstractMesh(sizes, names)
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of an `AbstractMesh` or a `DeviceMesh` (JAX's
+    `mesh.shape`)."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, AbstractMesh):
+        return mesh.shape
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def current_mesh():
+    return getattr(_state, "mesh", None)
+
+
+def current_param_rules():
+    return getattr(_state, "param_rules", None)
+
+
+def current_compute_rules():
+    return getattr(_state, "compute_rules", None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, param_rules=None, compute_rules=None):
+    """Make `mesh` current.  `param_rules(path, leaf, mesh) -> spec` lets
+    inner code (the quantizer) pin intermediates to the parameter STORAGE
+    layout; `compute_rules` gives the layout of the transient COMPUTE copy
+    (the cast or unpacked weight the matmuls read), see `constrain_param`."""
+    prev = (current_mesh(), current_param_rules(), current_compute_rules())
+    _state.mesh, _state.param_rules, _state.compute_rules = (
+        mesh, param_rules, compute_rules)
+    try:
+        yield mesh
+    finally:
+        _state.mesh, _state.param_rules, _state.compute_rules = prev
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """A layout's `DTensor` placements over `mesh`, one a mesh dim: the
+    tensor dim whose entry names a mesh axis is `Shard(dim)` there, every
+    other mesh dim `Replicate()`.  A tensor dim split over several axes
+    takes them in mesh order (pod before data, JAX's block order); an
+    entry naming them in another order, or an axis the mesh lacks,
+    raises.  An axis of size 1 splits nothing and stays `Replicate()`
+    (DTensor will not reshape a dim sharded over it)."""
+    names = tuple(mesh.mesh_dim_names)
+    sizes = axis_sizes(mesh)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = _axes(entry)
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"axis {a!r} of {spec} is not on the mesh "
+                                 f"{names}")
+            if sizes[a] > 1:
+                out[names.index(a)] = Shard(dim)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"entry {entry!r} of {spec} splits a dim in "
+                             f"another order than the mesh's {names}")
+    return tuple(out)
+
+
+def constrain_param(path, master, derived, drop_axes: Sequence[str] = (),
+                    kind: str = "storage"):
+    """`derived` (a quantized sample, a cast, an unpacked weight) in the
+    layout the parameter rules give `master`, so elementwise work stays
+    shard-local.  `drop_axes` removes mesh axes from the layout (the
+    unpacked compute copy is model-sharded only); axes that no longer
+    divide a dim (a packed K) are dropped.  A no-op outside a mesh, without
+    rules, or on a plain tensor."""
+    mesh, rules = current_mesh(), current_param_rules()
+    if kind == "compute" and current_compute_rules() is not None:
+        rules, drop_axes = current_compute_rules(), ()
+    if mesh is None or rules is None or not isinstance(derived, DTensor):
+        return derived
+    spec = tuple(rules(path, master, mesh))
+    sizes = axis_sizes(mesh)
+    entries = list(spec[:derived.dim()])
+    entries += [None] * (derived.dim() - len(entries))
+    fixed = []
+    for dim, entry in zip(derived.shape, entries):
+        kept = tuple(a for a in _axes(entry) if a not in drop_axes)
+        n = 1
+        for a in kept:
+            n *= sizes.get(a, 1)
+        if not kept or dim % n:
+            fixed.append(None)
+        else:
+            fixed.append(kept if len(kept) > 1 else kept[0])
+    return derived.redistribute(derived.device_mesh,
+                                placements(tuple(fixed), mesh))
+
+
+def _fit(dim: int, axes, mesh) -> Optional[object]:
+    """The largest prefix of `axes` whose product divides `dim`."""
+    if axes is None:
+        return None
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = axis_sizes(mesh)
+    keep, prod = [], 1
+    for a in axes:
+        if a not in sizes:
+            continue
+        n = sizes[a]
+        if dim % (prod * n) == 0:
+            keep.append(a)
+            prod *= n
+        else:
+            break
+    if not keep:
+        return None
+    return tuple(keep) if len(keep) > 1 else keep[0]
+
+
+def spec_for(shape: Sequence[int], *axes) -> Spec:
+    """A layout for `shape`, replicating the dims an axis does not divide;
+    () outside a mesh (JAX's `P()`)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return ()
+    return tuple(_fit(d, a, mesh) for d, a in zip(shape, axes))
+
+
+def constrain(x, *axes):
+    """`x` in the layout of its logical axes: a DTensor redistributed,
+    anything else as it is; a no-op outside a mesh."""
+    mesh = current_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    spec = spec_for(x.shape, *axes)
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))

@@ -65,15 +65,37 @@ chunk to a power-of-two bucket (`declared_buckets`): JAX pads so that its
 prefill jit traces once per bucket, and here a pad step would be one more
 recurrent step on the device, so every chunk runs at its own length and
 `prefill_steps` counts prompt tokens.  `warm()` runs a chunk and a
-throwaway request before the clock starts.  Refused: a device mesh
-(`mesh=`, with `tick_hlo`), which waits for ROADMAP Queue 1 item 9; a
-prefix cache over ring (sliding-window) caches, whose live window need
-not start at column 0; and, with JAX's messages, runtimes with `extras`
+throwaway request before the clock starts.  Refused: a prefix cache over
+ring (sliding-window) caches, whose live window need not start at column
+0, and on a mesh (a splice would move a slot's bytes between data
+shards); and, with JAX's messages, runtimes with `extras`
 (cross-attention sources: whisper and the VLM serve in lockstep),
 speculation and a prefix cache over a "whole" runtime.
+
+A mesh (`mesh=`, a `DeviceMesh` with JAX's axis names, one process a
+device: `launch.mesh.make_serve_mesh`).  The slot pool shards over the
+data axes: slot s lives on data shard s // (slots / D), and each rank
+holds only its shard's rows (`serve_pool_shardings`' slot axis), so a
+tick runs on the shard's slots alone and issues no collective.  On a
+model axis above 1 the weights are tensor-parallel (`rt.on_mesh`: DTensors
+over the 'model' dims, `serve_prm_shardings`' layouts) and so are the kv
+caches' heads (`serve_pool_shardings`' model entries).  Every rank runs
+the same scheduler over the same requests (SPMD): a prompt chunk runs on
+the data shard that owns its slot, and after each tick the sampled tokens
+are all-gathered over the data axes (a first token from its owner), so
+every rank retires and admits alike.  That gather is the counterpart of
+JAX's host read and lies outside the tick.  `tick_collectives()` replaces
+JAX's `tick_hlo` (eager PyTorch compiles no module to read): the
+collectives a decode tick issues, counted by `CommDebugMode` on the
+first; 0 on a data-only mesh, JAX's assertion on the HLO.  As in JAX,
+`slots % D` raises, admission spreads over the shards, `stats()` reports
+each shard and the mesh, and a packed tree is refused when the CUDA
+kernels are the route (they are single-device launches); on the CPU it
+serves through the plain versions with its codes sharded.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 import time
@@ -82,10 +104,15 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor.debug import CommDebugMode
 
 from repro_torch.core import bnlstm as BL
-from repro_torch.core.qtensor import tree_map, tree_map_with_path
+from repro_torch.core.qtensor import (is_qtensor, tree_leaves, tree_map,
+                                      tree_map_with_path)
 from repro_torch.kernels import dispatch
+from repro_torch.launch import sharding as S
+from repro_torch.runtime import axis_sizes
 from repro_torch.serve.kvcache import (AttnCache, cache_gather_slot,
                                        cache_reset_slots, cache_write_slot)
 from repro_torch.serve.prefixcache import narrow_state, widen_state
@@ -252,10 +279,6 @@ class ServeEngine:
     def __init__(self, rt, vocab: int, *, slots: int, max_context: int,
                  eos_id: Optional[int] = None, prefill_chunk: int = 32,
                  draft=None, spec_k: int = 0, prefix_cache=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded engine (and tick_hlo) is not ported: it waits "
-                "for ROADMAP Queue 1 item 9")
         if getattr(rt, "extras", None):
             raise NotImplementedError(
                 "continuous batching over cross-attention runtimes (vlm/"
@@ -303,13 +326,44 @@ class ServeEngine:
             if draft.device != rt.device:
                 raise ValueError(f"draft on {draft.device}, target on "
                                  f"{rt.device}")
+        if mesh is not None and prefix_cache is not None:
+            raise NotImplementedError(
+                "a prefix cache on a mesh: a splice would move a slot's "
+                "state between data shards")
+        self.mesh = mesh
+        self._data_shards, self._shard = 1, 0
+        self._data_dims: Tuple[str, ...] = ()
+        if mesh is not None:
+            sizes = axis_sizes(mesh)
+            if rt.device.type == "cuda" and any(
+                    is_qtensor(l) for r in (rt, draft) if r is not None
+                    for l in tree_leaves(getattr(r, "params", None) or
+                                         r.variables["params"])):
+                raise NotImplementedError(
+                    "mesh-sharded serving of packed trees runs through the "
+                    "plain versions (CPU) — the packed CUDA kernels are "
+                    "single-device launches; their sharded port is the "
+                    "ROADMAP item")
+            self._data_dims = tuple(a for a in S.DATA_AXES
+                                    if sizes.get(a, 1) > 1)
+            D = int(np.prod([sizes[a] for a in self._data_dims]))
+            if slots % D:
+                raise ValueError(
+                    f"slots={slots} must split evenly over the mesh's {D} "
+                    f"data shard(s) — the slot pool shards along 'data'")
+            coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            for a in self._data_dims:
+                self._shard = self._shard * sizes[a] + coord[a]
+            self._data_shards = D
+            rt = rt.on_mesh(mesh)
+            draft = draft.on_mesh(mesh) if draft is not None else None
         self.rt = rt
         self.device = rt.device
         if family == "rnn":
-            self._gather, self._write, self._reset = (
+            self._slot_row, self._write, self._reset = (
                 BL.rnn_gather_slot, BL.rnn_write_slots, BL.rnn_reset_slots)
         else:
-            self._gather, self._write, self._reset = (
+            self._slot_row, self._write, self._reset = (
                 tree_gather_slot, tree_write_slot, tree_reset_slots)
         self.vocab = int(vocab)
         self.n_slots = int(slots)
@@ -322,14 +376,17 @@ class ServeEngine:
         if prefix_cache is not None:
             prefix_cache.bind(self.prefill_chunk)
 
-        B = self.n_slots
-        self.pool = rt.init_state(B, self.max_context, per_slot=True)
+        # this rank's slots: [lo, lo + per) of the pool (all of them
+        # without a mesh); every per-slot device array holds those rows
+        B = self._per = self.n_slots // self._data_shards
+        self._lo = self._shard * B
+        self.pool = self._local_pool(rt)
         self.draft = draft
         self.spec_k = int(spec_k)
         self.spec = draft is not None
         if self.spec:
-            self.draft_pool = draft.init_state(B, self.max_context,
-                                               per_slot=True)
+            self.draft_pool = self._local_pool(draft)
+        self.tick_collective_count = -1
         dev = self.device
         self._pending = torch.zeros((B,), dtype=torch.int32, device=dev)
         self._live = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -337,8 +394,9 @@ class ServeEngine:
         self._count = torch.zeros((B,), dtype=torch.int64, device=dev)
         self._temp = torch.ones((B,), dtype=torch.float32, device=dev)
         self._topk = torch.zeros((B,), dtype=torch.int64, device=dev)
-        self._live_host = np.zeros(B, bool)
-        self._active: List[Optional[_Active]] = [None] * B
+        # the host's view of every slot, the same on every rank
+        self._live_host = np.zeros(self.n_slots, bool)
+        self._active: List[Optional[_Active]] = [None] * self.n_slots
         self._prefill_q: Deque[int] = deque()   # slots mid-prefill, FIFO
         self._rid = 0
         # the admission queue: a heap of (priority, arrival_s, submit seq,
@@ -361,6 +419,50 @@ class ServeEngine:
         # decodes waited: the scheduler holds it to one
         self._stall_pending: Dict[int, int] = {}
         self._stall_max = 0
+
+    # -- the mesh: this rank's rows, the data-axis gather ---------------------
+
+    def _local_pool(self, rt):
+        """This rank's rows of a slot pool: `per` slots; on a model axis
+        above 1 the kv heads sharded over it (`serve_pool_shardings`' model
+        entries, the data axes dropped: the rank holds its slots whole)."""
+        pool = rt.init_state(self._per, self.max_context, per_slot=True)
+        if getattr(rt, "tp_mesh", None) is None:
+            return pool
+        ref = rt.init_state(1, self.max_context, per_slot=True)
+        lay = S.drop_data(pool, S.serve_pool_shardings(pool, ref, self.mesh))
+        return S.distribute(pool, lay, rt.tp_mesh)
+
+    def _local(self, slot: int) -> Optional[int]:
+        """The row of global `slot` in this rank's pool, None when another
+        data shard owns it."""
+        i = slot - self._lo
+        return i if 0 <= i < self._per else None
+
+    def _gather_data(self, t: torch.Tensor) -> torch.Tensor:
+        """The data shards' rows of `t` (this rank's (per, ...)) in slot
+        order, on every rank: one all-gather a data axis, the inner axis
+        first (slot s of shard p * D_data + d).  Without data shards, `t`."""
+        for a in reversed(self._data_dims):
+            group = self.mesh.get_group(a)
+            parts = [torch.empty_like(t) for _ in range(dist.get_world_size(
+                group))]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            t = torch.cat(parts)
+        return t
+
+    def _agreed(self, now: float) -> float:
+        """On a mesh of several ranks, the latest of the ranks' clocks (one
+        all-reduce a mesh dim), so every rank sees the same arrivals and
+        admits alike; `now` itself otherwise."""
+        if self.mesh is None or self.mesh.size() == 1:
+            return now
+        t = torch.tensor([now], dtype=torch.float64,
+                         device=self.mesh.device_type)
+        for a in self.mesh.mesh_dim_names:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                            group=self.mesh.get_group(a))
+        return float(t.item())
 
     # -- clock and transfers -------------------------------------------------
 
@@ -410,10 +512,17 @@ class ServeEngine:
 
     def _free_slot(self) -> Optional[int]:
         # a prefilling slot is busy too: occupancy is "has an _Active"
-        for s, a in enumerate(self._active):
-            if a is None:
-                return s
-        return None
+        busy = np.array([a is not None for a in self._active])
+        idle = np.flatnonzero(~busy)
+        if not idle.size:
+            return None
+        if self._data_shards <= 1:
+            return int(idle[0])
+        # a mesh: spread admissions over the data shards (slot s lives on
+        # shard s // per), so a half-empty pool decodes on every shard;
+        # the slot never changes a request's bytes
+        occ = busy.reshape(self._data_shards, self._per).sum(axis=1)
+        return int(min(idle, key=lambda s: (occ[s // self._per], int(s))))
 
     # -- the resumable scheduling API -----------------------------------------
 
@@ -511,8 +620,9 @@ class ServeEngine:
         n_live = int(self._live_host.sum())
         self._occupancy_sum += (n_live + len(self._prefill_q)) / self.n_slots
 
-        # the one device-to-host read of the tick
-        out_host = spec_out.cpu().numpy()
+        # the one device-to-host read of the tick (on a mesh, of every data
+        # shard's rows: the gather lies outside the tick)
+        out_host = self._gather_data(spec_out).cpu().numpy()
         now = self._now()
         for slot in np.flatnonzero(self._live_host):
             act = self._active[slot]
@@ -544,13 +654,44 @@ class ServeEngine:
 
     # -- the device work -----------------------------------------------------
 
+    def _device(self, tick: bool = False):
+        """The context of device work: a tensor-parallel runtime's mesh
+        context, and on a mesh's first tick `CommDebugMode`, which counts
+        its collectives (`tick_collectives`)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(self.rt.mesh_context())
+        self._comm = None
+        if tick and self.mesh is not None and self.tick_collective_count < 0:
+            self._comm = stack.enter_context(CommDebugMode())
+        return stack
+
+    def tick_collectives(self) -> int:
+        """The collectives a decode tick (or speculative round) issues,
+        counted by `CommDebugMode` on the engine's first; -1 before it.
+        Every tick runs the same ops over the whole pool (dead rows are
+        masked, never resliced), so one count holds for all, and the
+        dispatch mode that counts stays off the later ticks.  This replaces
+        JAX's `tick_hlo`: eager PyTorch compiles no module whose
+        collectives could be read.  0 on a data-only mesh (rows are
+        independent and the weights whole on every rank), JAX's assertion
+        on the HLO; a tensor-parallel tick reduces over 'model'."""
+        return self.tick_collective_count
+
+    def _logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Logits whole on this rank (a tensor-parallel head's are a
+        DTensor over 'model')."""
+        return S.full(logits)
+
     def _tick(self) -> torch.Tensor:
-        """One batched decode tick over every slot, dead ones frozen; dead
-        slots keep their pending token and counter.  Returns the pending
-        tokens (B,)."""
+        """One batched decode tick over this rank's slots, dead ones
+        frozen; dead slots keep their pending token and counter.  Returns
+        the pending tokens (per,)."""
         calls = _tick_calls()
-        logits, self.pool = self.rt.decode_fn(self._pending, self.pool,
-                                              self._live)
+        with self._device(tick=True):
+            logits, self.pool = self.rt.decode_fn(self._pending, self.pool,
+                                                  self._live)
+            logits = self._logits(logits)
+        self._count_collectives()
         self.tick_launches = _tick_calls() - calls
         nxt = sample_slots(logits, self._seed, self._count,
                            temperature=self._temp, top_k=self._topk,
@@ -558,6 +699,10 @@ class ServeEngine:
         self._pending = torch.where(self._live, nxt, self._pending)
         self._count = self._count + self._live
         return self._pending
+
+    def _count_collectives(self) -> None:
+        if self._comm is not None:
+            self.tick_collective_count = self._comm.get_total_counts()
 
     def _spec_round(self) -> torch.Tensor:
         """One draft-verify-accept round over every live slot:
@@ -580,11 +725,18 @@ class ServeEngine:
         samp = dict(temperature=self._temp, top_k=self._topk,
                     vocab=self.vocab)
         calls = _tick_calls()
+        with self._device(tick=True):
+            out = self._spec_work(K, live, pending, samp, calls)
+        self._count_collectives()
+        return out
+
+    def _spec_work(self, K, live, pending, samp, calls) -> torch.Tensor:
         dsnap = self.draft.spec_snapshot(self.draft_pool, K + 1)
         dst, tok = self.draft_pool, pending
         qlg, dtoks, dem = [], [], []
         for k in range(K + 1):
             lg, dst = self.draft.decode_fn(tok, dst, live)
+            lg = self._logits(lg)
             nxt = sample_slots(lg, self._seed, self._count + k, stream=DRAFT,
                                **samp)
             tok = torch.where(live, nxt, tok)
@@ -599,6 +751,7 @@ class ServeEngine:
         vtokens = torch.cat([pending[:, None], drafts], dim=1)
         vsnap = self.rt.spec_snapshot(self.pool, K + 1)
         p_logits, vafter, vemits = self.rt.verify(vtokens, self.pool, live)
+        p_logits = self._logits(p_logits)
         n_acc, out = spec_accept(p_logits, q_logits, drafts, self._seed,
                                  self._count, **samp)
         n_acc = torch.where(live, n_acc, torch.zeros_like(n_acc))
@@ -614,18 +767,23 @@ class ServeEngine:
     def _run_chunk(self, chunk: np.ndarray, slot: int):
         """One in-slot prefill chunk (both pools in speculative mode):
         gather the slot row, run the chunk, write the row back.  Returns
-        the first-token logits (1, V)."""
-        tokens = self._upload(chunk)[None]
-        sub = self._gather(self.pool, slot)
-        logits, sub = self.rt.prefill_chunk(tokens, sub)
-        self._write(self.pool, sub, slot)
-        if self.spec:
-            dsub = self._gather(self.draft_pool, slot)
-            _, dsub = self.draft.prefill_chunk(tokens, dsub)
-            self._write(self.draft_pool, dsub, slot)
+        the first-token logits (1, V); None on a rank whose data shard
+        does not own the slot (it runs nothing)."""
         self.prefill_chunks += 1
         self.prefill_steps += int(chunk.size)
-        return logits
+        row = self._local(slot)
+        if row is None:
+            return None
+        tokens = self._upload(chunk)[None]
+        with self.rt.mesh_context():
+            sub = self._slot_row(self.pool, row)
+            logits, sub = self.rt.prefill_chunk(tokens, sub)
+            self._write(self.pool, sub, row)
+            if self.spec:
+                dsub = self._slot_row(self.draft_pool, row)
+                _, dsub = self.draft.prefill_chunk(tokens, dsub)
+                self._write(self.draft_pool, dsub, row)
+            return self._logits(logits)
 
     def _admit_commit(self, logits: torch.Tensor, req: Request,
                       slot: int) -> int:
@@ -634,16 +792,22 @@ class ServeEngine:
         of an admission)."""
         dev = self.device
         seed = int(req.seed) & 0xFFFFFFFF
-        t = torch.full((1,), float(req.temperature), device=dev)
-        k = torch.full((1,), int(req.top_k), dtype=torch.int64, device=dev)
-        tok = sample_slots(logits, seed, 0, temperature=t, top_k=k,
-                           vocab=self.vocab)
-        self._pending[slot] = tok[0]
-        self._seed[slot] = seed
-        self._count[slot] = 1
-        self._temp[slot] = float(req.temperature)
-        self._topk[slot] = int(req.top_k)
-        self._live[slot] = True
+        row = self._local(slot)
+        tok = torch.full((1,), -1, dtype=torch.int32, device=dev)
+        if row is not None:
+            t = torch.full((1,), float(req.temperature), device=dev)
+            k = torch.full((1,), int(req.top_k), dtype=torch.int64,
+                           device=dev)
+            tok = sample_slots(logits, seed, 0, temperature=t, top_k=k,
+                               vocab=self.vocab).to(torch.int32)
+            self._pending[row] = tok[0]
+            self._seed[row] = seed
+            self._count[row] = 1
+            self._temp[row] = float(req.temperature)
+            self._topk[row] = int(req.top_k)
+            self._live[row] = True
+        if self._data_shards > 1:  # the owner's token, on every rank
+            tok = self._gather_data(tok)[slot // self._per:][:1]
         return int(tok[0])
 
     # -- internals -----------------------------------------------------------
@@ -682,7 +846,7 @@ class ServeEngine:
         prefix = act.prompt[:act.off]
         if self.prefix_cache.contains(prefix):
             return
-        keep = lambda pool: _clone(narrow_state(self._gather(pool, slot),
+        keep = lambda pool: _clone(narrow_state(self._slot_row(pool, slot),
                                                 act.off))
         sub = keep(self.pool)
         dsub = keep(self.draft_pool) if self.spec else None
@@ -738,11 +902,14 @@ class ServeEngine:
         """Scrub the freed slots' rows (both pools in speculative mode) and
         clear their device live bits: the next occupant prefills into the
         row, so it must read like a fresh one."""
-        self._reset(self.pool, slots)
+        rows = [r for r in map(self._local, slots) if r is not None]
+        if not rows:
+            return
+        self._reset(self.pool, rows)
         if self.spec:
-            self._reset(self.draft_pool, slots)
-        for s in slots:
-            self._live[s] = False
+            self._reset(self.draft_pool, rows)
+        for r in rows:
+            self._live[r] = False
 
     # -- stats (the front door's /v1/stats) ----------------------------------
 
@@ -760,9 +927,19 @@ class ServeEngine:
             "prefill_chunks": self.prefill_chunks,
             "prefill_steps": self.prefill_steps,
             "max_decode_stall_ticks": self._stall_max,
-            "shards": [{"shard": 0, "slots": self.n_slots, "active": busy,
-                        "occupancy": busy / self.n_slots}],
         }
+        # per-shard occupancy (the queue is global: one heap feeds every
+        # shard); an engine without a mesh is one shard
+        per = self._per
+        act = [a is not None for a in self._active]
+        d["shards"] = [{"shard": i, "slots": per,
+                        "active": int(sum(act[i * per:(i + 1) * per])),
+                        "occupancy": sum(act[i * per:(i + 1) * per]) / per}
+                       for i in range(self._data_shards)]
+        if self.mesh is not None:
+            d["mesh"] = {str(a): int(n)
+                         for a, n in axis_sizes(self.mesh).items()}
+            d["tick_collectives"] = self.tick_collective_count
         if self.spec:
             d.update({"drafted_tokens": self._drafted,
                       "accepted_drafts": self._accepted})
@@ -791,7 +968,7 @@ class ServeEngine:
 
         while (arrivals or self._heap or self._prefill_q
                or self._live_host.any()):
-            now = self._now()
+            now = self._agreed(self._now())
             while arrivals and (not realtime or arrivals[0].arrival_s <= now):
                 self.submit(arrivals.popleft())
             _, comps = self.step()

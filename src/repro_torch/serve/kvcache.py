@@ -1,6 +1,10 @@
 """KV caches for serving, full and ring buffer (sliding window), and the
-cross-attention cache, ported from `repro/serve/kvcache.py` without its
-mesh half (`kv_pspec`, `constrain_cache`).
+cross-attention cache, ported from `repro/serve/kvcache.py`.
+
+Layout on a mesh (`kv_pspec`): the batch axis over ('pod', 'data'), the KV
+heads over 'model' where they divide, else the sequence axis over 'model'
+(a length-sharded cache).  `constrain_cache` redistributes a cache of
+`DTensor`s to it; on plain tensors or outside a mesh it does nothing.
 
 An `AttnCache` holds k, v (B, C, Hkv, hd) with capacity C and `pos`, the
 tokens written: a scalar () in lockstep, or (B,) when every row is a
@@ -30,6 +34,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.runtime import axis_sizes, constrain, current_mesh
+
 
 @dataclasses.dataclass
 class AttnCache:
@@ -50,6 +56,53 @@ class AttnCache:
 class CrossCache(NamedTuple):
     k: torch.Tensor  # (B, S_src, Hkv, hd): fixed after prefill
     v: torch.Tensor
+
+
+def kv_pspec(batch: int, cap: int, heads: int) -> tuple:
+    """The cache layout of the current mesh per the policy above; () outside
+    one."""
+    mesh = current_mesh()
+    if mesh is None:
+        return ()
+    sizes = axis_sizes(mesh)
+    keep, prod = [], 1
+    for a in ("pod", "data"):
+        if a in sizes and batch % (prod * sizes[a]) == 0:
+            keep.append(a)
+            prod *= sizes[a]
+    bspec = tuple(keep) if len(keep) > 1 else (keep[0] if keep else None)
+    m = sizes.get("model", 1)
+    if m > 1 and heads % m == 0:
+        return (bspec, None, "model", None)
+    if m > 1 and cap % m == 0:
+        return (bspec, "model", None, None)
+    return (bspec, None, None, None)
+
+
+def constrain_cache(c: AttnCache) -> AttnCache:
+    """k and v in `kv_pspec`'s layout (DTensors only; see `constrain`)."""
+    if current_mesh() is None:
+        return c
+    spec = kv_pspec(*c.k.shape[-4:-1])
+    return c._replace(k=constrain(c.k, *spec), v=constrain(c.v, *spec))
+
+
+def slot_axis(pool_shape, sub_shape) -> Optional[int]:
+    """The axis where a batch-1 sub-state differs from the pool: the slot
+    axis.  Equal shapes mean a 1-slot pool (whole replace).  The mesh
+    layer shards exactly this axis over the data axes
+    (`launch.sharding.serve_pool_shardings`)."""
+    if tuple(pool_shape) == tuple(sub_shape):
+        return None
+    for i, (p, s) in enumerate(zip(pool_shape, sub_shape)):
+        if p != s:
+            if s != 1:
+                raise ValueError(f"sub-state axis {i} must be 1, got "
+                                 f"{tuple(sub_shape)} vs pool "
+                                 f"{tuple(pool_shape)}")
+            return i
+    raise ValueError(f"no slot axis between {tuple(pool_shape)} and "
+                     f"{tuple(sub_shape)}")
 
 
 def cache_init(batch: int, cap: int, heads: int, hd: int, dtype, *,

@@ -35,9 +35,21 @@ weights threaded into the engine's jits as an argument, so XLA cannot fold
 them) has no counterpart: PyTorch runs eagerly and folds nothing.
 `speculative_draft` packs an fp target's own masters into a ternary/binary
 draft runtime.
+
+On a mesh (the engine's `mesh=`): `serve_prm_shardings(mesh)` gives the
+weights' serving layouts, as JAX's does: the RNN replicates everything
+(O(H^2) weights; its ticks are data-parallel only), the transformer
+takes `sharding.serve_param_shardings` (tensor-parallel over 'model',
+replicated over the data axes), a packed leaf's codes and scale projected
+by `qtensor_pspecs`.  `on_mesh(mesh)` is the runtime whose weights lie so:
+the RNN's, and any runtime's on a model axis of 1, is itself; a
+transformer's on a model axis above 1 holds DTensors over the mesh's
+'model' dims, and its steps then run inside `mesh_context()`.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import time
 from typing import Any, Optional
@@ -51,7 +63,9 @@ from repro_torch.core.qtensor import (export_packed, is_qtensor, tree_leaves,
                                       tree_map, tree_nbytes, tree_to)
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.kernels import dispatch
+from repro_torch.launch import sharding as S
 from repro_torch.models import transformer as T
+from repro_torch.runtime import axis_sizes, use_mesh
 from repro_torch.serve.kvcache import cache_spec_commit, cache_spec_snapshot
 from repro_torch.serve.prefixcache import tree_bytes
 from repro_torch.serve.sampler import SAMPLE, draw_batch, gumbel, sample
@@ -138,6 +152,17 @@ class RNNRuntime:
     def param_nbytes(self) -> tuple[int, int]:
         return tree_nbytes(self.variables["params"])
 
+    def serve_prm_shardings(self, mesh) -> Any:
+        """Everything replicated (JAX's: the RNN's mesh engine is
+        data-parallel only)."""
+        return tree_map(lambda _: (), self.variables)
+
+    def on_mesh(self, mesh) -> "RNNRuntime":
+        return self
+
+    def mesh_context(self):
+        return contextlib.nullcontext()
+
 
 class TransformerRuntime:
     """Serving session of the transformer pool's dense (llama3, qwen3,
@@ -182,21 +207,25 @@ class TransformerRuntime:
         return T.init_caches(self.cfg, batch, context, src_len=src,
                              per_slot=per_slot, device=self.device)
 
+    @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, state: dict):
         return T.prefill(self.served, tokens.to(self.device), state,
                          self.cfg, **self.extras)
 
+    @torch.no_grad()
     def decode_step(self, tok: torch.Tensor, state: dict):
         return T.decode_step(self.served, tok, state, self.cfg)
 
     # -- the engine's hooks ---------------------------------------------------
 
+    @torch.no_grad()
     def decode_fn(self, tok: torch.Tensor, state: dict,
                   live: Optional[torch.Tensor] = None):
         """The engine's tick body: `live` (B,) freezes dead rows' cache
         bytes and pos bit for bit (a dead row may be mid-prefill)."""
         return T.decode_step(self.served, tok, state, self.cfg, live=live)
 
+    @torch.no_grad()
     def prefill_chunk(self, tokens: torch.Tensor, state: dict):
         """One prompt chunk (B, T) against the carried caches; returns its
         last token's logits (B, V) and the caches."""
@@ -213,6 +242,7 @@ class TransformerRuntime:
         del state  # the snapshot carries all rollback material
         return ()
 
+    @torch.no_grad()
     def verify(self, tokens: torch.Tensor, state: dict,
                live: Optional[torch.Tensor] = None):
         """(B, T) tokens -> (logits (B, T, V), caches, ()): each position
@@ -229,6 +259,43 @@ class TransformerRuntime:
 
     def param_nbytes(self) -> tuple[int, int]:
         return tree_nbytes(self.params)
+
+    # -- a mesh ---------------------------------------------------------------
+
+    tp_mesh = None  # the 'model' submesh the weights are sharded over
+
+    def serve_prm_shardings(self, mesh) -> Any:
+        """`sharding.serve_param_shardings` of the parameter tree: TP over
+        'model', replicated over the data axes; a QTensor of layouts for a
+        packed leaf."""
+        return S.serve_param_shardings(self.params, mesh)
+
+    def on_mesh(self, mesh) -> "TransformerRuntime":
+        """This runtime with its weights tensor-parallel over `mesh`'s
+        'model' axis: the parameters DTensors in `serve_prm_shardings`'
+        layouts over the model submesh (each rank keeps its shard) and the
+        serving tree prepared from them; itself on a model axis of 1."""
+        if axis_sizes(mesh).get("model", 1) == 1:
+            return self
+        rt = copy.copy(self)
+        rt.tp_mesh = mesh["model"]
+        rt.params = S.distribute(self.params, self.serve_prm_shardings(mesh),
+                                 rt.tp_mesh)
+        with rt.mesh_context():
+            rt.served = T._serve_quant(rt.params, self.cfg)
+        return rt
+
+    def mesh_context(self):
+        """Where a tensor-parallel runtime's steps run: the model submesh
+        current (the model's `constrain` calls) and plain tensors (token
+        ids, positions, masks) taken as replicated beside DTensors."""
+        if self.tp_mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        stack = contextlib.ExitStack()
+        stack.enter_context(use_mesh(self.tp_mesh))
+        stack.enter_context(implicit_replication())
+        return stack
 
 
 def serving_runtime(cfg, params: dict, **kw):

@@ -22,9 +22,14 @@ each save removes orphaned partial writes and all but the newest `keep`.
 writes the files on a worker thread; `wait()` joins it and re-raises its
 error.
 
-In a job of several ranks every rank holds the same state: rank 0 writes,
-and `save` given the job's mesh holds every rank at a barrier until the
-files are in place.
+In a job of several ranks rank 0 writes, and `save` given the job's mesh
+holds every rank at a barrier until the files are in place.  A state of
+`DTensor`s (tensor-parallel training) is saved in the same layout: every
+rank takes part in gathering each leaf's `full_tensor()`, and rank 0
+writes the whole tensors.  `restore` into a template of DTensors gives
+each rank its shard of the checkpoint's array in the template leaf's
+placements, so a checkpoint written at (data, model) = (2, 2) restores at
+(1, 1), on one device or in JAX.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.qtensor import tree_map, tree_map_with_path, tree_paths
 from repro_torch.launch import mesh as M
@@ -50,6 +56,13 @@ OWN_LEAVES = ("noise_seed",)  # the port's own: a JAX checkpoint lacks them
 def _flatten(tree: Any) -> dict:
     """{dotted path: leaf} in the JAX package's flatten order."""
     return {SEP.join(path): leaf for path, leaf in tree_paths(tree)}
+
+
+def _whole(tree: Any) -> Any:
+    """Every DTensor leaf as its full tensor (a collective every rank of
+    its mesh joins); plain leaves as they are."""
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                    else x, tree)
 
 
 def _host(x) -> np.ndarray:
@@ -65,6 +78,7 @@ def save(tree: Any, directory: str | Path, step: int, *,
     checkpoint path."""
     directory = Path(directory)
     final = directory / f"step_{step:08d}"
+    tree = _whole(tree)
     if M.rank() == 0:
         _write(tree, directory, step, keep)
     if mesh is not None:
@@ -135,6 +149,10 @@ def restore(template: Any, directory: str | Path,
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"template {tuple(leaf.shape)}")
+        if isinstance(leaf, DTensor):
+            return distribute_tensor(
+                torch.from_numpy(arr).to(leaf.to_local().device),
+                leaf.device_mesh, leaf.placements, src_data_rank=None)
         return torch.from_numpy(arr).to(leaf.device)
 
     return tree_map_with_path(load, template)
@@ -148,8 +166,10 @@ class AsyncCheckpointer:
         self._error: Optional[BaseException] = None
 
     def save_async(self, tree: Any, step: int) -> None:
-        """Rank 0 writes; another rank returns at once."""
+        """Rank 0 writes; another rank returns once the DTensor leaves are
+        gathered."""
         self.wait()
+        tree = _whole(tree)
         if M.rank() != 0:
             return
         host_tree = tree_map(_host, tree)

@@ -37,9 +37,24 @@ as in JAX.  The compression noise of step s is the port's own
 injected (`comp_noise=`).  The pool's uncompressed step on a mesh averages
 its gradients, loss, `nll` and `moe_aux` likewise, which is the
 global-batch gradient JAX's SPMD step computes (the MoE's load-balancing
-term is then the mean of the local batches' terms).  The RNN's uncompressed
-step ignores the mesh, as JAX's does: it keeps exact global-batch
-statistics, so its caller feeds it the whole batch.
+term is then the mean of the local batches' terms).  The RNN's
+uncompressed step ignores the mesh, as JAX's does: it keeps exact
+global-batch statistics, so its caller feeds it the whole batch.
+
+Tensor parallelism.  On a mesh with a 'model' axis above 1 the pool's
+uncompressed step is JAX's SPMD step on `DTensor`s: before the first step
+the state becomes DTensors in `sharding.state_shardings`' layouts
+(`shard_state`), the rank's block of the batch a DTensor sharded over the
+data axes, and the step runs inside `use_mesh(mesh, param_rules=
+param_pspec)`, where the model's `constrain` calls redistribute the
+activations as JAX's `with_sharding_constraint` does and eager DTensor
+ops issue the collectives XLA would (FSDP gathers, the row-parallel
+all-reduces).  After the backward each gradient is redistributed to its
+parameter's placements (DTensor may hand back a `Partial` or `Replicate`
+one), so AdamW runs shard-local and the clip reads the global norm.  With
+`compress_grads` the step is JAX's shard_map branch: every model rank
+holds the whole parameters, computes the same local gradient, and the
+mean runs over the data axes only, so the state stays plain tensors.
 """
 from __future__ import annotations
 
@@ -47,6 +62,8 @@ import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.core import bnlstm as BL
 from repro_torch.core import quantize as Q
@@ -54,7 +71,9 @@ from repro_torch.core.qlinear import clip_tree, step_noise as leaf_noise
 from repro_torch.core.qtensor import (tree_leaves, tree_map,
                                        tree_map_with_path, tree_paths)
 from repro_torch.launch import mesh as M
+from repro_torch.launch import sharding as S
 from repro_torch.models import transformer as T
+from repro_torch.runtime import axis_sizes, placements, use_mesh
 from repro_torch.train import compress as C
 from repro_torch.train.optimizer import OptConfig, OptState, opt_init, opt_update
 
@@ -139,6 +158,63 @@ def mean_trees(mesh, *trees):
     return out
 
 
+def tensor_parallel(mesh) -> bool:
+    """True for a mesh whose 'model' axis is above 1."""
+    return mesh is not None and axis_sizes(mesh).get("model", 1) > 1
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """The params, moments and residual as DTensors in
+    `state_shardings`' layouts (each rank keeps its shard, no collective);
+    the step counter and the noise seed stay plain, replicated."""
+    lay = S.state_shardings(state, mesh)
+    put = lambda t, l: None if t is None else S.distribute(t, l, mesh)
+    return state._replace(
+        params=put(state.params, lay.params),
+        opt=state.opt._replace(m=put(state.opt.m, lay.opt.m),
+                               v=put(state.opt.v, lay.opt.v)),
+        residual=put(state.residual, lay.residual))
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """This rank's block of the batch as DTensors sharded over the data
+    axes (`sharding.batch_shardings`' layout of the global batch, which
+    the blocks divide)."""
+    pl = placements((S._data_entry(mesh),), mesh)
+    return {k: DTensor.from_local(v, mesh, pl, run_check=False)
+            for k, v in batch.items()}
+
+
+def _tp_step(cfg, opt_cfg: OptConfig, mesh) -> Callable:
+    """The pool's uncompressed step on DTensors (the module docstring)."""
+
+    def step(state: TrainState, batch: dict, noise=None, comp_noise=None):
+        if not isinstance(tree_leaves(state.params)[0], DTensor):
+            state = shard_state(state, mesh)
+        at = (int(state.noise_seed), int(state.opt.step))
+        if noise is None:
+            noise = leaf_noise(*at)
+        batch = shard_batch(batch, mesh)
+        with use_mesh(mesh, param_rules=S.param_pspec), \
+                implicit_replication():
+            loss, aux, grads = value_and_grad(
+                lambda leaves: T.lm_loss(leaves, batch, cfg, training=True,
+                                         noise=noise), state.params)
+            grads = tree_map(lambda g, p: g.redistribute(p.device_mesh,
+                                                         p.placements),
+                             grads, state.params)
+            params, opt, m2 = opt_update(grads, state.opt, state.params,
+                                         opt_cfg)
+            params = clip_tree(params, cfg.quant)
+        metrics = {"loss": loss, "nll": aux["nll"].detach(),
+                   "moe_aux": aux["moe_aux"].detach(), **m2}
+        metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                   for k, v in metrics.items()}
+        return state._replace(params=params, opt=opt), metrics
+
+    return step
+
+
 def make_train_step(cfg, opt_cfg: OptConfig, mesh=None,
                     compress_grads: bool = False) -> Callable:
     """The transformer pool's step(state, batch, noise=None,
@@ -150,8 +226,12 @@ def make_train_step(cfg, opt_cfg: OptConfig, mesh=None,
     quantizable leaf.  With a `mesh` the batch is this rank's block and the
     gradients are averaged over the data axes, compressed first with
     `compress_grads` (the module docstring); `comp_noise` overrides the
-    compression's draw (one u a leaf, in flatten order)."""
+    compression's draw (one u a leaf, in flatten order).  On a mesh with
+    a model axis above 1 and no compression the step is tensor-parallel
+    over DTensors (the module docstring)."""
     compress = compress_grads and mesh is not None
+    if tensor_parallel(mesh) and not compress:
+        return _tp_step(cfg, opt_cfg, mesh)
 
     def step(state: TrainState, batch: dict, noise=None, comp_noise=None):
         at = (int(state.noise_seed), int(state.opt.step))

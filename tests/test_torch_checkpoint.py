@@ -235,19 +235,27 @@ def test_launcher_runs_what_it_refused(flag, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("world,model,batch,why", [
-    (2, 2, 8, "Queue 1 item 9"), (8, 4, 8, "Queue 1 item 9"),
-    (2, 1, 3, "does not divide")])
-def test_launcher_refuses_a_model_axis(world, model, batch, why, capsys):
-    """A mesh plan with a model axis above 1 is refused (tensor
-    parallelism waits for ROADMAP Queue 1 item 9), after JAX's banner, and
-    so is a global batch the plan's replicas do not divide; neither makes
-    a process group."""
+    (2, 2, 8, (1, 2)), (8, 4, 8, (2, 4)), (2, 1, 3, "does not divide")])
+def test_launcher_refuses_a_model_axis(world, model, batch, why, capsys,
+                                       monkeypatch):
+    """A mesh plan with a model axis above 1 is built, after JAX's banner
+    (tensor parallelism is ported: the plan goes to `make_mesh_from_plan`
+    as it is); a global batch the plan's replicas do not divide is still
+    refused.  Neither makes a process group here."""
     args = LT.build_argparser().parse_args(
         ["--arch", "qwen3-0.6b", "--mesh-model", str(model), "--batch",
          str(batch)])
-    with pytest.raises(SystemExit, match=why):
-        LT.train_mesh(args, world, torch.device("cpu"))
-    assert "per-replica batch" in capsys.readouterr().out
+    monkeypatch.setattr(LT, "make_mesh_from_plan",
+                        lambda plan, device: plan.shape)
+    if isinstance(why, str):
+        with pytest.raises(SystemExit, match=why):
+            LT.train_mesh(args, world, torch.device("cpu"))
+    else:
+        assert LT.train_mesh(args, world, torch.device("cpu")) == why
+    out = capsys.readouterr().out
+    assert "per-replica batch" in out
+    if not isinstance(why, str):
+        assert f"'model': {model}" in out
     assert not torch.distributed.is_initialized()
 
 

@@ -553,8 +553,23 @@ def test_engine_refuses_bad_requests_and_unported_modes():
     r = Request(prompt=np.zeros(2, np.int32), max_tokens=2)
     comps, _ = eng.run([r], realtime=False)
     assert r.rid is None and comps[0].rid == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ServeEngine(trt, VOCAB, slots=2, max_context=8, mesh=object())
+    # a mesh is served (its refusal is gone): a data mesh of one rank is
+    # one shard, and a prefix cache beside a mesh is refused
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve.prefixcache import PrefixCache
+    try:
+        mesh = M.make_serve_mesh("data=1", device="cpu")
+        meng = ServeEngine(trt, VOCAB, slots=2, max_context=8, mesh=mesh)
+        mcomps, _ = meng.run([Request(prompt=np.zeros(2, np.int32),
+                                      max_tokens=2)], realtime=False)
+        assert mcomps[0].tokens == comps[0].tokens
+        assert meng.stats()["mesh"] == {"data": 1, "model": 1}
+        assert meng.tick_collectives() == 0
+        with pytest.raises(NotImplementedError, match="prefix cache"):
+            ServeEngine(trt, VOCAB, slots=2, max_context=8, mesh=mesh,
+                        prefix_cache=PrefixCache(1 << 20))
+    finally:
+        torch.distributed.destroy_process_group()
 
     class CrossAttention:  # a transformer with a cross-attention source
         family, extras = "transformer", {"img": None}
@@ -581,8 +596,21 @@ def test_launcher_traffic_and_refusals(capsys, monkeypatch):
                     "--slots", "3", "--rate", "50", "--spec-k", "4"])
     assert "speculative: k=4" in capsys.readouterr().out
     assert m["requests"] == 8 and m["tick_launches"] == 5
-    with pytest.raises(SystemExit, match="not ported yet: --mesh"):
-        serve.main(["--device", "cpu", "--mesh", "data=4", "--traffic"])
+    # --mesh serves the engine on a mesh (its refusal is gone): without
+    # --traffic it is refused, a mesh larger than the job raises, and a
+    # mesh of one rank serves with JAX's banner
+    with pytest.raises(SystemExit, match="run it with --traffic"):
+        serve.main(["--device", "cpu", "--mesh", "data=4"])
+    try:
+        with pytest.raises(ValueError, match="nproc-per-node 4"):
+            serve.main(["--device", "cpu", "--mesh", "data=4", "--traffic"])
+        m = serve.main(["--device", "cpu", "--traffic", "--requests", "4",
+                        "--slots", "2", "--rate", "50", "--mesh", "data=1"])
+        out = capsys.readouterr().out
+        assert "mesh: data=1,model=1 over 1 device(s)" in out
+        assert m["requests"] == 4
+    finally:
+        torch.distributed.destroy_process_group()
     # the vlm family serves in lockstep; its engine is refused with JAX's
     # reason (a runtime with a cross-attention source)
     with pytest.raises(NotImplementedError,

@@ -46,6 +46,9 @@ TREES = ("fp", "masters", "ternary", "binary")
 # packed calls a decode step: Win and Wout a mamba layer (7), seven
 # projections a shared application (3); the untied head stays fp
 LAUNCHES = 2 * 7 + 7 * 3
+# and in serving `ordered_bmm`'s: the SSD step's readout a mamba layer,
+# attention's two products a shared application
+ORDERED = 7 + 2 * 3
 
 
 def _pair(tree: str):
@@ -298,7 +301,7 @@ def test_engine_matches_sequential_hybrid_ssm(mode):
             top_k=r.top_k, seed=r.seed, context=ctx)
         assert by[r.rid] == out[0].tolist(), r.rid
     if mode == "ternary":
-        assert eng.tick_launches == LAUNCHES
+        assert eng.tick_launches == LAUNCHES + ORDERED
     # a freed slot reads like a fresh one: recurrent leaves zero, cache pos 0
     for path, leaf in _flat(eng.pool):
         if path[-1] in ("h", "conv", "pos"):
@@ -334,7 +337,7 @@ def test_launcher_serves_zamba2_reduced(capsys):
     m = serve.main(["--arch", "zamba2-1.2b", "--device", "cpu", "--traffic",
                     "--requests", "4", "--slots", "2", "--rate", "100",
                     "--prompt-len", "12", "--gen", "6"])
-    assert m["requests"] == 4 and m["tick_launches"] == LAUNCHES
+    assert m["requests"] == 4 and m["tick_launches"] == LAUNCHES + ORDERED
     assert "transformer family, cpu" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="rwkv/mamba"):
         serve.main(["--arch", "zamba2-1.2b", "--device", "cpu", "--traffic",

@@ -334,27 +334,27 @@ def test_tick_late_head_needs_a_unit_an_sm(vp, n_sm, late):
 
 
 @pytest.mark.parametrize("M,K,N,mode,cluster", [
-    (16, 1008, 4000, "ternary", 8),   # B = 16 prefill, h-side GEMM
-    (32, 1008, 4000, "ternary", 4),   # packed eval, h-side GEMM
-    (16, 1024, 4000, "binary", 8),
-    (32, 1024, 4000, "binary", 4),
-    (9, 1008, 4000, "ternary", 8),
-    (130, 1008, 4000, "ternary", 1),
-    (3200, 1008, 4000, "ternary", 1),  # packed eval's B*T rows
+    (16, 1008, 4000, "ternary", 2),   # B = 16 prefill, h-side GEMM
+    (32, 1008, 4000, "ternary", 2),   # packed eval, h-side GEMM
+    (16, 1024, 4000, "binary", 2),
+    (32, 1024, 4000, "binary", 2),
+    (9, 1008, 4000, "ternary", 2),
+    (130, 1008, 4000, "ternary", 2),
+    (3200, 1008, 4000, "ternary", 2),  # packed eval's B*T rows
     (16, 64, 4000, "ternary", 2),      # 4 code words: split once
 ])
 def test_matmul_plan_fills_the_card(M, K, N, mode, cluster):
-    """At the main path's shapes the GEMM's grid holds at least as many
-    blocks as an H100 has SMs (132) and at most two an SM: 16-row tiles, K
-    split by a cluster of up to 8 blocks, each keeping at least 2 code
-    words."""
+    """The GEMM launches the GEMV's kernel over 8-row tiles with the GEMV's
+    K split, which K and N alone decide: the same cluster at every M (a
+    row's sum order does not follow the row count), and at the main path's
+    shapes a grid of more blocks than an H100 has SMs (132)."""
     plan = PK.matmul_plan(M, K, N, mode=mode)
     assert plan["cluster"] == cluster
-    words = K // Q.pack_group(mode)
-    assert cluster == 1 or words // cluster >= 2
-    if words >= 32 and M <= 32:
-        assert PK.SMS <= plan["blocks"] <= 2 * PK.SMS
-    assert plan["blocks"] == cluster * -(-N // 128) * -(-M // 16)
+    for rows in (1, 4, 8):
+        assert PK.gemv_plan(rows, K, N, mode=mode)["cluster"] == cluster
+    assert plan["rows"] == 8 and plan["row_tiles"] == -(-M // 8)
+    assert plan["blocks"] == cluster * -(-N // 32) * -(-M // 8)
+    assert plan["blocks"] >= PK.SMS
 
 
 @pytest.mark.parametrize("bp,K,N,mode,cluster,rows", [

@@ -99,8 +99,9 @@ def test_engine_scrubs_rwkv_slots_and_runs_packed_kernels():
     moe = _runtime("mixtral-8x7b")
     eng = ServeEngine(moe, moe.cfg.vocab, slots=2, max_context=16)
     eng.run(reqs, realtime=False)
-    # 4 attention projections and 3 a run expert (top-2 of 4 at 2 rows)
-    per_layer = eng.tick_launches / moe.cfg.n_layers - 4
+    # 4 attention projections, attention's 2 products and 3 a run expert
+    # (top-2 of 4 at 2 rows)
+    per_layer = eng.tick_launches / moe.cfg.n_layers - 4 - 2
     assert per_layer % 3 == 0 and 2 <= per_layer // 3 <= 4
 
 

@@ -77,12 +77,15 @@ def test_engine_streams_equal_drive_session(arch, mode, prompt_len):
     comps, m = eng.run([dataclasses.replace(r) for r in reqs],
                        realtime=False)
     assert m["max_decode_stall_ticks"] <= 1 and m["requests"] == 7
-    if mode != "none":  # one packed GEMV a projection a tick, and in
-        # chunks of 8 rows every prompt step takes the GEMV too
-        assert m["tick_launches"] == 7 * rt.cfg.n_layers
-        assert set(dispatch.PLAIN_CALLS) == {"packed_gemv"}
+    # attention's two products a layer a tick (`ordered_bmm`); packed, one
+    # GEMV a projection too, and in chunks of 8 rows every prompt step
+    # takes the GEMV
+    if mode != "none":
+        assert m["tick_launches"] == (7 + 2) * rt.cfg.n_layers
+        assert set(dispatch.PLAIN_CALLS) == {"packed_gemv", "ordered_bmm"}
     else:
-        assert m["tick_launches"] == 0
+        assert m["tick_launches"] == 2 * rt.cfg.n_layers
+        assert set(dispatch.PLAIN_CALLS) == {"ordered_bmm"}
     _streams_equal_alone(rt, reqs, comps, ctx)
 
 
@@ -140,7 +143,7 @@ def test_speculative_engine(temperature):
                        prefill_chunk=8, draft=draft, spec_k=3)
     sc, sm = spec.run([dataclasses.replace(r) for r in reqs], realtime=False)
     assert 0.0 <= sm["accept_rate"] <= 1.0 and sm["drafted_tokens"] > 0
-    assert sm["tick_launches"] == 4 * 7 * rt.cfg.n_layers
+    assert sm["tick_launches"] == 4 * (7 + 2) * rt.cfg.n_layers
     if temperature == 0.0:
         plain = ServeEngine(rt, rt.cfg.vocab, slots=3, max_context=ctx,
                             prefill_chunk=8)
@@ -248,7 +251,7 @@ def test_launcher_serves_qwen3_reduced(capsys):
     m = serve.main(["--arch", "qwen3-0.6b", "--device", "cpu", "--traffic",
                     "--requests", "4", "--slots", "2", "--rate", "100",
                     "--prompt-len", "12", "--gen", "6"])
-    assert m["requests"] == 4 and m["tick_launches"] == 14
+    assert m["requests"] == 4 and m["tick_launches"] == (7 + 2) * 2
     m = serve.main(["--arch", "qwen3-0.6b", "--device", "cpu", "--traffic",
                     "--requests", "3", "--slots", "2", "--rate", "100",
                     "--prompt-len", "12", "--gen", "6", "--spec-k", "2"])

@@ -50,6 +50,8 @@ N_IMG = 16
 # packed calls a decode step: Wq, Wk, Wv, Wo, Wgate, Wup, Wdown a self
 # layer; the cross layer's Wq, Wo and its MLP's three (the head stays fp)
 DECODE_PACKED = 4 * 7 + 5
+# and attention's two products a layer (`ordered_bmm`), self and cross
+DECODE_ORDERED = 2 * 5
 
 
 def _cfgs(tree: str):
@@ -243,7 +245,8 @@ def test_runtime_matches_jax_and_counts_packed_calls():
         lg, _ = rt.decode_step(torch.from_numpy(nxt), st)
         jlg, _ = jrt.decode_step(jnp.asarray(nxt), jst)
     _close(lg, jlg)
-    assert sum(dispatch.PLAIN_CALLS.values()) == DECODE_PACKED
+    assert dict(dispatch.PLAIN_CALLS) == {"packed_gemv": DECODE_PACKED,
+                                          "ordered_bmm": DECODE_ORDERED}
     with pytest.raises(NotImplementedError,
                        match="needs per-request source encodings"):
         ServeEngine(rt, rt.cfg.vocab, slots=2, max_context=16)

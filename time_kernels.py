@@ -25,7 +25,7 @@ weight, the bound `chip_smoke.packed_bound` counts, and the max abs error
 against the plain version (rtol 1e-5, atol 1e-4, or the run fails).
 `--only phases` (not run by default) times the GEMV's phases instead, at
 the main path's ternary bp = 4 and binary bp = 8: a copy of
-`csrc/packed_gemv.cu` built with clock probes (`PHASE_PROBES`) records,
+`csrc/packed_gemv.cuh` built with clock probes (`PHASE_PROBES`) records,
 for each block, its start and end on the global timer, its SM, and the
 SM cycles from its start to the end of x staging, of its adds, of its
 pushes to the cluster and of the cluster barrier.
@@ -144,7 +144,7 @@ def time_gemvs(args, card: str) -> list:
     return out
 
 
-# (anchor in csrc/packed_gemv.cu, probe inserted before it): block start,
+# (anchor in csrc/packed_gemv.cuh, probe inserted before it): block start,
 # x staged (the last pass), adds done, partials pushed, cluster barrier
 # passed, and at the end a record of the block in x, which the run owns
 PHASE_PROBES = (
@@ -186,15 +186,19 @@ def gemv_phases(args, card: str) -> list:
     from repro_torch.core.quantize import pack_group
     from repro_torch.kernels import build
     from repro_torch.kernels import packed_matmul as PK
-    src = (build.CSRC / "packed_gemv.cu").read_text()
+    src = (build.CSRC / "packed_gemv.cuh").read_text()
     for anchor, probe in PHASE_PROBES:
         if src.count(anchor) != 1:
-            CS.fail(f"phase probe anchor {anchor!r} is not in packed_gemv.cu "
-                    f"once: update PHASE_PROBES")
+            CS.fail(f"phase probe anchor {anchor!r} is not in "
+                    f"packed_gemv.cuh once: update PHASE_PROBES")
         src = src.replace(anchor, probe + anchor)
-    probed = build.BUILD_DIR / "packed_gemv_phases.cu"
-    probed.parent.mkdir(parents=True, exist_ok=True)
-    probed.write_text(src)
+    # the probed kernel header beside a copy of the entry point, which
+    # includes it from its own directory before csrc/
+    phases = build.BUILD_DIR / "packed_gemv_phases"
+    phases.mkdir(parents=True, exist_ok=True)
+    (phases / "packed_gemv.cuh").write_text(src)
+    probed = phases / "packed_gemv.cu"
+    probed.write_text((build.CSRC / "packed_gemv.cu").read_text())
     so = probed.with_suffix(".so")
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
                     "-o", str(so), str(probed)], check=True,
