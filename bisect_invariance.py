@@ -15,7 +15,8 @@ differ in bits:
                bytes;
       prefill — the whole prompt (100 tokens, one call) against its first
                chunk of 32, and against a last chunk of 4 (after the first
-               96 tokens in one call), whose projections take the GEMV;
+               96 tokens in one call), whose projections take the GEMM at
+               M = 4 (the sequence route, at any chunk length);
   * the RNN at L = 2, H = 256 (ternary, BN off init): the whole prompt
     (40 tokens) against chunks of 32 and 8, compared packed product by
     packed product (layer 0's recurrent GEMVs, layer 1's x-side product
@@ -376,7 +377,8 @@ def qwen_prefill(rt, cfg, P: int = 100) -> dict:
         whole, lambda: rt.prefill_chunk(prompt[:, :32], fresh()),
         span_mapper(P, 0, 32))}
     # the last chunk of 4 after the first P - 4 tokens in one call: the
-    # GEMV against the whole prompt's GEMM rows
+    # GEMM at M = 4 against the whole prompt's GEMM rows (a prompt chunk's
+    # products take the sequence route at any length)
     _, st = rt.prefill_chunk(prompt[:, :P - 4], fresh())
     out["last_chunk"] = compare(
         f"qwen3 prefill, {P} tokens whole against a last chunk of 4 after "
@@ -463,8 +465,8 @@ def rnn_prefill(dev: str, P: int = 40, chunks=(32, 8)) -> dict:
             first = f"chunk {lo}..{hi}: layer 0 recurrent GEMV"
         if first is None and not eqx:
             first = (f"chunk {lo}..{hi}: layer 1's x-side product over the "
-                     f"chunk ({'GEMV' if T <= 8 else 'GEMM'} at M = {T}) "
-                     f"against the whole prompt's GEMM rows (M = {P})")
+                     f"chunk (the GEMM at M = {T}) against the whole "
+                     f"prompt's GEMM rows (M = {P})")
     out["chunks"] = rows
     out["first"] = first
     out["state_bits_equal"] = (same_bits(st.h, st_whole.h)

@@ -17,9 +17,11 @@ Phases, in order; any failure exits non-zero before the last line:
                 (one nvcc each, all at once) and print the ptxas report:
                 `packed_gemv`, `packed_matmul`, `fused_tick` and
                 `ordered_bmm` must spill no register;
-                then the SASS of `packed_gemv` and of `packed_matmul` (the
-                GEMV's kernel over 8-row tiles, so a row's sum order does
-                not follow the row count) must hold no float multiply;
+                then the SASS of `packed_gemv` (the step route, over any
+                row count) must hold no float multiply, and that of
+                `packed_matmul` (the sequence route, on the tensor cores)
+                must hold GMMA (wgmma) instructions and no local-memory
+                access;
   3. kernels  — the launch floor (the device time of a one-element
                 in-place add on the same stream); then, at the main path's
                 shapes, hold each kernel against its plain PyTorch version
@@ -27,10 +29,14 @@ Phases, in order; any failure exits non-zero before the last line:
                 wall time per call from CUDA events), beside the analytic
                 bound and one PyTorch library call where one computes the
                 same function: the GEMV at bp = 4 (B = 4 prefill, ternary),
-                1 (the engine's prompt step, ternary) and 8 (binary), the GEMM at M = 16 (B = 16 prefill) and 32
-                (packed eval), each launched twice and held bit-equal, the
-                GEMM's rows bit-equal to the GEMV's and to its own at other
-                row counts; the tick at B = 4 and 16, each held against the
+                1 (the engine's prompt step, ternary) and 8 (binary) and
+                over 8-row tiles at 16 (B = 16 prefill) and 32 (binary), the
+                GEMM at M = 16 and 32 (packed eval), 1 and 4 (a prompt's
+                last short chunk), each launched twice and held bit-equal,
+                a row's bits the same within each route at other row
+                counts (the GEMM's at 1, 9 and 17-row slices and single
+                rows; the GEMV's over 8-row tiles against its single rows
+                and one tile); the tick at B = 4 and 16, each held against the
                 plain version on its own inputs; ordered_bmm, attention's
                 two products, at qwen3's decode and prefill shapes, a row's
                 bits the same at any batch and row count;
@@ -38,7 +44,8 @@ Phases, in order; any failure exits non-zero before the last line:
                 ternary, random weights from a seed, BN statistics, BN
                 scales and biases moved off init): rnn_lm_init ->
                 export_packed_rnn -> RNNRuntime -> drive_session at batch 4
-                (GEMV prefill) and 16 (GEMM prefill), prompt 32, gen 32,
+                and 16 (the h-side on the GEMV, a step product, at both),
+                prompt 32, gen 32,
                 greedy and sampled, plus the `repro_torch.launch.serve` CLI.
                 Launch counters are zeroed just before and read just after;
                 every kernel must have launched, one fused tick per decode
@@ -70,7 +77,7 @@ Phases, in order; any failure exits non-zero before the last line:
                 the front door's loopback smoke (a streamed request, a
                 hangup that cancels, a prefix hit, over 127.0.0.1); and
                 two layers at H = 256, where chunked and whole prefill
-                meet the GEMV and the GEMM at other row counts: the chunked
+                meet the GEMM (layer 1's x-side) at other row counts: the chunked
                 state bit-equal to the whole prompt's, every engine stream
                 equal to drive_session(B=1);
   7. training — rnn-paper at full width through `repro_torch.launch.train`
@@ -116,7 +123,7 @@ Phases, in order; any failure exits non-zero before the last line:
                 greedy requests: accept rate, streams equal to the plain
                 engine's); 8 requests behind a 64-token prefix (at least 7
                 prefix-cache hits); the engine, speculative and prefix runs
-                on a cut of 8 of the 28 layers;
+                on a cut of 14 of the 28 layers;
   10. pool    — the transformer pool's MoE and RWKV6 families, ternary with
                 channel scales, bf16, random weights from a seed, each tree
                 drawn a layer at a time on the card and exported as it is
@@ -457,6 +464,12 @@ def bound(nbytes: int, seconds_of_ops: float) -> tuple[float, str]:
     return seconds_of_ops * 1e3, "operations"
 
 
+def gemm_blocks(plan: dict, rows: int) -> int:
+    """The GEMM's blocks at `rows` rows of x: `matmul_plan`'s (one 64-row
+    tile's) times the row tiles."""
+    return plan["blocks"] * -(-rows // plan["rows"])
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -482,13 +495,11 @@ def packed_bound(qt, rows: int) -> tuple[float, str]:
 
 
 def gemm_bound(qt, rows: int) -> tuple[float, str]:
-    """The bound of x (rows, k) @ unpack(codes) at M > 8: its bytes, or the
+    """The bound of the GEMM x (rows, k) @ unpack(codes): its bytes, or the
     three bf16 products of the exact split (x = hi + mid + lo), 3 * 2 *
-    rows * k * N flops at the bf16 tensor-core rate, the fastest way the
-    card computes this exact product.  The kernel since PR 21 adds on the
-    CUDA cores in the GEMV's order (a row's bits independent of the row
-    count); its rows also carry `fp32_add_bound_ms`, that design's own
-    bound, so the table shows what the order costs."""
+    rows * k * N flops at the bf16 tensor-core rate, the work the kernel
+    does on the real rows (a wgmma computes 64, so below 64 rows the
+    kernel does more than this counts)."""
     flops = 3 * 2 * rows * qt.k * qt.codes.shape[1]
     return bound(packed_bytes(qt, rows), flops / BF16_FLOP_S)
 
@@ -574,24 +585,37 @@ def sass_functions(so_path: Path) -> dict:
 
 
 def sass_check(gemv_so: Path, matmul_so: Path) -> dict:
-    """The kernels of both libraries must hold no float multiply (integer
-    IMAD for addresses is fine): `packed_gemv`'s instances, and
-    `packed_matmul`'s, which are the GEMV's kernel at 8 rows over row
-    tiles.  Returns instruction counts."""
+    """The step route's kernel (`packed_gemv`, every instance) must hold no
+    float multiply (integer IMAD for addresses is fine); the sequence
+    route's (`packed_matmul`, every instance) must issue its products on
+    the tensor cores, GMMA (wgmma) instructions, and touch no local memory
+    (LDL/STL: a spill or a stack array).  Returns instruction counts."""
     counts = {}
-    for label, so in (("packed_gemv", gemv_so), ("packed_matmul", matmul_so)):
-        funcs = {f: body for f, body in sass_functions(so).items()
-                 if "packed_gemv" in f}
-        if not funcs:
-            fail(f"no packed_gemv kernel found in the SASS of {label}")
-        for f, body in funcs.items():
-            bad = [l.strip() for l in body
-                   if MULTIPLY_OPS.search(l) and not CONSTANT_MOVE.search(l)]
-            if bad:
-                fail(f"float multiply in {label}'s {f}: {bad[:4]}")
-            text = "\n".join(body)
-            counts[f"{label}:{f}"] = {op: len(re.findall(rf"\b{op}\b", text))
+    funcs = {f: body for f, body in sass_functions(gemv_so).items()
+             if "packed_gemv" in f}
+    if not funcs:
+        fail("no packed_gemv kernel found in the SASS of packed_gemv")
+    for f, body in funcs.items():
+        bad = [l.strip() for l in body
+               if MULTIPLY_OPS.search(l) and not CONSTANT_MOVE.search(l)]
+        if bad:
+            fail(f"float multiply in packed_gemv's {f}: {bad[:4]}")
+        text = "\n".join(body)
+        counts[f"packed_gemv:{f}"] = {op: len(re.findall(rf"\b{op}\b", text))
                                       for op in ("FADD", "LOP3", "IMAD")}
+    funcs = {f: body for f, body in sass_functions(matmul_so).items()
+             if "packed_matmul" in f}
+    if not funcs:
+        fail("no packed_matmul kernel found in the SASS of packed_matmul")
+    for f, body in funcs.items():
+        text = "\n".join(body)
+        n = {op: len(re.findall(rf"\b{op}\b", text))
+             for op in ("HGMMA", "LDL", "STL", "UTMALDG", "F2FP")}
+        if not n["HGMMA"]:
+            fail(f"packed_matmul's {f} issues no GMMA instruction")
+        if n["LDL"] or n["STL"]:
+            fail(f"packed_matmul's {f} touches local memory: {n}")
+        counts[f"packed_matmul:{f}"] = n
     return counts
 
 
@@ -629,8 +653,10 @@ def kernels_phase(report: dict) -> list:
     rows = []
 
     # -- packed_gemv: prefill h-side at batch 4, the engine's one-row prompt
-    # step, and 8 rows binary ------------------------------------------------
-    for mode, bp in (("ternary", 4), ("ternary", 1), ("binary", 8)):
+    # step, 8 rows binary, and the step route over 8-row tiles: the main
+    # path's h-side at batch 16 and 32 rows binary -------------------------
+    for mode, bp in (("ternary", 4), ("ternary", 1), ("binary", 8),
+                     ("ternary", 16), ("binary", 32)):
         qt = wh[mode]
         K = qt.codes.shape[0] * qt.group
         x = torch.tanh(torch.randn(bp, K, generator=g)).to(dev)
@@ -653,12 +679,17 @@ def kernels_phase(report: dict) -> list:
             err, lambda: PK.packed_gemv(x, qt.codes, mode=mode),
             lambda: PK.packed_gemv_plain(x, qt.codes, mode=mode),
             lambda: torch.matmul(x, w), b_ms, b_by))
+        if bp > 8:
+            rows_invariant(f"packed_gemv {mode}", x, qt.codes, mode,
+                           PK.packed_matmul(x, qt.codes, mode=mode))
         print(f"  packed_gemv {mode}: bp={bp} matches plain; two launches "
-              f"bit-equal", flush=True)
+              f"bit-equal" + (", a row's bits the same at any row count"
+                              if bp > 8 else ""), flush=True)
 
-    # -- packed_matmul: prefill at batch 16, the packed eval at batch 32 -------
+    # -- packed_matmul: a prompt's short last chunks (1, 4 rows), 16 rows,
+    # the packed eval at batch 32 ------------------------------------------
     for mode in ("ternary", "binary"):
-        for M in (16, 32):
+        for M in (1, 4, 16, 32):
             qt = wh[mode]
             K = qt.codes.shape[0] * qt.group
             x = torch.tanh(torch.randn(M, K, generator=g)).to(dev)
@@ -675,18 +706,17 @@ def kernels_phase(report: dict) -> list:
             w = torch.nn.functional.pad(qt.dequantize() / qt.alpha,
                                         (0, 0, 0, K - qt.k))
             b_ms, b_by = gemm_bound(qt, M)
-            plan = PK.matmul_plan(M, K, qt.codes.shape[1], mode=mode)
+            plan = PK.matmul_plan(K, qt.codes.shape[1], mode=mode)
             rows.append(timed_row(
                 "packed_matmul", f"{mode} x({M},{K}) codes"
-                f"{tuple(qt.codes.shape)} {plan['blocks']} blocks, "
+                f"{tuple(qt.codes.shape)} {gemm_blocks(plan, M)} blocks, "
                 f"cluster {plan['cluster']}", err,
                 lambda: PK.packed_matmul(x, qt.codes, mode=mode),
                 lambda: PK.packed_matmul_plain(x, qt.codes, mode=mode),
                 lambda: torch.matmul(x, w), b_ms, b_by))
-            rows[-1]["fp32_add_bound_ms"] = packed_bound(qt, M)[0]
-        print(f"  packed_matmul {mode}: M=16,32 match plain; two launches "
-              f"bit-equal; every row the GEMV's bits at any row count",
-              flush=True)
+        print(f"  packed_matmul {mode}: M=1,4,16,32 match plain; two "
+              f"launches bit-equal; a row's bits the same at any row count "
+              f"on each route", flush=True)
 
     # -- fused_tick: LSTM/GRU x ternary/binary x L in {1, 2}, dead rows --------
     for cell in ("lstm", "gru"):
@@ -929,9 +959,10 @@ def main_path_phase(report: dict) -> dict:
             if out.shape != (B, GEN) or out.min() < 0 or out.max() >= cfg.vocab:
                 fail(f"B={B}: bad tokens shape {out.shape} range "
                      f"[{out.min()}, {out.max()}]")
-            # warmup runs one prefill and one decode step besides the timed ones
-            prefill_kernel = "packed_gemv" if B <= 8 else "packed_matmul"
-            want = {"fused_tick": GEN + 1, prefill_kernel: 2 * S}
+            # warmup runs one prefill and one decode step besides the timed
+            # ones; the one layer's h-side is a step product: the GEMV at
+            # any batch
+            want = {"fused_tick": GEN + 1, "packed_gemv": 2 * S}
             if delta != want:
                 fail(f"B={B} T={temperature}: launches {delta}, want {want}")
             sessions.append(dict(batch=B, temperature=temperature,
@@ -951,7 +982,7 @@ def main_path_phase(report: dict) -> dict:
     # ---- the counted main-path run ends here ----
     if plain:
         fail(f"plain versions ran on the main path: {plain}")
-    for k in ("packed_gemv", "packed_matmul", "fused_tick"):
+    for k in ("packed_gemv", "fused_tick"):
         if not launches.get(k):
             fail(f"kernel {k} was never launched on the main path")
 
@@ -1140,11 +1171,11 @@ def tick_row_bits(rt) -> None:
 def two_layer_parity() -> dict:
     """Two layers at H = 256 (ternary, off init): layer 1's x-side
     projection takes a whole chunk in the engine and the whole prompt in
-    drive_session, so past 8 tokens the GEMV meets the GEMM at other row
+    drive_session, both on the GEMM (a sequence product) at other row
     counts.  For prompts of 5 to 40 tokens in chunks of 8 and 32 the
     chunked state must be bit-equal to the whole prompt's (the GEMM sums a
-    row in the GEMV's order, whatever the row count), and an engine at 16
-    slots over 24 mixed requests must give every stream drive_session(B=1)
+    row in one order whatever the row count), and an engine at 16 slots
+    over 24 mixed requests must give every stream drive_session(B=1)
     gives it."""
     import dataclasses
 
@@ -1671,34 +1702,46 @@ def summation_check(name: str, got, want, x, w) -> float:
 
 
 def rows_invariant(name: str, x, codes, mode: str, got) -> None:
-    """Batch invariance of the packed row sums: the GEMM's output rows
-    `got` of x (M > 8) must equal, bit for bit, the GEMV's on its first 8
-    rows and on single rows, and the GEMM's over a 9-row prefix and a
-    17-row tail: a row's bits depend neither on the row count nor on the
-    route (GEMV or GEMM), as a chunked prompt needs."""
+    """Batch invariance of the packed row sums within each route: the
+    GEMM's output rows `got` of x must equal, bit for bit, its own over a
+    9-row prefix, a 17-row tail and single rows (its plan is fixed by (K,
+    N, mode), so only the number of 64-row tiles follows M); and the step
+    route's, the GEMV over every row of x (8-row tiles past 8 rows), its
+    own on its first 8 rows and on single rows.  A product's role, not its
+    row count, keeps a row on one route, so the two routes' bits are not
+    compared."""
     import torch
     from repro_torch.kernels import packed_matmul as PK
     M = x.shape[0]
-    checks = [(slice(0, 8), PK.packed_gemv)]
-    checks += [(slice(i, i + 1), PK.packed_gemv) for i in (0, M // 2, M - 1)]
-    checks += [(slice(0, 9), PK.packed_matmul)]
-    if M > 17:
-        checks += [(slice(M - 17, M), PK.packed_matmul)]
-    for sl, fn in checks:
-        part = fn(x[sl].contiguous(), codes, mode=mode)
-        if not torch.equal(part.view(torch.int32), got[sl].view(torch.int32)):
-            fail(f"{name}: rows {sl.start}..{sl.stop - 1} by {fn.__name__} "
-                 f"differ from the same rows of the M = {M} GEMM")
+    bits = lambda t: t.view(torch.int32)
+    step = PK.packed_gemv(x, codes, mode=mode)
+    for fn, full in ((PK.packed_matmul, got), (PK.packed_gemv, step)):
+        checks = [slice(i, i + 1) for i in sorted({0, M // 2, M - 1})]
+        checks += ([slice(0, 9), slice(max(0, M - 17), M)]
+                   if fn is PK.packed_matmul else [slice(0, min(M, 8))])
+        for sl in checks:
+            part = fn(x[sl].contiguous(), codes, mode=mode)
+            if not torch.equal(bits(part), bits(full[sl])):
+                fail(f"{name}: rows {sl.start}..{sl.stop - 1} by "
+                     f"{fn.__name__} differ from the same rows of its "
+                     f"M = {M} launch")
 
 
 def layer_kernel_rows(label: str, packed: dict, plan, stack=None) -> list:
-    """packed_gemv (<= 8 rows) and packed_matmul (more) on layer 0's codes
-    of each (block, weight, row counts) of `plan` (a stacked expert leaf:
-    its last expert's slice, as the MoE layer serves it), each launched
-    twice and bit-equal, held with its plain version to the fp64 product
-    within 1e-5 of |x| @ |w|, timed beside its bound (on the unpadded
-    function) and torch.matmul on the dequantized weight.  The layers are
-    `packed["stack"][0]` unless `stack` names other blocks: a stacked group
+    """packed_gemv (<= 8 rows, the step route) and packed_matmul (more, the
+    sequence route) on layer 0's codes of each (block, weight, row counts)
+    of `plan` (a stacked expert leaf: its last expert's slice, as the MoE
+    layer serves it), each launched twice and bit-equal, held with its
+    plain version to the fp64 product within 1e-5 of |x| @ |w|, a row's
+    bits the same at other row counts within its route, timed beside its
+    bound (on the unpadded function) and torch.matmul on the dequantized
+    weight.  Each GEMM shape is also timed at M = 1 and 4 (a prompt's last
+    short chunk: `m1_ms`, `m4_ms`) and run again in binary on random codes
+    of the same (K, N), held as the ternary run is (`binary_ms`,
+    `binary_max_abs_err`); these three times come from CUDA events
+    (`event_ms`), since a profiler session costs about a second, and so
+    does `events_ms`, the ternary run's own, beside the profiler's.  The
+    layers are `packed["stack"][0]` unless `stack` names other blocks: a stacked group
     (the encoder's) or one unstacked block (zamba2's shared block), whose
     codes are taken whole."""
     import torch
@@ -1708,6 +1751,52 @@ def layer_kernel_rows(label: str, packed: dict, plan, stack=None) -> list:
     g = torch.Generator().manual_seed(1)
     rows = []
     stack = packed["stack"][0] if stack is None else stack
+
+    def row(name, one, codes, w, M, expert, timed=True):
+        gemm = M > 8
+        fn = PK.packed_matmul if gemm else PK.packed_gemv
+        plain = PK.packed_matmul_plain if gemm else PK.packed_gemv_plain
+        K, N, mode = one.k, codes.shape[1], one.mode
+        x = torch.tanh(torch.randn(M, K, generator=g)).cuda()
+        got = fn(x, codes, mode=mode)
+        again = fn(x, codes, mode=mode)
+        want = plain(x, codes, mode=mode)
+        err = summation_check(f"{fn.__name__} {label} {name} {mode} M={M}",
+                              got, want, x, w)
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            fail(f"{fn.__name__} {label} {name} {mode} M={M}: two launches "
+                 f"differ")
+        if gemm:
+            rows_invariant(f"{label} {name} {mode}", x, codes, mode, got)
+            plan_ = PK.matmul_plan(K, N, mode=mode)
+            blocks = gemm_blocks(plan_, M)
+        else:
+            plan_ = PK.gemv_plan(M, K, N, mode=mode)
+            blocks = plan_["blocks"]
+        if not timed:  # the binary repeat: its time beside the ternary row's
+            rows[-1]["binary_ms"] = event_ms(lambda: fn(x, codes, mode=mode),
+                                             30)
+            rows[-1]["binary_max_abs_err"] = err
+            return
+        b_ms, b_by = (gemm_bound if gemm else packed_bound)(one, M)
+        rows.append(timed_row(
+            fn.__name__, f"{label} {name} {mode} x({M},{K}) "
+            f"{'expert ' if expert else ''}codes{tuple(codes.shape)} "
+            f"{blocks} blocks, cluster {plan_['cluster']}", err,
+            lambda: fn(x, codes, mode=mode),
+            lambda: plain(x, codes, mode=mode),
+            lambda: torch.matmul(x, w), b_ms, b_by, reps=100,
+            plain_reps=1 if M > 512 or mode == "binary" else 3))
+        if gemm:
+            r = rows[-1]
+            # the profiler's device time beside one call's span between two
+            # CUDA events, its launch queued first (a cross-check)
+            r["events_ms"] = event_ms(lambda: fn(x, codes, mode=mode), 20)
+            for m in (1, 4):  # the GEMM at a prompt's last short chunk
+                xm = x[:m].contiguous()
+                r[f"m{m}_ms"] = event_ms(lambda: fn(xm, codes, mode=mode), 30)
+                r[f"m{m}_bound_ms"] = gemm_bound(one, m)[0]
+
     for blk, name, counts in plan:
         qt = stack[blk][name]
         expert = qt.codes.dim() == 4     # (layer, expert, K/G, N)
@@ -1717,44 +1806,30 @@ def layer_kernel_rows(label: str, packed: dict, plan, stack=None) -> list:
             fail(f"{label} {name}: layer 0's codes are not a contiguous, "
                  f"16-byte aligned slice")
         one = QTensor(codes=codes, k=qt.k, mode=qt.mode, alpha=qt.alpha)
-        K, N = qt.k, codes.shape[1]
         w = one.dequantize() / qt.alpha
         for M in counts:
-            fn = PK.packed_gemv if M <= 8 else PK.packed_matmul
-            plain = PK.packed_gemv_plain if M <= 8 else PK.packed_matmul_plain
-            x = torch.tanh(torch.randn(M, K, generator=g)).cuda()
-            got = fn(x, codes, mode=qt.mode)
-            again = fn(x, codes, mode=qt.mode)
-            want = plain(x, codes, mode=qt.mode)
-            err = summation_check(f"{fn.__name__} {label} {name} M={M}", got,
-                                  want, x, w)
-            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
-                fail(f"{fn.__name__} {label} {name} M={M}: two launches "
-                     f"differ")
-            if M > 8:
-                rows_invariant(f"{label} {name}", x, codes, qt.mode, got)
-            plan_ = (PK.gemv_plan(M, K, N, mode=qt.mode) if M <= 8
-                     else PK.matmul_plan(M, K, N, mode=qt.mode))
-            b_ms, b_by = (packed_bound if M <= 8 else gemm_bound)(one, M)
-            rows.append(timed_row(
-                fn.__name__, f"{label} {name} x({M},{K}) "
-                f"{'expert ' if expert else ''}codes{tuple(codes.shape)} "
-                f"{plan_['blocks']} blocks, cluster {plan_['cluster']}", err,
-                lambda: fn(x, codes, mode=qt.mode),
-                lambda: plain(x, codes, mode=qt.mode),
-                lambda: torch.matmul(x, w), b_ms, b_by, reps=100,
-                plain_reps=1 if M > 512 else 3))
-            if M > 8:
-                rows[-1]["fp32_add_bound_ms"] = packed_bound(one, M)[0]
+            row(name, one, codes, w, M, expert)
+        gemm_counts = [M for M in counts if M > 8]
+        if gemm_counts:  # the same shape in binary, on random codes
+            cb = torch.randint(-2**31, 2**31, (qt.k // 32, codes.shape[1]),
+                               generator=g, dtype=torch.int64
+                               ).to(torch.int32).cuda()
+            ob = QTensor(codes=cb, k=qt.k, mode="binary", alpha=1.0)
+            row(name, ob, cb, ob.dequantize(), gemm_counts[0], expert,
+                timed=False)
     us = lambda v: "-" if v is None else f"{v * 1e3:.1f}"
     where = "layer 0" if qt.codes.dim() > 2 else "block"
-    print(f"  {label} {where}, ternary: kernel == plain within 1e-5 of "
-          f"|x| @ |w|, two launches bit-equal", flush=True)
+    print(f"  {label} {where}: kernel == plain within 1e-5 of |x| @ |w|, "
+          f"two launches bit-equal, a row's bits the same at other row "
+          f"counts on its route", flush=True)
     for r in rows:
-        print(f"    {r['name']:14s} {r['shape']:66s} {r['max_abs_err']:.1e}  "
+        small = (f"  events {us(r['events_ms'])} us; M=1 {us(r['m1_ms'])} us, "
+                 f"M=4 {us(r['m4_ms'])} us, binary {us(r['binary_ms'])} us "
+                 f"(events)" if "m1_ms" in r else "")
+        print(f"    {r['name']:14s} {r['shape']:74s} {r['max_abs_err']:.1e}  "
               f"{us(r['ms'])} us ({us(r['wall_ms'])})  plain {us(r['plain_ms'])}"
               f"  matmul {us(r['library_ms'])}  bound {r['bound_ms'] * 1e3:.2f}"
-              f" ({r['bound_by']})", flush=True)
+              f" ({r['bound_by']}){small}", flush=True)
     return rows
 
 
@@ -1980,9 +2055,11 @@ def transformer_phase(report: dict) -> dict:
         d = first_divergence(ert, r, gby[r.rid], P + G)
         if d is not None:
             gaps.append({"rid": r.rid, "step": d[0], "gap": d[1]})
-    # batch invariance: the packed products sum a row in one order at any
-    # row count and route, and attention's products do (ordered_bmm), so
-    # every stream, sampled and greedy, is the one the request gets alone
+    # batch invariance: each packed product takes the route of its role
+    # (a prompt chunk's the GEMM, a decode step's the GEMV) and each route
+    # sums a row in one order at any row count, and attention's products
+    # do (ordered_bmm), so every stream, sampled and greedy, is the one the
+    # request gets alone
     if equal != len(reqs) or gaps:
         fail(f"qwen3 engine: {equal}/{len(reqs)} sampled streams == "
              f"drive_session(B=1); greedy divergences {gaps}")
@@ -2075,12 +2152,13 @@ POOL_ENGINE = {"qwen3-moe": (8, 16), "rwkv6-7b": (16, 32),
                "zamba2": (16, 32)}
 # Depth cuts, widths untouched, to keep the script inside its time limit
 # as phases join it: qwen3-0.6B's engine, speculative and prefix-cache
-# runs (phase 9) on 8 of its 28 layers (phase 9 took 252.4 s at 28, 173 s
-# at 14 once the norms and attention ran ordered_bmm); qwen3-moe's
+# runs (phase 9) on 14 of its 28 layers (phase 9 took 252.4 s at 28, 173 s
+# at 14 once the norms and attention ran ordered_bmm; 119.8 s at 8 with
+# the tensor-core GEMM, the script 735.2 s); qwen3-moe's
 # lockstep run and engine run on 8 of its 48 layers (at 48 they took 117.9
 # and 119 s of host-bound time), rwkv6's engine on 8 of its 32 layers
 # (100.4 s at 32), zamba2's on 12 of its 38 (75 s at 38)
-QWEN_ENGINE_LAYERS = 8
+QWEN_ENGINE_LAYERS = 14
 MOE_SERVE_LAYERS = 8
 RWKV_ENGINE_LAYERS = 8
 
@@ -3537,7 +3615,7 @@ def compressed_dp_phase(report: dict, card: str) -> dict:
 # phase 15: the model axis and the mesh engine, at one rank
 # ---------------------------------------------------------------------------
 
-MESH_LAYERS = 8      # the mesh engine's cut of qwen3's 28 layers, as phase 9
+MESH_LAYERS = 8      # the mesh engine's cut of qwen3's 28 layers
 
 
 def mesh_phase(report: dict, card: str) -> dict:
@@ -3709,8 +3787,8 @@ def main() -> int:
             fail(f"{name} spills registers: {spilled}")
     report["sass"] = sass_check(built["packed_gemv"][0],
                                 built["packed_matmul"][0])
-    print(f"sass: packed_gemv and packed_matmul hold no "
-          f"FMUL/FFMA/HMUL2/HFMA2/DMUL/DFMA/HMMA {report['sass']}",
+    print(f"sass: packed_gemv holds no FMUL/FFMA/HMUL2/HFMA2/DMUL/DFMA/HMMA, "
+          f"packed_matmul issues HGMMA and no LDL/STL {report['sass']}",
           flush=True)
 
     # 3. kernels against their plain versions
@@ -3783,12 +3861,22 @@ def main() -> int:
                "ordered_bmm": ("src/repro_torch/csrc/ordered_bmm.cu",
                                "none: src/repro/models/layers.py:84 and :98 "
                                "(attention's einsums, no TPU kernel)")}
-    # ordered_bmm's path is the transformer pool's: its launches are the
-    # counted qwen3 run's (phase 9); the others', the rnn-paper main path's
-    launches["ordered_bmm"] = transformer_launches.get("ordered_bmm", 0)
+    # the sequence route (packed_matmul: every prompt chunk's projections)
+    # and ordered_bmm are the transformer pool's path: their launches are
+    # the counted qwen3 run's (phase 9), packed_matmul's row qwen3's Wq at
+    # M = 512 (a 128-token prefill at B = 4); the others', the rnn-paper
+    # main path's
+    for name in ("packed_matmul", "ordered_bmm"):
+        launches[name] = transformer_launches.get(name, 0)
+        if not launches[name]:
+            fail(f"kernel {name} was never launched on the qwen3 path")
+    main_row = {"packed_matmul": next(
+        r for r in report["transformer"]["kernel_rows"]
+        if r["name"] == "packed_matmul" and " Wq ternary x(512," in r["shape"])}
     kernels = []
     for name, (src, replaces) in sources.items():
-        r = next(r for r in rows if r["name"] == name)  # the main path's shape
+        # the main path's shape
+        r = main_row.get(name) or next(r for r in rows if r["name"] == name)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "engine_launches": engine_launches.get(name, 0),

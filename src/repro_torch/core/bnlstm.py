@@ -29,7 +29,10 @@ in place where JAX returns a new array), `rnn_prefill_chunk`, the
 speculative `rnn_verify` and `rnn_spec_commit`.  Every serving matmul goes
 through `OPS.serve_matmul`, which keeps a row's bits independent of how
 many rows share the call on the CPU, so a request's stream does not depend
-on its batch or on how its prompt was chunked.
+on its batch or on how its prompt was chunked.  On the card each packed
+product states its role (`OPS.product_role`): a prefill's x-side of
+layers >= 1 takes the GEMM, the recurrent h-side and the unfused decode
+the GEMV, whatever the row count.
 """
 from __future__ import annotations
 
@@ -488,14 +491,19 @@ def _serve_scan_layer(t: dict, ax_seq, h0, c0, cell: str):
 
 def _prefill_state(variables: dict, tokens, cfg: RNNConfig,
                    state: RNNState, tables: list):
-    """The prompt through every layer: (top-layer hs (B, T, H), state)."""
+    """The prompt through every layer: (top-layer hs (B, T, H), state).
+    A layer's x-side over the whole chunk takes the sequence route (the
+    GEMM), its recurrent h-side the step route (the GEMV, one a token), as
+    in decode."""
     x_seq = tokens
     hT, cT = [], []
     for l, t in enumerate(tables):
-        ax_seq = _serve_x_preact(t, l, x_seq, cfg.dtype)  # (B, T, gH)
-        hs, _, hl, cl = _serve_scan_layer(
-            t, ax_seq, state.h[l].to(cfg.dtype), state.c[l].to(cfg.dtype),
-            cfg.cell)
+        with OPS.product_role("sequence"):
+            ax_seq = _serve_x_preact(t, l, x_seq, cfg.dtype)  # (B, T, gH)
+        with OPS.product_role("step"):
+            hs, _, hl, cl = _serve_scan_layer(
+                t, ax_seq, state.h[l].to(cfg.dtype), state.c[l].to(cfg.dtype),
+                cfg.cell)
         x_seq = hs.transpose(0, 1)
         hT.append(hl)
         cT.append(cl)
@@ -575,13 +583,14 @@ def rnn_decode_step(variables: dict, tok, cfg: RNNConfig, state: RNNState, *,
     x = tok
     hT, cT = [], []
     for l, t in enumerate(tables):
-        ax = _serve_x_preact(t, l, x, cfg.dtype)
-        h = state.h[l].to(cfg.dtype)
-        c = state.c[l].to(cfg.dtype)
-        if cfg.cell == "lstm":
-            hn, cn = _serve_lstm_step(t, ax, h, c)
-        else:
-            hn, cn = _serve_gru_step(t, ax, h), c
+        with OPS.product_role("step"):
+            ax = _serve_x_preact(t, l, x, cfg.dtype)
+            h = state.h[l].to(cfg.dtype)
+            c = state.c[l].to(cfg.dtype)
+            if cfg.cell == "lstm":
+                hn, cn = _serve_lstm_step(t, ax, h, c)
+            else:
+                hn, cn = _serve_gru_step(t, ax, h), c
         if live is not None:
             hn = torch.where(live[:, None], hn, h)
             cn = torch.where(live[:, None], cn, c)

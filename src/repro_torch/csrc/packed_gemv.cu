@@ -1,11 +1,16 @@
-// Multiply-free decode GEMV against 2-bit (ternary) / 1-bit (binary) packed
-// weights, for sm_90a.  The kernel lives in packed_gemv.cuh, which the
-// prefill GEMM (packed_matmul.cu) shares.
+// Multiply-free GEMV against 2-bit (ternary) / 1-bit (binary) packed
+// weights, for sm_90a: the step route (kernels/ops.py), which takes every
+// decode tick, speculative verify and recurrent h-side product at any row
+// count.  The kernel lives in packed_gemv.cuh.
 //
 // Replaces: src/repro/kernels/packed_matmul.py:packed_gemv
 //           (_gemv_kernel -> accumulate_gemv -> code_masks).
-// Computes: out (bp, N) = x (bp, K) . unpack(codes (K/G, N)), bp <= 8,
-//           G = 16 (ternary) or 32 (binary).  Ternary code 1 is +1, code 3
+// Computes: out (M, N) = x (M, K) . unpack(codes (K/G, N)), G = 16
+//           (ternary) or 32 (binary): one launch of the 1-, 2-, 4- or 8-row
+//           instance up to 8 rows, and the 8-row instance over ceil(M / 8)
+//           row tiles (gridDim.z) above that.  A row is summed in the same
+//           order at any M and in any instance, so a row's bits are a
+//           function of (K, N, mode) alone.  Ternary code 1 is +1, code 3
 //           is -1, any other code is 0; binary bit 1 is +1, bit 0 is -1.
 //           Callers zero-pad x past the true K, so pad codes add nothing.
 // Bound on this card: the codes are 1/16 (1/32) of the fp32 weight and
@@ -79,7 +84,8 @@ cudaError_t launch_rows(int rows, const float* x, const uint32_t* codes,
 }  // namespace
 
 // mode: 0 ternary, 1 binary.  The geometry comes from gemv_plan: rows is
-// the instance (1, 2, 4 or 8, >= bp), cluster the blocks that split K
+// the instance (1, 2, 4 or 8, >= bp; 8 above 8 rows, one row tile of x a
+// gridDim.z), cluster the blocks that split K
 // (1 .. 8, at most K/G), tiles the kCols-column tiles (covering N), vec 1 for
 // 16-byte code loads (N % 4 == 0 and 16-byte aligned codes).  Returns the
 // cudaError_t of the launch.
@@ -87,8 +93,10 @@ extern "C" int packed_gemv_launch(const void* x, const void* codes, void* out,
                                   int bp, int K, int N, int mode, int rows,
                                   int cluster, int tiles, int vec,
                                   void* stream) {
-  if (bp < 1 || bp > 8 || (rows != 1 && rows != 2 && rows != 4 && rows != 8) ||
-      rows < bp || !valid_geometry(codes, K, N, mode, cluster, tiles, vec))
+  if (bp < 1 || (bp + 7) / 8 > 65535 ||
+      (rows != 1 && rows != 2 && rows != 4 && rows != 8) ||
+      (rows < bp && rows != 8) ||
+      !valid_geometry(codes, K, N, mode, cluster, tiles, vec))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);

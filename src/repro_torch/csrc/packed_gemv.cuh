@@ -1,9 +1,8 @@
-// The multiply-free packed GEMV kernel, shared by csrc/packed_gemv.cu (x of
-// at most 8 rows, one row tile) and csrc/packed_matmul.cu (x of any number
-// of rows, 8-row tiles over gridDim.z), so a row of x is summed in the same
-// order, to the same bits, by both: the decode GEMV and the prefill GEMM
-// agree whatever the row count, and a prompt's state does not depend on
-// how it was chunked.  packed_gemv.cu says what it computes and how.
+// The multiply-free packed GEMV kernel of csrc/packed_gemv.cu: x of at
+// most 8 rows in one row tile, or of any number of rows in 8-row tiles over
+// gridDim.z, a row of x summed in the same order, to the same bits,
+// whatever the row count, so a decode step's row does not depend on what
+// shares its batch.  packed_gemv.cu says what it computes and how.
 #pragma once
 
 #include <cooperative_groups.h>

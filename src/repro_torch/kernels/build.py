@@ -7,7 +7,10 @@ its source, the shared `csrc/*.cuh` headers and the compiler flags, with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-The `.so` is loaded with `ctypes`.  `build_all()` starts one `nvcc` per
+plus `LIBS[name]`: `packed_matmul` links the driver API (`-lcuda`, for
+`cuTensorMapEncodeTiled`, its TMA descriptors) against the toolkit's stub
+in `lib64/stubs`; the driver's `libcuda.so.1` resolves it at load.  The
+`.so` is loaded with `ctypes`.  `build_all()` starts one `nvcc` per
 source at once; `library(name)` builds on first use.  Nothing here runs at
 import time, so the CPU tests import every module without a compiler.
 """
@@ -30,6 +33,9 @@ KERNELS = ("packed_gemv", "packed_matmul", "fused_tick", "quantize_pack",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# libraries a kernel links beyond the CUDA runtime
+LIBS = {"packed_matmul": ("-lcuda",)}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -37,7 +43,7 @@ _F = ctypes.c_float
 # c_void_p, so ctypes never truncates them to 32-bit ints
 SIGNATURES = {
     "packed_gemv": ("packed_gemv_launch", [_P, _P, _P] + [_I] * 8 + [_P]),
-    "packed_matmul": ("packed_matmul_launch", [_P, _P, _P] + [_I] * 7 + [_P]),
+    "packed_matmul": ("packed_matmul_launch", [_P, _P, _P] + [_I] * 6 + [_P]),
     "fused_tick": ("fused_tick_launch", [_P] * 23 + [_I] * 9 + [_P]),
     "quantize_pack": ("quantize_pack_launch", [_P, _P, _P, _F, _I, _I, _I, _P]),
     "ordered_bmm": ("ordered_bmm_launch", [_P, _P, _P] + [_I] * 4 + [_P]),
@@ -46,9 +52,12 @@ SIGNATURES = {
 _libs: dict = {}
 
 
+def cuda_home() -> str:
+    return os.environ.get("CUDA_HOME", "/usr/local/cuda")
+
+
 def nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
+    for cand in (os.path.join(cuda_home(), "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (CUDA_HOME/bin, PATH); the CUDA "
@@ -58,7 +67,7 @@ def nvcc() -> str:
 def so_path(name: str) -> Path:
     """The library's path, keyed by its source, the shared headers and the
     flags, so an edit to any of them builds anew."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LIBS.get(name, ())).encode())
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
@@ -70,7 +79,11 @@ def _start(name: str):
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    libs = LIBS.get(name, ())
+    if libs:
+        libs = ("-L" + os.path.join(cuda_home(), "lib64", "stubs"), *libs)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+           *libs]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp, out
 

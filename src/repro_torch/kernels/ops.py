@@ -2,9 +2,36 @@
 padding, alpha scaling, the GEMV/GEMM routing, `quantize_pack`, and
 `qmatmul` — the one matmul entry for fp and packed weights — and its
 serving form `serve_matmul`, plus the
-fused decode tick's gate-aligned code layout and public entry."""
+fused decode tick's gate-aligned code layout and public entry.
+
+Routing by role.  A packed product goes to one of two kernels, which sum a
+row in different orders and so give it different bits: the GEMM on the
+tensor cores (`PK.packed_matmul`) and the multiply-free GEMV
+(`PK.packed_gemv`).  JAX routes by row count (M <= 8 to the GEMV); the
+port routes by the product's role, so that a row never changes kernel
+between a stream served among others and the same request alone:
+
+    role          products                                      kernel
+    ----          --------                                      ------
+    "sequence"    a prompt chunk's projections (prefill, the    the GEMM, at
+                  encoder, cross K/V, MoE experts in a          every M
+                  prefill), the RNN's x-side of layers >= 1
+                  in a prefill
+    "step"        decode ticks, speculative verify, the RNN's   the GEMV, at
+                  recurrent h-side (prefill and decode) and     every M
+                  its unfused decode
+    none          direct callers, packed evaluation             M <= 8 the
+                                                                GEMV, as JAX
+
+The runtimes' entry points state the role (`product_role`); it is
+thread-local, as `runtime.py`'s mesh is, so `serve_matmul` and `qmatmul`
+keep their signatures and each rank of a sharded product inherits it.  On
+the CPU both plain versions sum row by row, so CPU bits do not depend on
+the route."""
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -16,8 +43,33 @@ from repro_torch.core.quantize import pack_group
 from repro_torch.kernels import decode_step as DK
 from repro_torch.kernels import packed_matmul as PK
 
-# x with at most this many rows takes the multiply-free GEMV, more the GEMM
+# with no role stated, x with at most this many rows takes the
+# multiply-free GEMV, more the GEMM (JAX's rule)
 GEMV_MAX_ROWS = 8
+ROLES = ("sequence", "step")
+
+_role = threading.local()
+
+
+def current_role() -> Optional[str]:
+    """The packed products' role on this thread: "sequence", "step" or
+    None (JAX's row-count rule)."""
+    return getattr(_role, "value", None)
+
+
+@contextlib.contextmanager
+def product_role(role: Optional[str]):
+    """State the role of the packed products run inside (see the module
+    docstring); the previous role comes back on exit."""
+    if role is not None and role not in ROLES:
+        raise ValueError(f"unknown product role {role!r}; expected one of "
+                         f"{ROLES} or None")
+    prev = current_role()
+    _role.value = role
+    try:
+        yield
+    finally:
+        _role.value = prev
 
 
 def packed_matmul(x: torch.Tensor, codes: torch.Tensor, alpha=1.0, *,
@@ -26,8 +78,9 @@ def packed_matmul(x: torch.Tensor, codes: torch.Tensor, alpha=1.0, *,
     with Kp >= K.
 
     Leading dims flatten into M.  x is zero-padded to the codes' K coverage,
-    so pad codes add nothing.  M <= 8 routes to the multiply-free GEMV, more
-    rows to the GEMM."""
+    so pad codes add nothing.  The current `product_role` picks the kernel:
+    "sequence" the GEMM, "step" the multiply-free GEMV, at any M; with no
+    role, M <= 8 routes to the GEMV and more rows to the GEMM."""
     group = pack_group(mode)
     lead = x.shape[:-1]
     K = x.shape[-1]
@@ -36,7 +89,8 @@ def packed_matmul(x: torch.Tensor, codes: torch.Tensor, alpha=1.0, *,
     if kp < K:
         raise ValueError(f"codes cover K={kp} < {K}")
     xm = F.pad(x.reshape(-1, K).float(), (0, kp - K)).contiguous()
-    if xm.shape[0] <= GEMV_MAX_ROWS:
+    role = current_role()
+    if role == "step" or (role is None and xm.shape[0] <= GEMV_MAX_ROWS):
         y = PK.packed_gemv(xm, codes, mode=mode)
     else:
         y = PK.packed_matmul(xm, codes, mode=mode)

@@ -3,19 +3,22 @@ from `repro/kernels/packed_matmul.py`.
 
 Three kernels, each with its plain PyTorch version beside it:
 
-  * `packed_gemv`   — the multiply-free decode-shape GEMV (x has at most 8
-                      rows): codes become plus/minus masks and each output
-                      column is sum(select(plus, x)) - sum(select(minus, x)).
+  * `packed_gemv`   — the multiply-free GEMV, the step route (decode ticks,
+                      verify, recurrent h-sides) at any number of rows:
+                      codes become plus/minus masks and each output column
+                      is sum(select(plus, x)) - sum(select(minus, x)), one
+                      launch up to 8 rows and 8-row tiles above.
                       Kernel: csrc/packed_gemv.cu, launched as `gemv_plan`
                       says.
-  * `packed_matmul` — the prefill GEMM, for any number of rows: on the
-                      card the GEMV's kernel over 8-row tiles, so a row is
-                      summed in the GEMV's order to the GEMV's bits at any
-                      row count (batch invariance: a prompt's state does
-                      not depend on its chunking); the plain version sums
-                      row by row, as the GEMV's does.
-                      Kernel: csrc/packed_matmul.cu, launched as
-                      `matmul_plan` says.
+  * `packed_matmul` — the GEMM on the tensor cores, the sequence route
+                      (every projection of a prompt chunk) at any number of
+                      rows: x split exactly into three bf16 terms, wgmma
+                      against the decoded codes, fp32 accumulate.  A row's
+                      bits depend on (K, N, mode) alone, never on M (batch
+                      invariance: a prompt's state does not depend on its
+                      chunking); the plain version sums row by row, as the
+                      GEMV's does.  Kernel: csrc/packed_matmul.cu, launched
+                      as `matmul_plan` says.
   * `quantize_pack` — paper Eqs. 4-6 stochastic sampling from an explicit
                       uniform-noise operand, fused with bit-packing:
                       (K, N) fp32 -> (K/G, N) words, bit-exact.
@@ -38,6 +41,10 @@ MODES = {"ternary": 0, "binary": 1}
 SMS = 132          # streaming multiprocessors of an H100 SXM
 GEMV_COLS = 32     # output columns a block of the GEMV owns (csrc kCols)
 MAX_CLUSTER = 8    # the portable thread block cluster size
+GEMM_ROWS = 64     # rows of a GEMM block: one wgmma m64 tile (csrc BM)
+GEMM_COLS = 128    # its columns: wgmma n128 (csrc BN)
+GEMM_K = 64        # k a pipeline stage holds (csrc BK)
+GEMM_MIN_K_TILES = 4  # the fewest k-tiles a block of a K split keeps
 
 
 def code_masks(packed: torch.Tensor, *, mode: str):
@@ -86,34 +93,48 @@ def packed_matmul_plain(x: torch.Tensor, codes: torch.Tensor, *,
     return packed_gemv_plain(x, codes, mode=mode)
 
 
-def matmul_plan(M: int, K: int, N: int, *, mode: str) -> dict:
-    """How `packed_matmul` launches for x (M, K): `gemv_plan`'s column tiles
-    and K split, which read K and N only, times ceil(M / 8) row tiles of
-    the GEMV's 8-row instance.  A row's sum order, and so its bits, is
-    then the GEMV's whatever M is."""
-    plan = gemv_plan(min(M, 8), K, N, mode=mode)
-    row_tiles = -(-M // 8)
-    return {**plan, "rows": 8, "row_tiles": row_tiles,
-            "blocks": plan["blocks"] * row_tiles}
+def matmul_plan(K: int, N: int, *, mode: str) -> dict:
+    """How `packed_matmul` launches against codes (K/G, N): blocks of 64
+    rows and 128 columns (`tiles` of them across N), 64 k a stage, and
+    `cluster` blocks splitting the `k_tiles`; `tma`, the codes by TMA
+    where N % 4 == 0 (the wrapper also needs them 16-byte aligned), else
+    the cp.async variant.  It takes no M: every choice that orders a row's
+    sum is fixed by (K, N, mode), and only the number of 64-row tiles of
+    blocks follows M, so a row's bits do not depend on the row count.  The
+    split doubles, up to 8, while one row tile of blocks is short of one
+    block an SM and every block keeps at least `GEMM_MIN_K_TILES` k-tiles
+    (at qwen3's Wq, K = 1024, N = 2048: 16 tiles in clusters of 4).
+    `blocks` counts one row tile's."""
+    tiles = -(-N // GEMM_COLS)
+    k_tiles = -(-K // GEMM_K)
+    cluster = 1
+    while (cluster < MAX_CLUSTER and tiles * cluster < SMS
+           and k_tiles >= 2 * cluster * GEMM_MIN_K_TILES):
+        cluster *= 2
+    return {"rows": GEMM_ROWS, "cluster": cluster, "tiles": tiles,
+            "k_tiles": k_tiles, "blocks": tiles * cluster, "tma": N % 4 == 0}
 
 
 def gemv_plan(bp: int, K: int, N: int, *, mode: str) -> dict:
     """How `packed_gemv` launches for x (bp, K): the instance of `rows` >= bp
-    (1, 2, 4 or 8), a grid of `tiles` blocks of 32 columns times `cluster`
-    blocks splitting K, and `vec`, 16-byte code loads where N % 4 == 0 (the
-    wrapper also needs the codes 16-byte aligned).  The split doubles, up
-    to 8, while the grid is short of one block an SM and every block keeps
-    at least one code word: at N = 4000, 125 tiles become 250 blocks in
-    clusters of 2."""
+    (1, 2, 4 or 8; 8 above 8 rows, over `row_tiles` of 8 rows), a grid of
+    `tiles` blocks of 32 columns times `cluster` blocks splitting K, and
+    `vec`, 16-byte code loads where N % 4 == 0 (the wrapper also needs the
+    codes 16-byte aligned).  The split doubles, up to 8, while the grid is
+    short of one block an SM and every block keeps at least one code word:
+    at N = 4000, 125 tiles become 250 blocks in clusters of 2.  The split
+    reads K and N only, so a row's sum order is the same at any bp."""
     tiles = -(-N // GEMV_COLS)
     words = K // pack_group(mode)
     cluster = 1
     while (cluster < MAX_CLUSTER and tiles * cluster < SMS
            and 2 * cluster <= words):
         cluster *= 2
-    rows = next(r for r in (1, 2, 4, 8) if r >= bp)
+    rows = next((r for r in (1, 2, 4, 8) if r >= bp), 8)
+    row_tiles = -(-bp // rows)
     return {"rows": rows, "cluster": cluster, "tiles": tiles,
-            "blocks": tiles * cluster, "vec": N % 4 == 0}
+            "row_tiles": row_tiles, "blocks": tiles * cluster * row_tiles,
+            "vec": N % 4 == 0}
 
 
 def _checked(name: str, x: torch.Tensor, codes: torch.Tensor, mode: str):
@@ -131,9 +152,7 @@ def _checked(name: str, x: torch.Tensor, codes: torch.Tensor, mode: str):
 
 def packed_gemv(x: torch.Tensor, codes: torch.Tensor, *,
                 mode: str) -> torch.Tensor:
-    """x (bp <= 8, K) fp32, codes (K/G, N) int32 -> (bp, N) fp32, unscaled."""
-    if x.shape[0] > 8:
-        raise ValueError(f"packed_gemv takes at most 8 rows, got {x.shape[0]}")
+    """x (bp, K) fp32, codes (K/G, N) int32 -> (bp, N) fp32, unscaled."""
     if not _checked("packed_gemv", x, codes, mode):
         dispatch.count_plain("packed_gemv")
         return packed_gemv_plain(x, codes, mode=mode)
@@ -157,12 +176,14 @@ def packed_matmul(x: torch.Tensor, codes: torch.Tensor, *,
         return packed_matmul_plain(x, codes, mode=mode)
     M, K = x.shape
     N = codes.shape[1]
-    plan = matmul_plan(M, K, N, mode=mode)
-    vec = plan["vec"] and codes.data_ptr() % 16 == 0
+    plan = matmul_plan(K, N, mode=mode)
+    if x.data_ptr() % 16:
+        raise ValueError("packed_matmul: x must be 16-byte aligned (TMA)")
+    tma = plan["tma"] and codes.data_ptr() % 16 == 0
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     build.launch("packed_matmul", x.device, x.data_ptr(), codes.data_ptr(),
                  out.data_ptr(), M, K, N, MODES[mode], plan["cluster"],
-                 plan["tiles"], int(vec))
+                 int(tma))
     dispatch.count_launch("packed_matmul")
     return out
 

@@ -71,7 +71,7 @@ from torch.utils import checkpoint as CP
 from repro_torch.core.qlinear import quantize_tree, winit
 from repro_torch.core.qtensor import (QTensor, export_packed, is_qtensor,
                                       tree_map)
-from repro_torch.kernels.ops import serve_matmul
+from repro_torch.kernels.ops import product_role, serve_matmul
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
@@ -739,14 +739,17 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg, *,
     last token's logits (B, Vp) and the caches.  The audio family encodes
     `enc_frames` (the vlm family casts `img`) on every call and replaces
     its cross caches with their k/v.  JAX's `n` (bucket padding rewound off
-    the caches) has no counterpart: chunks run at their own length."""
-    qparams = _serve_quant(params, cfg)
-    xsrc = _cross_source(qparams, cfg, enc_frames, img)
-    x = _embed(qparams, tokens, cfg)
-    x, caches = _step_cached(qparams, x, caches, cfg, decode=False,
-                             xsrc=xsrc)
-    x = L.rms_norm(x[:, -1:], qparams["final_norm"])
-    return _head(qparams, x, cfg)[:, 0], caches
+    the caches) has no counterpart: chunks run at their own length.  Its
+    packed products take the sequence route (the GEMM) at any chunk
+    length, so a prompt's rows sum alike whole and in chunks."""
+    with product_role("sequence"):
+        qparams = _serve_quant(params, cfg)
+        xsrc = _cross_source(qparams, cfg, enc_frames, img)
+        x = _embed(qparams, tokens, cfg)
+        x, caches = _step_cached(qparams, x, caches, cfg, decode=False,
+                                 xsrc=xsrc)
+        x = L.rms_norm(x[:, -1:], qparams["final_norm"])
+        return _head(qparams, x, cfg)[:, 0], caches
 
 
 def verify_step(params: dict, tokens: torch.Tensor, caches: dict, cfg,
@@ -755,27 +758,31 @@ def verify_step(params: dict, tokens: torch.Tensor, caches: dict, cfg,
     tokens (B, S) -> (logits (B, S, Vp), caches).  Each position's head runs
     at the decode step's (B, 1, d) shape, as JAX unrolls it, so a verified
     stream's rounding is plain decoding's where the head's is row-count
-    dependent.  Rollback is the caller's (kvcache.cache_spec_commit)."""
-    qparams = _serve_quant(params, cfg)
-    x = _embed(qparams, tokens, cfg)
-    x, caches = _step_cached(qparams, x, caches, cfg, decode=True,
-                             live=live)
-    x = L.rms_norm(x, qparams["final_norm"])
-    logits = [_head(qparams, x[:, i:i + 1], cfg)[:, 0]
-              for i in range(tokens.shape[1])]
-    return torch.stack(logits, dim=1), caches
+    dependent.  Rollback is the caller's (kvcache.cache_spec_commit).  Its
+    packed products take the step route (the GEMV), as decode's do."""
+    with product_role("step"):
+        qparams = _serve_quant(params, cfg)
+        x = _embed(qparams, tokens, cfg)
+        x, caches = _step_cached(qparams, x, caches, cfg, decode=True,
+                                 live=live)
+        x = L.rms_norm(x, qparams["final_norm"])
+        logits = [_head(qparams, x[:, i:i + 1], cfg)[:, 0]
+                  for i in range(tokens.shape[1])]
+        return torch.stack(logits, dim=1), caches
 
 
 def decode_step(params: dict, token: torch.Tensor, caches: dict, cfg,
                 live=None) -> Tuple[torch.Tensor, dict]:
     """One decode step.  token (B,) or (B, 1) -> (logits (B, Vp), caches).
     `live` (B,) is the engine's occupancy mask: dead rows' caches stay
-    frozen bit for bit (their logits are garbage and never sampled)."""
+    frozen bit for bit (their logits are garbage and never sampled).  Its
+    packed products take the step route (the GEMV) at any batch."""
     if token.dim() == 1:
         token = token[:, None]
-    qparams = _serve_quant(params, cfg)
-    x = _embed(qparams, token, cfg)
-    x, caches = _step_cached(qparams, x, caches, cfg, decode=True,
-                             live=live)
-    x = L.rms_norm(x, qparams["final_norm"])
-    return _head(qparams, x, cfg)[:, 0], caches
+    with product_role("step"):
+        qparams = _serve_quant(params, cfg)
+        x = _embed(qparams, token, cfg)
+        x, caches = _step_cached(qparams, x, caches, cfg, decode=True,
+                                 live=live)
+        x = L.rms_norm(x, qparams["final_norm"])
+        return _head(qparams, x, cfg)[:, 0], caches

@@ -176,8 +176,9 @@ def test_packed_matmul_matches_plain(card, mode, group, M, K, N):
 @pytest.mark.parametrize("K,N", [(1024, 4000), (16384, 200), (160, 33)])
 def test_packed_matmul_tiles_clusters_and_repeats(card, mode, group, M, K,
                                                   N):
-    """Every row tiling (one 8-row tile, two, ragged last tiles, many),
-    K split across a cluster and not, K up to 16,384, ragged N.  x is zero
+    """Every row tiling (one 64-row tile, two, ragged last tiles, many),
+    K split across a cluster and not, K up to 16,384, ragged N (N = 33:
+    the cp.async variant for the codes).  x is zero
     past the true K and the last code words are zero: binary decodes them
     to -1, so only the zero activations keep them out.  Two launches on the
     same inputs give the same bits."""
@@ -201,28 +202,62 @@ def test_packed_matmul_tiles_clusters_and_repeats(card, mode, group, M, K,
 @pytest.mark.parametrize("K,N", [(1024, 4000), (16384, 200), (160, 33),
                                  (1024, 2048), (3072, 1024)])
 def test_packed_row_bits_do_not_follow_the_row_count(card, mode, group, K, N):
-    """Batch invariance: a row of x gets the same bits from the GEMM at
-    any row count and from the GEMV (the GEMM is the GEMV's kernel over
-    8-row tiles with the GEMV's K split), so a prompt's state does not
-    depend on how it was chunked nor a request's on its batch."""
+    """Batch invariance within each route: a row of x gets the same bits
+    from the GEMM (the sequence route) at any row count, its plan being
+    fixed by (K, N, mode), and from the GEMV (the step route) at any row
+    count, one launch up to 8 rows or 8-row tiles above; so a prompt's
+    state does not depend on how it was chunked nor a request's on its
+    batch.  The two routes sum in different orders, so their bits are not
+    compared with each other: a product's role, not its row count, keeps
+    a row on one route."""
     rng = np.random.default_rng(K + N)
     x = torch.from_numpy(rng.normal(size=(130, K)).astype(np.float32)
                          ).to(card)
     codes = _codes(rng, K // group, N).to(card)
-    full = PK.packed_matmul(x, codes, mode=mode)
     bits = lambda t: t.view(torch.int32)
-    for lo, hi in ((0, 9), (0, 16), (5, 38), (97, 130)):
-        part = PK.packed_matmul(x[lo:hi].contiguous(), codes, mode=mode)
-        assert torch.equal(bits(part), bits(full[lo:hi])), (lo, hi)
-    for lo, n in ((0, 8), (40, 3), (129, 1), (64, 1)):
-        part = PK.packed_gemv(x[lo:lo + n].contiguous(), codes, mode=mode)
-        assert torch.equal(bits(part), bits(full[lo:lo + n])), (lo, n)
+    for fn, parts in ((PK.packed_matmul, ((0, 9), (0, 16), (5, 38),
+                                          (97, 130), (0, 1), (64, 65),
+                                          (129, 130))),
+                      (PK.packed_gemv, ((0, 8), (40, 43), (129, 130),
+                                        (64, 65), (3, 17)))):
+        full = fn(x, codes, mode=mode)
+        for lo, hi in parts:
+            part = fn(x[lo:hi].contiguous(), codes, mode=mode)
+            assert torch.equal(bits(part), bits(full[lo:hi])), \
+                (fn.__name__, lo, hi)
+
+
+@pytest.mark.parametrize("M", [1, 4, 9, 16, 63, 65, 512, 6000])
+@pytest.mark.parametrize("mode,group", [("ternary", 16), ("binary", 32)])
+@pytest.mark.parametrize("K,N", [(1024, 4000), (2080, 100), (160, 33)])
+def test_packed_matmul_on_the_tensor_cores(card, mode, group, K, N, M):
+    """The GEMM (three bf16 terms of x on the tensor cores) within 1e-5 of
+    |x| @ |w| of the fp64 product at every row count from 1 to 6000, with
+    K not a multiple of the 64-k stage (2080) and N = 33 (no TMA for the
+    codes: the cp.async variant); two launches bit-equal, and every row
+    the bits of the same row in a 6000-row launch."""
+    rng = np.random.default_rng(K + N)
+    xs = torch.from_numpy(np.tanh(rng.normal(size=(6000, K))).astype(
+        np.float32)).to(card)
+    codes = _codes(rng, K // group, N).to(card)
+    full = PK.packed_matmul(xs, codes, mode=mode)
+    x = xs[:M]
+    got = PK.packed_matmul(x, codes, mode=mode)
+    again = PK.packed_matmul(x, codes, mode=mode)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["packed_matmul"] == 3
+    bits = lambda t: t.view(torch.int32)
+    assert torch.equal(bits(got), bits(again))
+    assert torch.equal(bits(got), bits(full[:M]))
+    _assert_summation_close(got, PK.packed_matmul_plain(x, codes, mode=mode),
+                            x, codes, mode)
 
 
 def test_two_layer_rnn_chunked_prefill_is_bit_equal(card):
     """The RNN at L = 2, H = 256: layer 1's x side takes a chunk in the
-    engine and the whole prompt in `drive_session`, the GEMV against the
-    GEMM past 8 tokens; the carried state is the same bits either way."""
+    engine and the whole prompt in `drive_session`, both on the GEMM (the
+    sequence route) at any chunk length; the carried state is the same
+    bits either way."""
     import dataclasses
     from repro_torch.configs import get_rnn_config
     cfg = dataclasses.replace(get_rnn_config("rnn-paper"), d_hidden=256,
@@ -337,8 +372,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         PK.packed_gemv(torch.zeros((64, 2), device=card).T, codes,
                        mode="ternary")
-    with pytest.raises(ValueError, match="at most 8 rows"):
-        PK.packed_gemv(torch.zeros((9, 64), device=card), codes, mode="ternary")
+    # the GEMM's x goes by TMA: 16-byte aligned or refused
+    flat = torch.zeros(2 * 64 + 1, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        PK.packed_matmul(flat[1:].view(2, 64), codes, mode="ternary")
     with pytest.raises(ValueError, match="mixed devices"):
         PK.packed_matmul(x.cpu(), codes, mode="ternary")
     assert not dispatch.LAUNCHES and not dispatch.PLAIN_CALLS
@@ -538,9 +575,11 @@ def test_runtime_on_the_card_matches_the_cpu(card, B):
             lp, sp = rt_cpu.decode_step(tok, sp)
             torch.testing.assert_close(lc.cpu(), lp, rtol=0, atol=1e-4)
             torch.testing.assert_close(sc.h.cpu(), sp.h, rtol=0, atol=1e-5)
-    prefill = "packed_gemv" if B <= 8 else "packed_matmul"
+    # the h-side is a step product (the GEMV) at any batch, layer 1's
+    # x-side over the prompt a sequence product (the GEMM)
     assert dispatch.LAUNCHES["fused_tick"] == 8
-    assert dispatch.LAUNCHES[prefill] >= 12
+    assert dispatch.LAUNCHES["packed_gemv"] >= 12
+    assert dispatch.LAUNCHES["packed_matmul"] >= 1
 
 
 def test_gate_codes_stay_word_equal_on_the_card(card):

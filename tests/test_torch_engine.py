@@ -492,8 +492,8 @@ def test_priority_orders_admission_and_stats():
 def test_tick_is_one_fused_call_and_prefill_counts_every_step():
     """On the packed tree a plain tick is one fused-tick call whatever the
     occupancy, and a prefill chunk runs one h-side GEMV a prompt token a
-    layer, plus layer 1's x-side projection of the chunk (M = the chunk
-    length <= 8 takes the GEMV)."""
+    layer (the step route), plus layer 1's x-side projection of the chunk,
+    which takes the GEMM (the sequence route) at any chunk length."""
     _, trt, _ = _pair()
     eng = ServeEngine(trt, VOCAB, slots=3, max_context=64, prefill_chunk=4)
     eng.warm()
@@ -506,8 +506,9 @@ def test_tick_is_one_fused_call_and_prefill_counts_every_step():
     steps = eng.prefill_steps - steps0
     chunks = eng.prefill_chunks - chunks0
     assert steps == sum(c.prompt_len for c in comps)  # no pad steps
-    assert calls["packed_gemv"] == LAYERS * steps + chunks
-    assert set(calls) == {"fused_tick", "packed_gemv"}
+    assert calls["packed_gemv"] == LAYERS * steps
+    assert calls["packed_matmul"] == chunks
+    assert set(calls) == {"fused_tick", "packed_gemv", "packed_matmul"}
 
 
 def test_pool_keeps_its_shape_and_staggered_arrivals_change_no_token():

@@ -190,6 +190,38 @@ def test_qmatmul_matches_pallas_and_routes(mode, shape, xlead):
     assert not dispatch.LAUNCHES
 
 
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 20])
+@pytest.mark.parametrize("role", [None, "sequence", "step"])
+def test_product_role_picks_the_route(role, rows):
+    """The product's role picks its kernel at any row count: "sequence" the
+    GEMM, "step" the GEMV; with no role stated, JAX's rule (M <= 8 the
+    GEMV).  Both routes compute the same function as JAX's qmatmul; the
+    role comes back on leaving the context, also on an error."""
+    rng = np.random.default_rng(rows)
+    w = rng.uniform(-0.2, 0.2, (96, 40)).astype(np.float32)
+    x = rng.normal(size=(rows, 96)).astype(np.float32)
+    want = JOPS.qmatmul(jnp.asarray(x), JQT.QTensor.from_master(
+        jnp.asarray(w), "ternary"), interpret=True)
+    tqt = QT.QTensor.from_master(torch.from_numpy(w), "ternary")
+    dispatch.reset_counts()
+    with OPS.product_role(role):
+        assert OPS.current_role() == role
+        t = OPS.qmatmul(torch.from_numpy(x), tqt)
+    assert OPS.current_role() is None
+    np.testing.assert_allclose(t.numpy(), np.asarray(want), **TOL)
+    gemv = role == "step" or (role is None and rows <= OPS.GEMV_MAX_ROWS)
+    route = "packed_gemv" if gemv else "packed_matmul"
+    assert dict(dispatch.PLAIN_CALLS) == {route: 1}
+    with pytest.raises(ValueError, match="unknown product role"):
+        with OPS.product_role("prefill"):
+            pass
+    with pytest.raises(RuntimeError):
+        with OPS.product_role("step"):
+            with OPS.product_role("sequence"):
+                raise RuntimeError("inside")
+    assert OPS.current_role() is None
+
+
 @pytest.mark.parametrize("mode", ["ternary", "binary"])
 def test_qmatmul_channel_scale_and_alpha_match_pallas(mode):
     rng = np.random.default_rng(12)
@@ -333,28 +365,68 @@ def test_tick_late_head_needs_a_unit_an_sm(vp, n_sm, late):
     assert DK.tick_late_head(vp, n_sm) is late
 
 
-@pytest.mark.parametrize("M,K,N,mode,cluster", [
-    (16, 1008, 4000, "ternary", 2),   # B = 16 prefill, h-side GEMM
-    (32, 1008, 4000, "ternary", 2),   # packed eval, h-side GEMM
-    (16, 1024, 4000, "binary", 2),
-    (32, 1024, 4000, "binary", 2),
-    (9, 1008, 4000, "ternary", 2),
-    (130, 1008, 4000, "ternary", 2),
-    (3200, 1008, 4000, "ternary", 2),  # packed eval's B*T rows
-    (16, 64, 4000, "ternary", 2),      # 4 code words: split once
-])
-def test_matmul_plan_fills_the_card(M, K, N, mode, cluster):
-    """The GEMM launches the GEMV's kernel over 8-row tiles with the GEMV's
-    K split, which K and N alone decide: the same cluster at every M (a
-    row's sum order does not follow the row count), and at the main path's
-    shapes a grid of more blocks than an H100 has SMs (132)."""
-    plan = PK.matmul_plan(M, K, N, mode=mode)
+# the GEMM shapes of PERF.md section 6: (K, N) of the codes, the mode, and
+# the cluster matmul_plan picks
+GEMM_SHAPES = [
+    (1008, 4000, "ternary", 4),    # rnn-paper h-side, K = 1000 padded
+    (1024, 4000, "binary", 4),
+    (1024, 2048, "ternary", 4),    # qwen3 Wq
+    (3072, 1024, "ternary", 8),    # qwen3 Wdown
+    (2048, 768, "ternary", 8),     # qwen3-moe expert Wgate
+    (768, 2048, "ternary", 2),     # qwen3-moe expert Wdown: 12 k-tiles
+    (2048, 4096, "ternary", 8),    # qwen3-moe Wq
+    (2048, 512, "ternary", 8),     # qwen3-moe Wk
+    (4096, 14336, "ternary", 2),   # mixtral expert Wgate, rwkv6 Wck
+    (14336, 4096, "ternary", 8),   # mixtral expert Wdown, rwkv6 Wcv
+    (4096, 4096, "ternary", 8),    # rwkv6 Wr
+    (2048, 8384, "ternary", 2),    # zamba2 Win
+    (4096, 2048, "ternary", 8),    # zamba2 Wout
+    (2048, 2048, "ternary", 8),    # zamba2 shared Wq
+    (2048, 8192, "ternary", 4),    # zamba2 shared Wgate
+    (8192, 2048, "ternary", 8),    # zamba2 shared Wdown
+    (512, 512, "ternary", 2),      # whisper Wq: 8 k-tiles, 4 column tiles
+    (512, 2048, "ternary", 2),     # whisper Wfc1
+    (2048, 512, "binary", 8),      # whisper Wfc2, binary
+    (8192, 8192, "ternary", 4),    # vlm Wq
+    (8192, 1024, "ternary", 8),    # vlm Wk, self and cross
+    (8192, 28672, "ternary", 1),   # vlm Wgate: 224 column tiles
+    (28672, 8192, "ternary", 4),   # vlm Wdown
+    (64, 33, "ternary", 1),        # N % 4 != 0: the cp.async variant
+]
+
+
+@pytest.mark.parametrize("K,N,mode,cluster", GEMM_SHAPES)
+def test_matmul_plan_does_not_follow_m(K, N, mode, cluster, monkeypatch):
+    """The GEMM's plan fixes every choice that orders a row's sum (tile,
+    k-tiles, the K split) from (K, N, mode) alone: `matmul_plan` takes no
+    M, and the wrapper launches with the same arguments but M at every M
+    from 1 to 4096 (captured here in place of the launch), so a row's bits
+    do not follow the row count.  The split doubles while one 64-row tile
+    of blocks is short of one an SM and every block keeps 4 k-tiles; the
+    codes go by TMA where N % 4 == 0."""
+    import inspect
+    assert "M" not in inspect.signature(PK.matmul_plan).parameters
+    plan = PK.matmul_plan(K, N, mode=mode)
     assert plan["cluster"] == cluster
-    for rows in (1, 4, 8):
-        assert PK.gemv_plan(rows, K, N, mode=mode)["cluster"] == cluster
-    assert plan["rows"] == 8 and plan["row_tiles"] == -(-M // 8)
-    assert plan["blocks"] == cluster * -(-N // 32) * -(-M // 8)
-    assert plan["blocks"] >= PK.SMS
+    assert plan["tiles"] == -(-N // PK.GEMM_COLS)
+    assert plan["k_tiles"] == -(-K // PK.GEMM_K)
+    assert plan["k_tiles"] >= cluster * PK.GEMM_MIN_K_TILES or cluster == 1
+    assert plan["blocks"] == plan["tiles"] * cluster
+    assert plan["tma"] is (N % 4 == 0)
+    seen = []
+    monkeypatch.setattr(PK.dispatch, "on_card", lambda *a: True)
+    monkeypatch.setattr(PK.build, "launch",
+                        lambda name, dev, x, c, o, *args: seen.append(args))
+    monkeypatch.setattr(PK.dispatch, "check", lambda *a: None)
+    codes = torch.zeros((K // Q.pack_group(mode), N), dtype=torch.int32)
+    row = torch.zeros((1, K))
+    for M in range(1, 4097):
+        # one row's storage seen as M rows; the output is allocated and
+        # never written
+        PK.packed_matmul(row.expand(M, K), codes, mode=mode)
+    want = (K, N, PK.MODES[mode], cluster, int(plan["tma"]))
+    assert [a[0] for a in seen] == list(range(1, 4097))
+    assert all(a[1:] == want for a in seen)
 
 
 @pytest.mark.parametrize("bp,K,N,mode,cluster,rows", [

@@ -110,20 +110,54 @@ def test_prefill_and_decode_match_jax(cell, mode):
     assert int(ts.pos) == T + 6
 
 
-def test_batch16_prefill_takes_the_gemm_and_matches_jax():
-    jrt, trt, _ = _pair("lstm", "ternary", hidden=136, layers=1)
+def _batch16_prefill_matches_jax(layers: int, calls: dict):
+    jrt, trt, _ = _pair("lstm", "ternary", hidden=136, layers=layers)
     B, T = 16, 4
     prompt = np.random.default_rng(4).integers(0, 50, (B, T)).astype(np.int32)
     jl, js = jrt.prefill(jnp.asarray(prompt), jrt.init_state(B))
     dispatch.reset_counts()
     tl, ts = trt.prefill(torch.from_numpy(prompt), trt.init_state(B))
-    assert dict(dispatch.PLAIN_CALLS) == {"packed_matmul": T}
+    assert dict(dispatch.PLAIN_CALLS) == {
+        k: v(T) for k, v in calls.items()}
     _close(tl, jl)
     _close(ts.h, js.h)
     tok = np.arange(B, dtype=np.int32) * 3 % 50
     jl, js = jrt.decode_step(jnp.asarray(tok), js)
     tl, ts = trt.decode_step(torch.from_numpy(tok), ts)
     _close(tl, jl)
+    _close(ts.c, js.c)
+
+
+def test_batch16_prefill_takes_the_gemm_and_matches_jax():
+    """At B = 16, two layers: layer 1's x-side over the prompt's B * T rows
+    takes the GEMM (a sequence product), each h-side the GEMV a token."""
+    _batch16_prefill_matches_jax(2, {"packed_gemv": lambda T: 2 * T,
+                                     "packed_matmul": lambda T: 1})
+
+
+def test_batch16_prefill_h_side_takes_the_gemv_and_matches_jax():
+    """At B = 16 the recurrent h-side takes the GEMV, one a token: its role
+    (a step) picks the route, not its 16 rows (JAX's rule would send them
+    to the GEMM)."""
+    _batch16_prefill_matches_jax(1, {"packed_gemv": lambda T: T})
+
+
+@pytest.mark.parametrize("mode", ["ternary", "binary"])
+def test_prefill_chunk_routes_by_role_and_matches_jax(mode):
+    """A 2-row chunk (one request, 2 tokens) of a two-layer model: each
+    h-side step takes the GEMV (a step product), layer 1's x-side over the
+    chunk the GEMM (a sequence product), though JAX's row-count rule would
+    send its 2 rows to the GEMV; the state matches JAX's prefill."""
+    jrt, trt, tcfg = _pair("lstm", mode)
+    prompt = np.random.default_rng(7).integers(0, 50, (1, 2)).astype(np.int32)
+    jl, js = jrt.prefill(jnp.asarray(prompt), jrt.init_state(1))
+    dispatch.reset_counts()
+    tl, ts = BL.rnn_prefill_chunk(trt.variables, torch.from_numpy(prompt),
+                                  tcfg, trt.init_state(1), tables=trt.tables)
+    assert dict(dispatch.PLAIN_CALLS) == {"packed_gemv": 2 * 2,
+                                          "packed_matmul": 1}
+    _close(tl, jl)
+    _close(ts.h, js.h)
     _close(ts.c, js.c)
 
 

@@ -78,15 +78,43 @@ def test_engine_streams_equal_drive_session(arch, mode, prompt_len):
                        realtime=False)
     assert m["max_decode_stall_ticks"] <= 1 and m["requests"] == 7
     # attention's two products a layer a tick (`ordered_bmm`); packed, one
-    # GEMV a projection too, and in chunks of 8 rows every prompt step
-    # takes the GEMV
+    # GEMV a projection too (the step route), and every prompt chunk's
+    # projections take the GEMM (the sequence route) at any chunk length
     if mode != "none":
         assert m["tick_launches"] == (7 + 2) * rt.cfg.n_layers
-        assert set(dispatch.PLAIN_CALLS) == {"packed_gemv", "ordered_bmm"}
+        assert set(dispatch.PLAIN_CALLS) == {"packed_gemv", "packed_matmul",
+                                             "ordered_bmm"}
     else:
         assert m["tick_launches"] == 2 * rt.cfg.n_layers
         assert set(dispatch.PLAIN_CALLS) == {"ordered_bmm"}
     _streams_equal_alone(rt, reqs, comps, ctx)
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_prefill_chunks_take_the_gemm_and_steps_the_gemv(chunk):
+    """Routing by role: a prompt chunk's projections take the GEMM (the
+    sequence route) at 1 and 3 tokens, where JAX's row-count rule would
+    take the GEMV; a decode step and a speculative verify over 16 rows
+    take the GEMV (the step route), where the rule would take the GEMM.
+    So a row never changes kernel between a stream and its
+    drive_session(B=1) reference."""
+    rt = _runtime()
+    L = rt.cfg.n_layers
+    st = rt.init_state(1, 32)
+    dispatch.reset_counts()
+    lg, st = rt.prefill_chunk(torch.arange(chunk)[None] + 5, st)
+    assert dict(dispatch.PLAIN_CALLS) == {"packed_matmul": 7 * L,
+                                          "ordered_bmm": 2 * L}
+    st = rt.init_state(16, 32)
+    lg, st = rt.prefill(torch.arange(16 * 4).reshape(16, 4) % 50, st)
+    dispatch.reset_counts()
+    lg, st = rt.decode_step(lg[:, :rt.cfg.vocab].argmax(-1), st)
+    assert dict(dispatch.PLAIN_CALLS) == {"packed_gemv": 7 * L,
+                                          "ordered_bmm": 2 * L}
+    dispatch.reset_counts()
+    lg, st, _ = rt.verify(torch.arange(16)[:, None] % 50, st)
+    assert dict(dispatch.PLAIN_CALLS) == {"packed_gemv": 7 * L,
+                                          "ordered_bmm": 2 * L}
 
 
 def test_runtime_prepares_its_serving_tree_once():

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Time the port's fused decode tick (`csrc/fused_tick.cu`) and its
 multiply-free GEMV (`csrc/packed_gemv.cu`) at the widths of the paper's
-configurations, on one NVIDIA card.
+configurations, and its tensor-core GEMM (`csrc/packed_matmul.cu`) at the
+pool's projection shapes, on one NVIDIA card.
 
-    python3 time_kernels.py [--src DIR] [--only tick|gemv|phases|session]
+    python3 time_kernels.py [--src DIR]
+                            [--only tick|gemv|gemm|phases|session|chunks]
                             [--rows 4] [--out FILE]
 
 The tick: for char-PTB (H = 1000, V = 50), word-PTB medium (H = 650,
@@ -23,6 +25,12 @@ loop finds them, plus the main path's shape with a cold L2.  Each: device
 and wall time, the plain version's, `torch.matmul` on the dequantized fp32
 weight, the bound `chip_smoke.packed_bound` counts, and the max abs error
 against the plain version (rtol 1e-5, atol 1e-4, or the run fails).
+The GEMM: x (M, K) against random codes (K/G, N) at each shape of
+`GEMM_SHAPES` (the projections PERF.md section 6 lists), ternary and
+binary: device and wall time at the shape's M, the bound
+`chip_smoke.gemm_bound` counts, and from CUDA events `torch.matmul` on the
+decoded fp32 weight and the kernel at M = 1 and 4 (a prompt's last short
+chunk).
 `--only phases` (not run by default) times the GEMV's phases instead, at
 the main path's ternary bp = 4 and binary bp = 8: a copy of
 `csrc/packed_gemv.cuh` built with clock probes (`PHASE_PROBES`) records,
@@ -34,6 +42,20 @@ instead: `drive_session` at rnn-paper's full width (ternary, off init),
 prompt 32, gen 32, temperature 0.8, top-k 40, B = 4 and 16, seven
 sessions each after one untimed: the decode tok/s of each and their
 median, so the host-bound sampler of two checkouts compares in turns.
+`--only chunks` (not run by default) times prompt chunks instead, the
+work whose route a product's role picks: qwen3-0.6B at full width (28
+layers, ternary, seed 0, as `chip_smoke.py` phase 9 builds it) prefills
+one request's chunk of each length in `CHUNK_LENGTHS` into fresh caches
+through the engine's hook (`prefill_chunk`), and one repeat of
+llama-3.2-vision-90b at full width (4 self layers and a cross layer, 1600
+image tokens, as phase 13 draws it) prefills a prompt of each length at
+B = 1 (its cross K/V over the image tokens included; the engine refuses
+that family): each call's device time (torch.profiler), wall time (CUDA
+events) and packed launches by kernel.  Then the qwen3 engine (8 slots,
+chunk 32) serves 16 requests of `synth_traffic(seed=0)` (prompts U[1,
+128], so most prompts end in a short chunk; gen U[1, 8]) all at once:
+TTFT p50/p95 and wall unprofiled, then the same run's device busy time
+and its packed launches under the profiler.
 `--src` times the `repro_torch` package of another checkout's `src` (an
 earlier commit's kernels, built into that checkout's own `build/`), so two
 versions of a kernel can be compared within one run on one card.  Prints
@@ -58,6 +80,34 @@ GEMV_SHAPES = (("char_ptb", "ternary", 4, 1000, False),
                ("word_ptb_large", "ternary", 4, 1500, False),
                ("char_text8", "ternary", 4, 2000, False),
                ("char_ptb", "ternary", 4, 1000, True))
+
+# (label, M, K, N): the GEMM's shapes, x (M, K) . codes (K/G, N)
+GEMM_SHAPES = (("rnn-paper h-side", 16, 1008, 4000),
+               ("qwen3 Wq", 512, 1024, 2048), ("qwen3 Wdown", 512, 3072, 1024),
+               ("qwen3-moe expert Wgate", 40, 2048, 768),
+               ("qwen3-moe expert Wdown", 40, 768, 2048),
+               ("qwen3-moe Wq", 512, 2048, 4096), ("qwen3-moe Wk", 512, 2048, 512),
+               ("mixtral expert Wgate", 40, 4096, 14336),
+               ("mixtral expert Wdown", 40, 14336, 4096),
+               ("rwkv6 Wr", 512, 4096, 4096), ("rwkv6 Wck", 512, 4096, 14336),
+               ("rwkv6 Wcv", 512, 14336, 4096),
+               ("zamba2 Win", 512, 2048, 8384), ("zamba2 Wout", 512, 4096, 2048),
+               ("zamba2 shared Wq", 512, 2048, 2048),
+               ("zamba2 shared Wgate", 512, 2048, 8192),
+               ("zamba2 shared Wdown", 512, 8192, 2048),
+               ("whisper decoder Wq", 128, 512, 512),
+               ("whisper decoder Wfc1", 128, 512, 2048),
+               ("whisper decoder Wfc2", 128, 2048, 512),
+               ("whisper encoder Wq", 6000, 512, 512),
+               ("whisper encoder Wfc1", 6000, 512, 2048),
+               ("whisper encoder Wfc2", 6000, 2048, 512),
+               ("vlm Wq", 512, 8192, 8192), ("vlm Wk", 512, 8192, 1024),
+               ("vlm Wgate", 512, 8192, 28672), ("vlm Wdown", 512, 28672, 8192),
+               ("vlm cross Wk", 6400, 8192, 1024))
+
+# prompt-chunk lengths of `--only chunks`: the engine's short last chunks
+# (a prompt of U[1, 128] tokens in chunks of 32), a whole chunk, a prompt
+CHUNK_LENGTHS = (1, 2, 4, 8, 16, 32, 128)
 
 
 def time_ticks(args, card: str) -> list:
@@ -141,6 +191,45 @@ def time_gemvs(args, card: str) -> list:
                    **{k: v for k, v in r.items() if k != "name"})
         print(json.dumps(row), flush=True)
         out.append(row)
+    return out
+
+
+def time_gemms(args, card: str) -> list:
+    import torch
+    from repro_torch.core.qtensor import QTensor
+    from repro_torch.core.quantize import pack_group
+    from repro_torch.kernels import packed_matmul as PK
+    g = torch.Generator().manual_seed(0)
+    out = []
+    for label, M, K, N in GEMM_SHAPES:
+        for mode in ("ternary", "binary"):
+            # K padded to the pack group, x zero past the true K (the
+            # rnn-paper binary export's 1000 -> 1024)
+            G = pack_group(mode)
+            Kp = -(-K // G) * G
+            codes = torch.randint(-2**31, 2**31, (Kp // G, N), generator=g,
+                                  dtype=torch.int64).to(torch.int32).cuda()
+            qt = QTensor(codes=codes, k=Kp, mode=mode)
+            w = qt.dequantize()
+            plan = PK.matmul_plan(Kp, N, mode=mode)
+            x = torch.nn.functional.pad(torch.tanh(torch.randn(
+                M, K, generator=g)), (0, Kp - K)).cuda()
+            k = CS.time_call(lambda: PK.packed_matmul(x, codes, mode=mode), 50)
+            b_ms, b_by = CS.gemm_bound(qt, M)
+            row = dict(card=card, src=args.src, kernel="packed_matmul",
+                       shape=label, mode=mode, M=M, K=Kp, N=N, plan=plan,
+                       blocks=CS.gemm_blocks(plan, M), ms=k["ms"],
+                       wall_ms=k["wall_ms"], ms_by=k["ms_by"], bound_ms=b_ms,
+                       bound_by=b_by,
+                       library_ms=CS.event_ms(lambda: torch.matmul(x, w), 20))
+            # a prompt's last short chunk (CUDA events: a profiler session
+            # costs about a second)
+            for m in (1, 4):
+                xm = x[:m].contiguous()
+                row[f"m{m}_ms"] = CS.event_ms(
+                    lambda: PK.packed_matmul(xm, codes, mode=mode), 20)
+            print(json.dumps(row), flush=True)
+            out.append(row)
     return out
 
 
@@ -267,11 +356,100 @@ def time_sessions(args, card: str) -> list:
     return out
 
 
+def chunk_rows(args, card: str, label: str, call, vocab: int,
+               reps: int) -> list:
+    """`call(tokens)` (one prompt chunk at B = 1 into fresh caches) at each
+    length of CHUNK_LENGTHS: device time, wall time, packed launches."""
+    import torch
+    from repro_torch.kernels import dispatch
+    g = torch.Generator().manual_seed(5)
+    out = []
+    for n in CHUNK_LENGTHS:
+        tok = torch.randint(0, vocab, (1, n), generator=g).cuda()
+        before = dict(dispatch.LAUNCHES)
+        call(tok)
+        torch.cuda.synchronize()
+        d = {k: v - before.get(k, 0) for k, v in dispatch.LAUNCHES.items()}
+        t = CS.time_call(lambda: call(tok), reps)
+        row = dict(card=card, src=args.src, path=label, B=1, chunk=n,
+                   ms=t["ms"], wall_ms=t["wall_ms"], ms_by=t["ms_by"],
+                   packed_gemv=d.get("packed_gemv", 0),
+                   packed_matmul=d.get("packed_matmul", 0))
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
+def time_chunks(args, card: str) -> list:
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import export_packed
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import synth_traffic
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.recurrent import TransformerRuntime
+    out = []
+    cfg = get_config("qwen3-0.6b")
+    masters = T.model_init(torch.Generator("cuda").manual_seed(0), cfg)
+    rt = TransformerRuntime(cfg, export_packed(masters, cfg.quant),
+                            device="cuda")
+    del masters
+    P, G = 128, 8
+    out += chunk_rows(args, card, "qwen3-0.6b prefill_chunk", lambda tok:
+                      rt.prefill_chunk(tok, rt.init_state(1, P + G)),
+                      cfg.vocab, 20)
+    reqs = synth_traffic(cfg.vocab, requests=16, rate=1e3, prompt_len=P,
+                         gen=G, temperature=0.8, top_k=40, seed=0)
+    eng = ServeEngine(rt, cfg.vocab, slots=8, max_context=P + G,
+                      prefill_chunk=32)
+    eng.warm()
+    run = lambda: eng.run([dataclasses.replace(r) for r in reqs],
+                          realtime=False)[1]
+    em = run()
+    before = dict(dispatch.LAUNCHES)
+    by_name, wall = CS.device_profile(run, 1)
+    d = {k: v - before.get(k, 0) for k, v in dispatch.LAUNCHES.items()}
+    busy, idle = CS.busy_idle(by_name, wall, 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    row = dict(card=card, src=args.src, path="qwen3-0.6b engine",
+               requests=len(reqs), slots=8, chunk=32,
+               prompt_tokens=sum(len(r.prompt) for r in reqs),
+               short_last_chunks=sum(0 < len(r.prompt) % 32 <= 8
+                                     for r in reqs),
+               ttft_p50_ms=em["ttft_p50_s"] * 1e3,
+               ttft_p95_ms=em["ttft_p95_s"] * 1e3, wall_ms=em["wall_s"] * 1e3,
+               profiled_wall_ms=wall * 1e3,
+               device_busy_ms=None if busy is None else busy / 1e3,
+               idle_share=idle, packed_gemv=d.get("packed_gemv", 0),
+               packed_matmul=d.get("packed_matmul", 0),
+               top=[(k[:48], v / 1e3) for k, v in top])
+    print(json.dumps(row), flush=True)
+    out.append(row)
+    del rt, eng
+    torch.cuda.empty_cache()
+
+    arch = "llama-3.2-vision-90b"
+    vcfg = CS.pool_config(arch)
+    cut = CS.pool_config(arch, n_layers=len(vcfg.block_pattern))
+    img = torch.randn((1, vcfg.n_img_tokens, vcfg.d_model),
+                      generator=torch.Generator("cuda").manual_seed(7),
+                      device="cuda")
+    vrt = TransformerRuntime(cut, CS.pool_build(cut, off=CS.VLM_OFF),
+                             extras={"img": img}, device="cuda")
+    out += chunk_rows(args, card, f"{arch} prefill, {cut.n_layers} layers",
+                      lambda tok: vrt.prefill(tok, vrt.init_state(1, 160)),
+                      cut.vocab, 10)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(CS.ROOT / "src"))
-    ap.add_argument("--only", choices=("tick", "gemv", "phases", "session"),
-                    default=None)
+    ap.add_argument("--only", choices=("tick", "gemv", "gemm", "phases",
+                                       "session", "chunks"), default=None)
     ap.add_argument("--rows", type=int, choices=(4, 8), default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -289,10 +467,14 @@ def main(argv=None) -> int:
         out += time_ticks(args, card)
     if args.only in (None, "gemv"):
         out += time_gemvs(args, card)
+    if args.only in (None, "gemm"):
+        out += time_gemms(args, card)
     if args.only == "phases":
         out += gemv_phases(args, card)
     if args.only == "session":
         out += time_sessions(args, card)
+    if args.only == "chunks":
+        out += time_chunks(args, card)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in out))
