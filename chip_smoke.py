@@ -37,9 +37,13 @@ Phases, in order; any failure exits non-zero before the last line:
                 counts (the GEMM's at 1, 9 and 17-row slices and single
                 rows; the GEMV's over 8-row tiles against its single rows
                 and one tile); the tick at B = 4 and 16, each held against the
-                plain version on its own inputs; ordered_bmm, attention's
-                two products, at qwen3's decode and prefill shapes, a row's
-                bits the same at any batch and row count;
+                plain version on its own inputs; ordered_bmm at the
+                norms', attention's (qwen3's decode and prefill, G = 8,
+                whisper's encoder over 1500 frames) and the SSD readout's
+                shapes (`BMM_ROWS`), beside `torch.bmm`, a row's and a
+                column's bits the same on every route (row, small, the
+                tiles), with K zero-padded and through the keys' and
+                values' permuted views (`bmm_crossings`);
   4. main path — rnn-paper at full width (char-PTB BN-LSTM, H = 1000,
                 ternary, random weights from a seed, BN statistics, BN
                 scales and biases moved off init): rnn_lm_init ->
@@ -405,12 +409,10 @@ class L2Flush:
         self.buf.bitwise_not_()
 
 
-def time_call(fn, reps: int, flush: L2Flush | None = None) -> dict:
-    """Per call of `fn`: `ms`, the device time of the kernels it launches
-    (torch.profiler over `reps` calls, or `event_ms` when the profiler
-    records no device event; `ms_by` says which), and `wall_ms`, the median
-    time between two CUDA events around one call, launch overhead included.
-    With `flush`, every call finds the L2 cold."""
+def wall_ms(fn, reps: int, flush: L2Flush | None = None) -> float:
+    """The median time between two CUDA events around one call of `fn`,
+    launch overhead included; with `flush`, every call finds the L2
+    cold."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -426,17 +428,26 @@ def time_call(fn, reps: int, flush: L2Flush | None = None) -> dict:
         b.synchronize()
         walls.append(a.elapsed_time(b))
     walls.sort()
+    return walls[reps // 2]
+
+
+def time_call(fn, reps: int, flush: L2Flush | None = None) -> dict:
+    """Per call of `fn`: `ms`, the device time of the kernels it launches
+    (torch.profiler over `reps` calls, or `event_ms` when the profiler
+    records no device event; `ms_by` says which), and `wall_ms`
+    (`wall_ms`).  With `flush`, every call finds the L2 cold."""
+    wall = wall_ms(fn, reps, flush)
     if flush is not None:
         run = lambda: (flush(), fn())
         by_name, _ = device_profile(run, reps, skip=flush.name)
     else:
         by_name, _ = device_profile(fn, reps)
     if by_name:
-        return {"ms": sum(by_name.values()) / 1e3 / reps,
-                "wall_ms": walls[reps // 2], "ms_by": "profiler"}
+        return {"ms": sum(by_name.values()) / 1e3 / reps, "wall_ms": wall,
+                "ms_by": "profiler"}
     print("chip_smoke: device time from CUDA events instead",
           file=sys.stderr, flush=True)
-    return {"ms": event_ms(fn, reps, flush), "wall_ms": walls[reps // 2],
+    return {"ms": event_ms(fn, reps, flush), "wall_ms": wall,
             "ms_by": "cuda_events"}
 
 
@@ -805,83 +816,151 @@ def kernels_phase(report: dict) -> list:
     return rows
 
 
+# ordered_bmm's rows (label, N, M, K, P): attention's products at
+# qwen3-0.6B's decode (B = 4: 32 (row, kv head) pairs, G = 2, hd 128, 160
+# cache columns) and 128-token prefill, qwen3-moe's and the VLM's decode
+# scores (G = 8), whisper's encoder over 1500 frames (B = 4, 8 heads, hd
+# 64), zamba2's SSD readout (B = 4, d_state 64, H * P = 4096); and the
+# norms' row sums (P = 1, a column of ones): a decode step's at B = 4 over
+# qwen3's 1024, rwkv6's and zamba2's 4096 and the VLM's 8192, a 128-token
+# prefill's at B = 4, qwen3's q/k norms over hd 128
+BMM_ROWS = (("scores, decode", 32, 2, 128, 160),
+            ("scores, prefill", 32, 256, 128, 256),
+            ("values, prefill", 32, 256, 256, 128),
+            ("norm, decode", 1, 4, 1024, 1),
+            ("norm, decode", 1, 4, 4096, 1),
+            ("norm, prefill", 1, 512, 1024, 1),
+            ("norm, vlm decode", 1, 4, 8192, 1),
+            ("q/k norm, decode", 1, 64, 128, 1),
+            ("ssd readout", 4, 1, 64, 4096),
+            ("scores, decode G=8", 32, 8, 128, 160),
+            ("whisper encoder scores", 32, 1500, 64, 1500),
+            ("whisper encoder values", 32, 1500, 1500, 64))
+
+
+def bmm_operands(g, N: int, M: int, K: int, P: int):
+    """A row's operands on the card: a norm's squares against a column of
+    ones (P = 1), else normal draws."""
+    import torch
+    if P == 1:
+        x = torch.randn(N, M, K, generator=g).cuda()
+        return x * x, torch.ones(N, K, 1, device="cuda")
+    return (torch.randn(N, M, K, generator=g).cuda(),
+            torch.randn(N, K, P, generator=g).cuda())
+
+
+def bmm_crossings(a, b, got) -> list:
+    """Holds `got` = ordered_bmm(a, b) (a (N, M, K), b (N, K, P) on the
+    card) to the same product on every route and layout, bit for bit, and
+    returns the routes crossed; raises AssertionError naming the first
+    difference.  Rows of a alone (M = 1), eight of them (the small route)
+    and those eight among 248 other rows (a 256-row tile), against b and,
+    where P = 1, a second column beside it; column 0 of b
+    alone (P = 1, the row route), with column 1 (P = 2) and among 159
+    other columns (P = 160); K padded with 37 zero terms; b read as the
+    keys' view (K contiguous), a with a padded row pitch, the batch as two
+    dims; a second launch.  Plus the fp64 product within 1e-5 of
+    |a| @ |b|."""
+    import torch
+    from repro_torch.kernels import ordered_bmm as OB
+    N, M, K = a.shape
+    P = b.shape[-1]
+    bits = lambda t: t.contiguous().view(torch.int32)
+    g = torch.Generator(device="cuda").manual_seed(M * 7 + P)
+    fill = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
+    routes = {OB.route(N, M, K, P)}
+
+    def same(label, sub, want):
+        assert torch.equal(bits(sub), bits(want)), \
+            f"{label}: bits differ from the whole product's"
+
+    exact = a.double() @ b.double()
+    err = (got.double() - exact).abs()
+    tol = 1e-5 * (a.double().abs() @ b.double().abs())
+    assert (err <= tol).all(), f"off the fp64 product by {err.max().item()}"
+    del exact, err, tol
+    same("a second launch", OB.ordered_bmm(a, b), got)
+    lo = min(M // 2, max(0, M - 8))
+    rows = a[:, lo:lo + 8]
+    # a column of ones beside b where P = 1, so that these rows leave the
+    # row route for the small one and the tiles
+    wide = b if P > 1 else torch.cat([b, fill(N, K, 1)], -1)
+    for label, sub, keep in (
+            ("a row alone", a[:, M - 1:], slice(M - 1, M)),
+            ("rows on the small route", rows, slice(lo, lo + 8)),
+            ("rows in a 256-row tile",
+             torch.cat([fill(N, 124, K), rows, fill(N, 256 - 124 - rows.shape[1],
+                                                    K)], 1),
+             slice(lo, lo + 8))):
+        out = OB.ordered_bmm(sub, wide)[..., :P]
+        if sub.shape[1] == 256:
+            out = out[:, 124:124 + rows.shape[1]]
+        routes.add(OB.route(N, sub.shape[1], K, wide.shape[-1]))
+        same(label, out, got[:, keep])
+    col = b[..., :1]
+    for label, sub in (("column 0 alone (P = 1)", col),
+                       ("columns 0 and 1 (P = 2)",
+                        torch.cat([col, fill(N, K, 1)], -1)),
+                       ("column 0 of P = 160",
+                        torch.cat([col, fill(N, K, 159)], -1))):
+        routes.add(OB.route(N, M, K, sub.shape[-1]))
+        same(label, OB.ordered_bmm(a, sub)[..., :1], got[..., :1])
+    zk = lambda t, d: torch.nn.functional.pad(t, d)
+    same("K padded with zeros", OB.ordered_bmm(zk(a, (0, 37)),
+                                                zk(b, (0, 0, 0, 37))), got)
+    # attention's layouts: the keys (B, S, H, hd) permuted to (B, H, hd, S)
+    # (K contiguous), the values (B, S, H, hd) to (B, H, S, hd) (rows
+    # pitched by H * hd); a with a padded row pitch
+    h = 2 if N % 2 == 0 else 1
+    b4 = b.reshape(h, N // h, K, P)
+    pitched = zk(a, (0, 4))[..., :K].reshape(h, N // h, M, K)
+    for label, view in (
+            ("b as the keys' view", b4.permute(0, 3, 1, 2).contiguous()
+             .permute(0, 2, 3, 1)),
+            ("b as the values' view", b4.permute(0, 2, 1, 3).contiguous()
+             .permute(0, 2, 1, 3))):
+        same(label, OB.ordered_bmm(pitched, view).reshape(N, M, P), got)
+    return sorted(routes)
+
+
 def ordered_bmm_rows(g) -> list:
-    """ordered_bmm, attention's two products, at qwen3-0.6B's serving shapes
-    (B = 4: 32 (row, kv head) pairs, G = 2 query heads a kv head, hd 128):
-    the scores of a decode step over 160 cache columns (M = 2, K = 128, P
-    = 160) and of a 128-token prefill (M = 256, P = 256), and the values
-    of that prefill (M = 256, K = 256, P = 128); held with the plain
-    version to the fp64 product within 1e-5 of |a| @ |b|, two launches
-    bit-equal, and a row's bits the same at any batch and row count (the
-    first pairs alone, a row alone, a prefix of rows)."""
+    """ordered_bmm at `BMM_ROWS`: each held with the plain version to the
+    fp64 product within 1e-5 of |a| @ |b| and to itself across every
+    route and layout, bit for bit (`bmm_crossings`), then timed beside
+    `torch.bmm` on the same operands."""
     import torch
     from repro_torch.kernels import ordered_bmm as OB
     rows = []
-    for label, N, M, K, P in (("scores, decode", 32, 2, 128, 160),
-                              ("scores, prefill", 32, 256, 128, 256),
-                              ("values, prefill", 32, 256, 256, 128)):
-        a = torch.randn(N, M, K, generator=g).cuda()
-        b = torch.randn(N, K, P, generator=g).cuda()
+    for label, N, M, K, P in BMM_ROWS:
+        a, b = bmm_operands(g, N, M, K, P)
         got = OB.ordered_bmm(a, b)
-        again = OB.ordered_bmm(a, b)
         want = OB.ordered_bmm_plain(a, b)
-        exact = a.double() @ b.double()
         tol = 1e-5 * (a.double().abs() @ b.double().abs())
-        for out in (got, want):
-            if not ((out.double() - exact).abs() <= tol).all():
-                fail(f"ordered_bmm {label}: off the fp64 product by "
-                     f"{(out.double() - exact).abs().max().item()}")
-        bits = lambda t: t.contiguous().view(torch.int32)
-        if not torch.equal(bits(got), bits(again)):
-            fail(f"ordered_bmm {label}: two launches differ")
-        for sub in (OB.ordered_bmm(a[:1], b[:1]), OB.ordered_bmm(a[5:8],
-                                                              b[5:8])):
-            n0 = 0 if sub.shape[0] == 1 else 5
-            if not torch.equal(bits(sub), bits(got[n0:n0 + sub.shape[0]])):
-                fail(f"ordered_bmm {label}: a pair's bits follow the batch")
-        for lo, hi in ((0, 1), (M - 1, M), (0, max(1, M // 3))):
-            sub = OB.ordered_bmm(a[:, lo:hi].contiguous(), b)
-            if not torch.equal(bits(sub), bits(got[:, lo:hi])):
-                fail(f"ordered_bmm {label}: rows {lo}..{hi} follow the row "
-                     f"count")
+        err = (want.double() - a.double() @ b.double()).abs()
+        if not (err <= tol).all():
+            fail(f"ordered_bmm {label}: the plain version is off the fp64 "
+                 f"product by {err.max().item()}")
+        del tol, err
+        try:
+            routes = bmm_crossings(a, b, got)
+        except AssertionError as e:
+            fail(f"ordered_bmm {label} a({N},{M},{K}) b({N},{K},{P}): {e}")
         b_ms, b_by = bound(4 * (N * M * K + N * K * P + N * M * P),
                            2 * N * M * K * P / FP32_FLOP_S)
-        rows.append(timed_row(
+        row = timed_row(
             "ordered_bmm", f"{label} a({N},{M},{K}) b({N},{K},{P})",
             (got - want).abs().max().item(),
             lambda: OB.ordered_bmm(a, b), lambda: OB.ordered_bmm_plain(a, b),
-            lambda: torch.bmm(a, b), b_ms, b_by))
-    # the norms' means of squares (`layers.mean_square`) in a decode step
-    # at B = 4: rows of 1024 (qwen3) and 4096 (rwkv6, zamba2) against a
-    # column of ones, P = 1, the kernel's dot path; its bits must be the
-    # tiled path's (the same column twice, P = 2) at any row count
-    for K in (1024, 4096):
-        x = torch.randn(1, 4, K, generator=g).cuda()
-        a = x * x
-        b = torch.ones(1, K, 1, device="cuda")
-        got = OB.ordered_bmm(a, b)
-        want = OB.ordered_bmm_plain(a, b)
-        tiled = OB.ordered_bmm(a, torch.cat([b, b], dim=-1))[..., :1]
-        one = OB.ordered_bmm(a[:, 2:3].contiguous(), b)
-        bits = lambda t: t.contiguous().view(torch.int32)
-        exact = a.double() @ b.double()
-        if not ((got.double() - exact).abs() <= 1e-5 * exact).all():
-            fail(f"ordered_bmm norm K={K}: off the fp64 sum by "
-                 f"{(got.double() - exact).abs().max().item()}")
-        if not (torch.equal(bits(got), bits(tiled))
-                and torch.equal(bits(one), bits(got[:, 2:3]))):
-            fail(f"ordered_bmm norm K={K}: the dot path's bits differ from "
-                 f"the tiled path's or follow the row count")
-        b_ms, b_by = bound(4 * (4 * K + K + 4), 2 * 4 * K / FP32_FLOP_S)
-        rows.append(timed_row(
-            "ordered_bmm", f"norm, decode a(1,4,{K}) b(1,{K},1)",
-            (got - want).abs().max().item(),
-            lambda: OB.ordered_bmm(a, b), lambda: OB.ordered_bmm_plain(a, b),
-            lambda: torch.bmm(a, b), b_ms, b_by))
-    print("  ordered_bmm: scores and values at qwen3's shapes match plain "
-          "within 1e-5 of |a| @ |b|; two launches bit-equal; a row's bits "
-          "the same at any batch and row count; the norms' row sums (P = "
-          "1) the tiled path's bits", flush=True)
+            lambda: torch.bmm(a, b), b_ms, b_by)
+        row["route"] = OB.route(N, M, K, P)
+        row["routes_crossed"] = routes
+        rows.append(row)
+        print(f"  ordered_bmm {label} a({N},{M},{K}) b({N},{K},{P}): "
+              f"{row['route']}, bit-equal across {'/'.join(routes)}",
+              flush=True)
+    print("  ordered_bmm: every row within 1e-5 of |a| @ |b|, two launches "
+          "bit-equal, a row's and a column's bits the same on every route, "
+          "with K zero-padded and through strided views", flush=True)
     return rows
 
 

@@ -39,6 +39,7 @@ LIBS = {"packed_matmul": ("-lcuda",)}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of each kernel's C entry point: every pointer and the stream as
 # c_void_p, so ctypes never truncates them to 32-bit ints
 SIGNATURES = {
@@ -46,7 +47,8 @@ SIGNATURES = {
     "packed_matmul": ("packed_matmul_launch", [_P, _P, _P] + [_I] * 6 + [_P]),
     "fused_tick": ("fused_tick_launch", [_P] * 23 + [_I] * 9 + [_P]),
     "quantize_pack": ("quantize_pack_launch", [_P, _P, _P, _F, _I, _I, _I, _P]),
-    "ordered_bmm": ("ordered_bmm_launch", [_P, _P, _P] + [_I] * 4 + [_P]),
+    "ordered_bmm": ("ordered_bmm_launch",
+                    [_P, _P, _P] + [_I] * 6 + [_L] * 8 + [_P]),
 }
 
 _libs: dict = {}

@@ -24,6 +24,10 @@ step of every reduced arch against its CPU step; and gradient compression
 on the card against the CPU, bit for bit, with one compressed step of
 each family over an NCCL group of one rank.  The GEMV, the GEMM and
 the tick are also launched twice and must repeat bit for bit.
+`ordered_bmm` is held across its routes (`chip_smoke.bmm_crossings`): a
+row's bits the same alone, on the small route, in a 256-row tile and as
+column 0 of P = 1, 2 and 160, with K zero-padded and through the keys'
+and values' permuted views, at K up to 8192 and the SSD readout's shape.
 
 Tolerances: the packed products are exact (weights are -1/0/+1), so the
 GEMV and GEMM differ from the exact sum only by fp32 summation error, which
@@ -278,12 +282,25 @@ def test_two_layer_rnn_chunked_prefill_is_bit_equal(card):
                     (S, chunk)
 
 
+def _crossings(a, b, got):
+    """chip_smoke.bmm_crossings: `got` against the same product on every
+    route and layout, bit for bit (it lives beside phase 3's rows, which
+    hold every `ordered_bmm` shape of the main path to it)."""
+    import chip_smoke
+    return chip_smoke.bmm_crossings(a, b, got)
+
+
 @pytest.mark.parametrize("N,M,K,P", [(32, 2, 128, 160), (8, 33, 64, 70),
-                                     (3, 256, 256, 128), (1, 1, 16, 1)])
+                                     (3, 256, 256, 128), (1, 1, 16, 1),
+                                     (4, 1, 64, 4096), (2, 3, 8192, 40),
+                                     (32, 8, 128, 160), (2, 300, 70, 131)])
 def test_ordered_bmm_matches_plain_and_keeps_row_bits(card, N, M, K, P):
     """Attention's products: within 1e-5 of |a| @ |b| of the fp64 product,
     two launches bit-equal, and a row's bits the same whatever the batch
-    and row counts around it (a pair alone, a row alone, a slice)."""
+    and row counts around it (a pair alone, a row alone, a slice); and on
+    every route and layout (`_crossings`: a row alone, on the small route,
+    in a 256-row tile, column 0 of P = 1, 2 and 160, K zero-padded, the
+    keys' and values' views)."""
     from repro_torch.kernels import ordered_bmm as OB
     g = torch.Generator().manual_seed(N * M + K)
     a = torch.randn(N, M, K, generator=g).to(card)
@@ -300,12 +317,17 @@ def test_ordered_bmm_matches_plain_and_keeps_row_bits(card, N, M, K, P):
     assert torch.equal(bits(OB.ordered_bmm(a[:, :(M + 1) // 2].contiguous(),
                                            b)), bits(got[:, :(M + 1) // 2]))
     assert dispatch.LAUNCHES["ordered_bmm"] == 5
+    routes = _crossings(a, b, got)
+    assert OB.route(N, M, K, P) in routes and len(routes) >= 2
 
 
-@pytest.mark.parametrize("rows,K", [(4, 1024), (33, 4096), (1, 7)])
+@pytest.mark.parametrize("rows,K", [(4, 1024), (33, 4096), (1, 7),
+                                    (4, 8192), (512, 1024), (64, 128),
+                                    (3, 8195)])
 def test_ordered_bmm_dot_path_keeps_the_tiled_bits(card, rows, K):
-    """The norms' row sums (P = 1) take the kernel's dot path: its bits are
-    the tiled path's (the same column twice), whatever the row count, and
+    """The norms' row sums (P = 1) take the kernel's row route: its bits
+    are the other routes' (the same column twice: the small route up to 16
+    rows, a tile above; and `_crossings`), whatever the row count, and
     `layers.mean_square` serves through it with autograd off."""
     from repro_torch.kernels import ordered_bmm as OB
     from repro_torch.models import layers as L
@@ -322,6 +344,8 @@ def test_ordered_bmm_dot_path_keeps_the_tiled_bits(card, rows, K):
     with torch.no_grad():
         assert torch.equal(bits(L.mean_square(x)), bits(got / K))
     assert dispatch.LAUNCHES["ordered_bmm"] == 4
+    assert OB.route(1, rows, K, 1) == "row"
+    assert len(_crossings(a[None], b[None], got[None])) >= 3
 
 
 @pytest.mark.parametrize("arch,dtype", [

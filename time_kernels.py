@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's fused decode tick (`csrc/fused_tick.cu`) and its
 multiply-free GEMV (`csrc/packed_gemv.cu`) at the widths of the paper's
-configurations, and its tensor-core GEMM (`csrc/packed_matmul.cu`) at the
-pool's projection shapes, on one NVIDIA card.
+configurations, its tensor-core GEMM (`csrc/packed_matmul.cu`) at the
+pool's projection shapes, and `csrc/ordered_bmm.cu` at the norms',
+attention's and the SSD readout's shapes, on one NVIDIA card.
 
     python3 time_kernels.py [--src DIR]
-                            [--only tick|gemv|gemm|phases|session|chunks]
+                            [--only tick|gemv|gemm|bmm|phases|session|chunks]
                             [--rows 4] [--out FILE]
 
 The tick: for char-PTB (H = 1000, V = 50), word-PTB medium (H = 650,
@@ -56,6 +57,15 @@ chunk 32) serves 16 requests of `synth_traffic(seed=0)` (prompts U[1,
 128], so most prompts end in a short chunk; gen U[1, 8]) all at once:
 TTFT p50/p95 and wall unprofiled, then the same run's device busy time
 and its packed launches under the profiler.
+`--only bmm` times `ordered_bmm` at every row of `chip_smoke.BMM_ROWS`
+(the norms', attention's and the SSD readout's shapes) on contiguous
+operands, beside `torch.bmm` on the same ones: device time from CUDA
+events (`chip_smoke.event_ms`, one call's span after a spin kernel), wall
+(the median of CUDA events around one call), the bound, the route the
+wrapper picks and every other route the kernel takes for the shape
+(`ordered_bmm.plan`, forced), and for the products the main path's
+layouts (the keys' and the values' permuted views, against
+`torch.matmul` on the same views).
 `--src` times the `repro_torch` package of another checkout's `src` (an
 earlier commit's kernels, built into that checkout's own `build/`), so two
 versions of a kernel can be compared within one run on one card.  Prints
@@ -230,6 +240,49 @@ def time_gemms(args, card: str) -> list:
                     lambda: PK.packed_matmul(xm, codes, mode=mode), 20)
             print(json.dumps(row), flush=True)
             out.append(row)
+    return out
+
+
+def time_bmms(args, card: str) -> list:
+    import torch
+    from repro_torch.kernels import ordered_bmm as OB
+    g = torch.Generator().manual_seed(0)
+    out = []
+    for label, N, M, K, P in CS.BMM_ROWS:
+        a, b = CS.bmm_operands(g, N, M, K, P)
+        b_ms, b_by = CS.bound(4 * (N * M * K + N * K * P + N * M * P),
+                              2 * N * M * K * P / CS.FP32_FLOP_S)
+        kernel = lambda: OB.ordered_bmm(a, b)
+        library = lambda: torch.bmm(a, b)
+        row = dict(card=card, src=args.src, kernel="ordered_bmm", shape=label,
+                   N=N, M=M, K=K, P=P, ms=CS.event_ms(kernel, 50),
+                   wall_ms=CS.wall_ms(kernel, 50), bound_ms=b_ms,
+                   bound_by=b_by, library_ms=CS.event_ms(library, 50),
+                   library_wall_ms=CS.wall_ms(library, 50))
+        if hasattr(OB, "plan"):  # a checkout from before the routes has none
+            p = OB.plan(a, b)
+            row["route"] = p.route
+            for r in OB.ROUTES:
+                if (r == "row") == (P == 1) and (r != "small"
+                                                  or M <= OB.SMALL_M):
+                    row[f"{r}_ms"] = CS.event_ms(
+                        lambda: OB.launch(p._replace(route=r)), 50)
+        if P > 1:
+            # the main path's layouts: the keys (B, S, H, hd) and the
+            # values (B, S, H, hd) permuted, B = 4
+            b4 = b.reshape(4, N // 4, K, P)
+            a4 = a.reshape(4, N // 4, M, K)
+            for name, view in (
+                    ("keys", b4.permute(0, 3, 1, 2).contiguous()
+                     .permute(0, 2, 3, 1)),
+                    ("values", b4.permute(0, 2, 1, 3).contiguous()
+                     .permute(0, 2, 1, 3))):
+                row[f"{name}_view_ms"] = CS.event_ms(
+                    lambda: OB.ordered_bmm(a4, view), 50)
+                row[f"{name}_view_library_ms"] = CS.event_ms(
+                    lambda: torch.matmul(a4, view), 50)
+        print(json.dumps(row), flush=True)
+        out.append(row)
     return out
 
 
@@ -448,7 +501,7 @@ def time_chunks(args, card: str) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(CS.ROOT / "src"))
-    ap.add_argument("--only", choices=("tick", "gemv", "gemm", "phases",
+    ap.add_argument("--only", choices=("tick", "gemv", "gemm", "bmm", "phases",
                                        "session", "chunks"), default=None)
     ap.add_argument("--rows", type=int, choices=(4, 8), default=None)
     ap.add_argument("--out", default=None)
@@ -469,6 +522,8 @@ def main(argv=None) -> int:
         out += time_gemvs(args, card)
     if args.only in (None, "gemm"):
         out += time_gemms(args, card)
+    if args.only in (None, "bmm"):
+        out += time_bmms(args, card)
     if args.only == "phases":
         out += gemv_phases(args, card)
     if args.only == "session":
