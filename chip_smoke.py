@@ -127,7 +127,7 @@ Phases, in order; any failure exits non-zero before the last line:
                 greedy requests: accept rate, streams equal to the plain
                 engine's); 8 requests behind a 64-token prefix (at least 7
                 prefix-cache hits); the engine, speculative and prefix runs
-                on a cut of 14 of the 28 layers;
+                on a cut of 8 of the 28 layers;
   10. pool    — the transformer pool's MoE and RWKV6 families, ternary with
                 channel scales, bf16, random weights from a seed, each tree
                 drawn a layer at a time on the card and exported as it is
@@ -160,7 +160,7 @@ Phases, in order; any failure exits non-zero before the last line:
                 packed against dequantized logits on a 2-layer cut,
                 wkv6_chunked over a 4,096-token prompt (peak memory within
                 32 inputs, the first 256 outputs against the unrolled
-                step), then lockstep and the engine (on a cut of 8 of its
+                step), then lockstep and the engine (on a cut of 4 of its
                 32 layers) as for qwen3-moe, over 16 requests of gen U[1,
                 32].  Launches counted for the MoE runs and the rwkv runs
                 apart;
@@ -257,7 +257,17 @@ Phases, in order; any failure exits non-zero before the last line:
                 8 of its 28 layers, every stream equal to the mesh=None
                 engine's and tick_collectives() == 0; the packed tree
                 refused on a mesh with JAX's reason;
-  16. result  — the kernels JSON line (each kernel's launches on every
+  16. roofline — the dry-run CLI (`python -m repro_torch.launch.dryrun`,
+                each cell a process of its own over a fake process group)
+                on qwen3-0.6b x train_4k, prefill_32k and decode_32k on the
+                single mesh and qwen3-moe-30b-a3b x decode_32k on the multi
+                mesh: each cell's dominant term and its terms, any error
+                fails; then the dry-run's counter at one rank on the meta
+                device over phase 9's decode step and prefill and phase 12's
+                train step: counted FLOPs and bytes, the bound and its term,
+                the bound over the phase's device busy and host wall.  It
+                times nothing anew and launches no kernel;
+  17. result  — the kernels JSON line (each kernel's launches on every
                 path), the card line, and {"ok": true, "device": {...}}
                 last.
 
@@ -277,11 +287,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_S = 3.35e12      # H100 SXM HBM3
-FP32_FLOP_S = 67e12        # H100 SXM fp32 on the CUDA cores (FMA = 2 flop)
-FP32_ADD_S = FP32_FLOP_S / 2  # an FADD issues at the FMA instruction rate
-BF16_FLOP_S = 989e12       # H100 SXM dense bf16 on the tensor cores
-SM_CLOCK_HZ = 1.98e9       # H100 SXM boost clock (n cycles last >= n / this)
+# the card's peaks: one set, in the port's roofline module
+from repro_torch.launch import roofline as RF  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    FP32_ADD_S, FP32_FLOP_S, SM_CLOCK_HZ, HBM_BW as HBM_BYTES_S,
+    PEAK_FLOPS as BF16_FLOP_S)
 MULTIPLY_OPS = re.compile(r"\b(FMUL|FFMA|HMUL2|HFMA2|DMUL|DFMA|HMMA)\w*")
 # ptxas materializes constants with `HFMA2.MMA Rd, -RZ, RZ, imm, imm`: both
 # multiplicands are the zero register, so it moves an immediate and
@@ -2231,15 +2241,17 @@ POOL_ENGINE = {"qwen3-moe": (8, 16), "rwkv6-7b": (16, 32),
                "zamba2": (16, 32)}
 # Depth cuts, widths untouched, to keep the script inside its time limit
 # as phases join it: qwen3-0.6B's engine, speculative and prefix-cache
-# runs (phase 9) on 14 of its 28 layers (phase 9 took 252.4 s at 28, 173 s
+# runs (phase 9) on 8 of its 28 layers (phase 9 took 252.4 s at 28, 173 s
 # at 14 once the norms and attention ran ordered_bmm; 119.8 s at 8 with
-# the tensor-core GEMM, the script 735.2 s); qwen3-moe's
+# the tensor-core GEMM, the script 735.2 s; at 14 the script took 1137 s
+# on a slow host once phase 16 joined); qwen3-moe's
 # lockstep run and engine run on 8 of its 48 layers (at 48 they took 117.9
-# and 119 s of host-bound time), rwkv6's engine on 8 of its 32 layers
-# (100.4 s at 32), zamba2's on 12 of its 38 (75 s at 38)
-QWEN_ENGINE_LAYERS = 14
+# and 119 s of host-bound time), rwkv6's engine on 4 of its 32 layers
+# (100.4 s at 32, 39.7 s at 8 on that slow host), zamba2's on 12 of its
+# 38 (75 s at 38)
+QWEN_ENGINE_LAYERS = 8
 MOE_SERVE_LAYERS = 8
-RWKV_ENGINE_LAYERS = 8
+RWKV_ENGINE_LAYERS = 4
 
 
 def pool_config(arch: str, **over):
@@ -3825,6 +3837,153 @@ def mesh_phase(report: dict, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry-run's counts on the card's machine, and the one-rank
+# roofline of calls phases 9 and 12 timed
+# ---------------------------------------------------------------------------
+
+# (arch, shape, mesh) of the dry-run CLI, one process each, all at once
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "single"),
+                ("qwen3-0.6b", "prefill_32k", "single"),
+                ("qwen3-0.6b", "decode_32k", "single"),
+                ("qwen3-moe-30b-a3b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT = 240
+
+
+def dryrun_start() -> list:
+    """Start `python -m repro_torch.launch.dryrun` on DRYRUN_CELLS, each
+    in a process of its own (its fake process group must not meet phases
+    14-15's NCCL group), all at once; their JSON goes to
+    chiprun_out/torch_dryrun/."""
+    import os
+    out_dir = ROOT / "chiprun_out" / "torch_dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0],
+         "--shape", cell[1], "--mesh", cell[2], "--out", str(out_dir)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for cell in DRYRUN_CELLS]
+
+
+def dryrun_wait(procs: list) -> dict:
+    """The started cells' JSON; a cell in error, or a process that fails
+    or outlives DRYRUN_TIMEOUT, fails the run."""
+    out_dir = ROOT / "chiprun_out" / "torch_dryrun"
+    cells = {}
+    for (arch, shape, mesh), p in procs:
+        so, se = p.communicate(timeout=DRYRUN_TIMEOUT)
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        cell = json.loads(path.read_text()) if path.exists() else {}
+        if p.returncode != 0 or cell.get("status") != "ok":
+            fail(f"dry-run {arch} {shape} {mesh}: exit {p.returncode}, "
+                 f"{cell.get('error', '')} {(so + se)[-1500:]}")
+        cells[f"{arch} {shape} {mesh}"] = cell
+    return cells
+
+
+def one_rank_counts(report: dict) -> dict:
+    """The dry-run's counter on the meta device at one rank (no mesh), on
+    the calls phases 9 and 12 timed: the qwen3-0.6B lockstep decode step at
+    B = 4 (its `step`: the greedy pick and `decode_step`) and its 128-token
+    prefill, on the packed ternary tree; the qwen3-0.6b train step at B =
+    8, T = 512.  A packed product counts as its kernel's work (2·M·K·N
+    FLOPs; x, the codes and y once each); nothing is timed anew.  The
+    bound's memory term is the call's least traffic (`min_bytes`: each
+    argument byte an op reads, read once, each byte written once), as a
+    kernel's bound is; the fusion-blind count, every op's operands and
+    results each time, is an upper estimate and printed beside it."""
+    import torch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.serve.recurrent import TransformerRuntime
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = pool_config("qwen3-0.6b")
+    rt = TransformerRuntime(cfg, D.params_struct(cfg, packed=True),
+                            device="meta")
+    B, S, GEN = 4, 128, 32
+    prompt = torch.empty((B, S), dtype=torch.int64, device="meta")
+    prefill, (lg, st) = D.count_call(
+        lambda: rt.prefill(prompt, rt.init_state(B, S + GEN)),
+        (rt.served, prompt))
+    decode, _ = D.count_call(
+        lambda: rt.decode_step(torch.argmax(lg[:, :cfg.vocab], -1), st),
+        (rt.served, lg, st))
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, decay_steps=20,
+                        clip_norm=1.0)
+    state = D.with_step_on_cpu(TS.train_state_init(D.params_struct(cfg),
+                                                   opt_cfg, 1))
+    TB, TT = 8, 512
+    batch = {k: torch.empty((TB, TT), dtype=torch.int32, device="meta")
+             for k in ("tokens", "targets")}
+    step = TS.make_train_step(cfg, opt_cfg)
+    train, _ = D.count_call(lambda: step(state, batch, noise=D.meta_noise),
+                            (state, batch))
+    prof = report["transformer"]["profile"]
+    tstep = report["pool_training"]["step"]
+    ms = lambda us: None if us is None else us / 1e3
+    measured = {
+        "qwen3-0.6B decode step, B = 4 (phase 9)": (
+            decode, ms(prof["decode_step"]["device_busy_us"]),
+            ms(prof["decode_step"]["host_us"])),
+        "qwen3-0.6B prefill, 4 x 128 (phase 9)": (
+            prefill, ms(prof["prefill"]["device_busy_us"]),
+            ms(prof["prefill"]["host_us"])),
+        "qwen3-0.6b train step, B = 8, T = 512 (phase 12)": (
+            train, tstep["device_busy_ms"], tstep["host_ms"])}
+    out = {}
+    for name, (c, busy, host) in measured.items():
+        t = {"compute": c["flops"] / RF.PEAK_FLOPS,
+             "memory": c["min_bytes"] / RF.HBM_BW}
+        by = max(t, key=t.get)
+        bound_ms = t[by] * 1e3
+        out[name] = {"flops": c["flops"], "min_bytes": c["min_bytes"],
+                     "fusion_blind_bytes": c["bytes_accessed"],
+                     "elementwise_flops": c["elementwise_flops"],
+                     "kernels": c["kernels"], "memory": c["memory"],
+                     "bound_ms": bound_ms, "bound_by": by,
+                     "device_busy_ms": busy, "host_ms": host,
+                     "bound_over_busy": None if busy is None
+                     else bound_ms / busy,
+                     "bound_over_host": bound_ms / host}
+    return out
+
+
+def roofline_phase(report: dict, card: str) -> dict:
+    """Phase 16: the dry-run CLI on DRYRUN_CELLS (each cell's dominant term
+    and its terms), and meanwhile `one_rank_counts` beside phases 9 and
+    12's measured device busy and host wall.  Launches no kernel."""
+    t0 = time.perf_counter()
+    procs = dryrun_start()
+    try:
+        calls = one_rank_counts(report)
+        cells = dryrun_wait(procs)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, c in cells.items():
+        r = c["roofline"]
+        print(f"  dry-run {name:38s}: {r['dominant']:10s} compute "
+              f"{r['t_compute_s']:.3e} s, memory {r['t_memory_s']:.3e} s, "
+              f"collective {r['t_collective_s']:.3e} s a rank; counted in "
+              f"{c['count_s']} s", flush=True)
+    for name, c in calls.items():
+        print(f"  {name}: {c['flops']:.4e} FLOPs, least traffic "
+              f"{c['min_bytes']:.4e} bytes (fusion-blind "
+              f"{c['fusion_blind_bytes']:.4e}, an upper estimate); bound "
+              f"{c['bound_ms']:.3f} ms ({c['bound_by']}); "
+              f"bound / device busy {num(c['bound_over_busy'], '.4f')}, "
+              f"bound / host wall {c['bound_over_host']:.4f} on {card}",
+              flush=True)
+    out = {"card": card, "dryrun": cells, "one_rank": calls,
+           "wall_s": time.perf_counter() - t0}
+    report["roofline"] = out
+    print(f"  roofline phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3920,6 +4079,10 @@ def main() -> int:
     # 15. the model axis and the mesh engine at one rank
     print("mesh:", flush=True)
     mesh_launches = mesh_phase(report, card)
+
+    # 16. the dry-run's counts and the one-rank roofline (no kernel)
+    print("roofline:", flush=True)
+    roofline_phase(report, card)
     pool, ha = report["pool"], report["hybrid_audio"]
     all_rows = (rows + report["transformer"]["kernel_rows"]
                 + pool["qwen3_moe"]["kernel_rows"]
@@ -3928,7 +4091,7 @@ def main() -> int:
                 + ha["zamba2"]["kernel_rows"] + ha["whisper"]["kernel_rows"]
                 + report["vlm"]["kernel_rows"])
 
-    # 16. result
+    # 17. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",

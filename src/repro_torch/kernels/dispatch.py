@@ -6,8 +6,14 @@ The policy, one rule for every kernel wrapper:
     ---------     ---------------------------------------------------
     cuda          the hand-written CUDA kernel; if it cannot run, raise
     cpu           the plain PyTorch version beside it
+    meta          nothing: the kernel's output, empty, on the meta device,
+                  and its work told to `META_LISTENERS` (`meta_launch`)
 
-Nothing falls back to a plain version on CUDA.  Entry points resolve their
+Nothing falls back to a plain version on CUDA.  The meta device stands in
+for the card where work is counted and not done (`launch/dryrun.py`): a
+model's code takes the card's branches there, and a kernel's work is its
+FLOPs and each operand and output moved once, as PERF.md's bounds count
+it.  Entry points resolve their
 device with `resolve_device`: the card unless the caller asks for the CPU,
 and an error when no card is present and none was asked for.
 
@@ -26,6 +32,9 @@ import torch
 
 LAUNCHES: Counter = Counter()
 PLAIN_CALLS: Counter = Counter()
+# callables (name, flops, bytes, operands) told of every kernel call on
+# meta tensors
+META_LISTENERS: list = []
 
 
 def count_launch(name: str) -> None:
@@ -60,6 +69,33 @@ def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
     if device.type == "cuda":
         strict_fp32()
     return device
+
+
+def nbytes(t: torch.Tensor) -> int:
+    """The bytes of `t`'s distinct elements: a broadcast (stride-0) dim
+    counts once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True when every operand lies on the meta device."""
+    return all(t.device.type == "meta" for t in tensors if t is not None)
+
+
+def meta_launch(name: str, shape: tuple, flops: float,
+                *operands: torch.Tensor) -> torch.Tensor:
+    """Kernel `name` on meta operands: its fp32 output of `shape`, empty,
+    and its work (`flops`, each operand read and the output written once)
+    told to every listener."""
+    out = torch.empty(shape, dtype=torch.float32, device="meta")
+    moved = sum(nbytes(t) for t in (*operands, out))
+    for listener in META_LISTENERS:
+        listener(name, flops, moved, operands)
+    return out
 
 
 def on_card(name: str, *tensors: torch.Tensor) -> bool:

@@ -34,7 +34,9 @@ and zero terms appended to K move none of them.
 The wrapper keeps the port's device policy: on the CPU the plain product
 `a @ b` (counted), bit for bit what the attention computed before (the
 CPU's library keeps a row's bits at any row count where a head group has
-two rows or more); on the card the kernel, or an error.  `DTensor`s run
+two rows or more); on the card the kernel, or an error; on the meta
+device the plan, and the launch as one batched product's work
+(`dispatch.meta_launch`).  `DTensor`s run
 rank by rank on their shards (`_on_shards`), by the same policy.
 """
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import build, dispatch
+from repro_torch.runtime import on_shards
 
 
 def ordered_bmm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -54,8 +57,12 @@ def ordered_bmm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def model_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A model's batched product: `ordered_bmm` in serving, the library's
-    where autograd records (training)."""
+    where autograd records (training; DTensors shard by shard, as
+    `ordered_bmm` runs them: a DTensor product flattens its batch dims,
+    which DTensor refuses where a later one is split)."""
     if torch.is_grad_enabled():
+        if isinstance(a, DTensor) or isinstance(b, DTensor):
+            return _on_shards(a, b, torch.matmul)
         return a @ b
     return ordered_bmm(a, b)
 
@@ -147,6 +154,10 @@ def plan(a: torch.Tensor, b: torch.Tensor) -> Plan:
 
 def launch(p: Plan) -> torch.Tensor:
     """Run a plan on the card: c (N1 * N2, M, P) in fp32."""
+    if dispatch.on_meta(p.a, p.b):
+        return dispatch.meta_launch(
+            "ordered_bmm", (p.N1 * p.N2, p.M, p.P),
+            2 * p.N1 * p.N2 * p.M * p.K * p.P, p.a, p.b)
     out = torch.empty((p.N1 * p.N2, p.M, p.P), dtype=torch.float32,
                       device=p.a.device)
     build.launch("ordered_bmm", p.a.device, p.a.data_ptr(), p.b.data_ptr(),
@@ -162,7 +173,8 @@ def ordered_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     CPU."""
     if isinstance(a, DTensor) or isinstance(b, DTensor):
         return _on_shards(a, b)
-    if not dispatch.on_card("ordered_bmm", a, b):
+    if not dispatch.on_meta(a, b) and not dispatch.on_card("ordered_bmm",
+                                                           a, b):
         dispatch.count_plain("ordered_bmm")
         return ordered_bmm_plain(a, b)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
@@ -184,9 +196,10 @@ def _label(t: DTensor, dim: int, contract: int, own: int, off: int):
     return dim + off
 
 
-def _on_shards(a, b) -> DTensor:
-    """`ordered_bmm` of DTensors, rank by rank: each rank multiplies its own
-    shards and the result carries the placements that follow.  Per mesh
+def _on_shards(a, b, product=None) -> DTensor:
+    """`ordered_bmm` (or `product`) of DTensors, rank by rank: each rank
+    multiplies its own shards and the result carries the placements that
+    follow (`runtime.on_shards`, which carries gradients).  Per mesh
     dim: a split contraction dim is gathered first (a partial sum would
     add the ranks' shares in the collective's order, not in k's); a batch
     dim split in one operand is split alike in the other unless that one
@@ -229,11 +242,5 @@ def _on_shards(a, b) -> DTensor:
         pb.append(Replicate() if lb is None else
                   Shard(b.dim() - 1 if lb == "P" else lb - ob))
         po.append(Replicate() if lo is None else Shard(lo))
-    if tuple(pa) != tuple(a.placements):
-        a = a.redistribute(mesh, pa)
-    if tuple(pb) != tuple(b.placements):
-        b = b.redistribute(mesh, pb)
-    c = ordered_bmm(a.to_local(), b.to_local())
-    stride = torch.empty(shape, device="meta").stride()
-    return DTensor.from_local(c, mesh, po, run_check=False, shape=shape,
-                              stride=stride)
+    return on_shards(product or ordered_bmm, mesh, (a, b), (pa, pb), po,
+                     shape)

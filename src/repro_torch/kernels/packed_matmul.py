@@ -24,8 +24,9 @@ Three kernels, each with its plain PyTorch version beside it:
                       (K, N) fp32 -> (K/G, N) words, bit-exact.
                       Kernel: csrc/quantize_pack.cu.
 
-A wrapper launches its kernel for CUDA tensors and runs the plain version
-for CPU tensors (kernels/dispatch.py).  Codes are int32 bit-views of the
+A wrapper launches its kernel for CUDA tensors, runs the plain version
+for CPU tensors and counts its work for meta tensors (kernels/dispatch.py:
+2·M·K·N FLOPs a product, the codes never dequantized).  Codes are int32 bit-views of the
 packed words; the kernels read them as uint32.
 """
 from __future__ import annotations
@@ -143,6 +144,8 @@ def _checked(name: str, x: torch.Tensor, codes: torch.Tensor, mode: str):
     if codes.dim() != 2 or codes.shape[0] * group != K:
         raise ValueError(f"{name}: packed K mismatch: codes {tuple(codes.shape)}"
                          f" x {group} != K={K}")
+    if dispatch.on_meta(x, codes):
+        return False
     if dispatch.on_card(name, x, codes):
         dispatch.check(name, x, torch.float32, (M, K))
         dispatch.check(name, codes, torch.int32, tuple(codes.shape))
@@ -150,10 +153,21 @@ def _checked(name: str, x: torch.Tensor, codes: torch.Tensor, mode: str):
     return False
 
 
+def _meta_product(name: str, x: torch.Tensor,
+                  codes: torch.Tensor) -> torch.Tensor:
+    """A packed product on the meta device: 2·M·K·N FLOPs; x, the codes
+    and y each moved once."""
+    M, K = x.shape
+    N = codes.shape[1]
+    return dispatch.meta_launch(name, (M, N), 2 * M * K * N, x, codes)
+
+
 def packed_gemv(x: torch.Tensor, codes: torch.Tensor, *,
                 mode: str) -> torch.Tensor:
     """x (bp, K) fp32, codes (K/G, N) int32 -> (bp, N) fp32, unscaled."""
     if not _checked("packed_gemv", x, codes, mode):
+        if dispatch.on_meta(x, codes):
+            return _meta_product("packed_gemv", x, codes)
         dispatch.count_plain("packed_gemv")
         return packed_gemv_plain(x, codes, mode=mode)
     bp, K = x.shape
@@ -172,6 +186,8 @@ def packed_matmul(x: torch.Tensor, codes: torch.Tensor, *,
                   mode: str) -> torch.Tensor:
     """x (M, K) fp32, codes (K/G, N) int32 -> (M, N) fp32, unscaled."""
     if not _checked("packed_matmul", x, codes, mode):
+        if dispatch.on_meta(x, codes):
+            return _meta_product("packed_matmul", x, codes)
         dispatch.count_plain("packed_matmul")
         return packed_matmul_plain(x, codes, mode=mode)
     M, K = x.shape

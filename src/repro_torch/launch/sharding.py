@@ -30,7 +30,8 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from repro_torch.core.qtensor import is_qtensor, tree_map, tree_map_with_path
 from repro_torch.models.mamba2 import SSMState
 from repro_torch.models.rwkv6 import RWKVState
-from repro_torch.runtime import DATA, axis_sizes, placements, use_mesh
+from repro_torch.runtime import (DATA, axis_sizes, placements, shard_extent,
+                                 use_mesh)
 from repro_torch.serve.kvcache import (AttnCache, CrossCache, kv_pspec,
                                        slot_axis)
 
@@ -308,9 +309,16 @@ def serve_pool_shardings(pool: Any, ref: Any, mesh) -> Any:
 
 def to_dtensor(x: torch.Tensor, spec: tuple, mesh) -> DTensor:
     """`x` (the full tensor, the same on every rank) as a DTensor in
-    layout `spec`: each rank keeps its shard, no collective."""
-    return distribute_tensor(x, mesh, placements(spec, mesh),
-                             src_data_rank=None)
+    layout `spec`: each rank keeps its shard, no collective.  A meta
+    tensor (no data: the dry-run's) becomes an empty shard of its local
+    shape, without splitting the whole."""
+    pl = placements(spec, mesh)
+    if x.is_meta:
+        local, _ = shard_extent(x.shape, mesh, pl)
+        return DTensor.from_local(
+            torch.empty(local, dtype=x.dtype, device="meta"), mesh, pl,
+            run_check=False, shape=x.shape, stride=x.stride())
+    return distribute_tensor(x, mesh, pl, src_data_rank=None)
 
 
 def distribute(tree: Any, layouts: Any, mesh) -> Any:

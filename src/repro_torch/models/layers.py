@@ -26,7 +26,11 @@ default.
 
 On a mesh the activations are DTensors and `runtime.constrain` lays them
 out at JAX's sites: the queries' heads and the MLP's hidden over 'model',
-the batch over the data axes; elsewhere it does nothing.
+the batch over the data axes; elsewhere it does nothing.  Where 'model'
+does not divide a head count (8 KV heads on 16 ranks), a projection's
+columns are gathered before the head reshape (`split_heads`), training
+repeats K/V to the query heads, and attention over a cache split along
+its length runs rank by rank on each rank's keys (`_sdpa_split_keys`).
 """
 from __future__ import annotations
 
@@ -34,11 +38,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core.qlinear import maybe_scale, scaled, winit
 from repro_torch.kernels.ops import serve_matmul
 from repro_torch.kernels.ordered_bmm import model_bmm, ordered_bmm
-from repro_torch.runtime import DATA, constrain
+from repro_torch.runtime import (DATA, axis_sizes, constrain, current_mesh,
+                                 on_shards, shard_extent)
 
 NEG_INF = -1e30
 
@@ -49,8 +55,9 @@ def mean_square(x: torch.Tensor) -> torch.Tensor:
     in one order whatever the row count (a row of `ordered_bmm` against
     ones): the library's reduction splits a wide row otherwise by the
     number of rows, and a request's norm, so its stream, would follow its
-    batch.  On the CPU and in training the library's mean, as before."""
-    if x.device.type != "cuda" or torch.is_grad_enabled():
+    batch (and on the meta device, which stands in for the card in a
+    count).  On the CPU and in training the library's mean, as before."""
+    if x.device.type == "cpu" or torch.is_grad_enabled():
         return torch.mean(x * x, dim=-1, keepdim=True)
     D = x.shape[-1]
     ones = torch.ones((D, 1), dtype=torch.float32, device=x.device)
@@ -99,13 +106,11 @@ def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
-          window: int, softcap: float = 0.0) -> torch.Tensor:
-    """q (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd) with Hq % Hkv == 0; q_pos
-    (Sq,) or (B, Sq) and kv_pos (Skv,) or (B, Skv) absolute positions,
-    kv_pos < 0 marking unwritten cache slots.  GQA groups the q heads as
-    (Hkv, G) instead of repeating K/V."""
+def _logits(q: torch.Tensor, k: torch.Tensor, q_pos: torch.Tensor,
+            kv_pos: torch.Tensor, *, causal: bool, window: int,
+            softcap: float) -> torch.Tensor:
+    """The masked attention logits (B, Hkv, G, Sq, Skv) in fp32; masked
+    entries NEG_INF."""
     B, Sq, Hq, hd = q.shape
     Hkv, Skv = k.shape[2], k.shape[1]
     G = Hq // Hkv
@@ -124,13 +129,95 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = mask & (kp[:, None, :] <= qp[:, :, None])
     if window > 0:
         mask = mask & (kp[:, None, :] > qp[:, :, None] - window)
-    logits = torch.where(mask[:, None, None], logits,
-                         torch.full((), NEG_INF, device=logits.device))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype).reshape(
-        B, Hkv, G * Sq, Skv)
-    o = model_bmm(probs, v.permute(0, 2, 1, 3))
-    return o.reshape(B, Hkv, G, Sq, hd).permute(0, 3, 1, 2, 4).reshape(
-        B, Sq, Hq, hd)
+    return torch.where(mask[:, None, None], logits,
+                       torch.full((), NEG_INF, device=logits.device))
+
+
+def _values(probs: torch.Tensor, v: torch.Tensor, shape) -> torch.Tensor:
+    """probs (B, Hkv, G, Sq, Skv) against v (B, Skv, Hkv, hd): the output
+    (B, Sq, Hq, hd) of q's `shape`."""
+    B, Hkv, G, Sq, Skv = probs.shape
+    o = model_bmm(probs.reshape(B, Hkv, G * Sq, Skv), v.permute(0, 2, 1, 3))
+    return o.reshape(B, Hkv, G, Sq, -1).permute(0, 3, 1, 2, 4).reshape(shape)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          q_pos: torch.Tensor, kv_pos: torch.Tensor, *, causal: bool,
+          window: int, softcap: float = 0.0) -> torch.Tensor:
+    """q (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd) with Hq % Hkv == 0; q_pos
+    (Sq,) or (B, Sq) and kv_pos (Skv,) or (B, Skv) absolute positions,
+    kv_pos < 0 marking unwritten cache slots.  GQA groups the q heads as
+    (Hkv, G) instead of repeating K/V, except on a mesh whose 'model'
+    axis does not divide Hkv (`_kv_heads_split`)."""
+    if isinstance(k, DTensor):
+        k_split = _kv_heads_split(q, k, v)
+        if k_split == "keys":
+            return _sdpa_split_keys(q, k, v, q_pos, kv_pos, causal=causal,
+                                    window=window, softcap=softcap)
+        if k_split is not None:
+            q, k, v = k_split
+    logits = _logits(q, k, q_pos, kv_pos, causal=causal, window=window,
+                     softcap=softcap)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return _values(probs, v, q.shape)
+
+
+def _kv_heads_split(q, k, v):
+    """How `_sdpa` lays out DTensor operands whose KV heads the mesh's
+    'model' axis does not divide (q's G-row groups would end inside a
+    shard): "keys" where the keys are split along their axis (a
+    length-sharded cache: `_sdpa_split_keys`); else (q, k, v) with K/V
+    repeated to q's heads, all split over 'model' where it divides Hq,
+    or q gathered whole where it does not; None where nothing is to do."""
+    mesh = current_mesh()
+    m = axis_sizes(mesh).get("model", 1) if mesh is not None else 1
+    B, Skv, Hkv, hd = k.shape
+    Hq = q.shape[2]
+    if m == 1 or Hkv % m == 0:
+        return None
+    if any(p.is_shard(1) for p in k.placements):
+        return "keys"
+    if Hq % m:
+        return constrain(q, DATA, None, None, None), k, v
+    G = Hq // Hkv
+    rep = lambda t: constrain(t[:, :, :, None].expand(
+        B, Skv, Hkv, G, hd).reshape(B, Skv, Hq, hd), DATA, None, "model",
+        None)
+    return constrain(q, DATA, None, "model", None), rep(k), rep(v)
+
+
+def _sdpa_split_keys(q, k, v, q_pos, kv_pos, *, causal: bool, window: int,
+                     softcap: float) -> DTensor:
+    """`_sdpa` over keys and values split along their key axis over the
+    mesh: each rank scores its own keys against every query head, and the
+    shares combine by three all-reduces of per-row values (the row maxima,
+    the sums of exponentials, the outputs), as XLA partitions JAX's
+    einsums over a length-sharded cache."""
+    mesh, pl = k.device_mesh, k.placements
+    whole = [p if p.is_shard(0) else Replicate() for p in pl]
+    shape, off = shard_extent(k.shape, mesh, pl)
+    nb, n, b0, lo = shape[0], shape[1], off[0], off[1]
+    groups = [mesh.get_group(d).group_name for d, p in enumerate(pl)
+              if p.is_shard(1)]
+
+    def reduce(t, op):
+        for g in groups:
+            t = torch.ops._c10d_functional.wait_tensor(
+                torch.ops._c10d_functional.all_reduce(t, op, g))
+        return t
+
+    def local(ql, kl, vl, qp, kp):
+        qp, kp = (p[b0:b0 + nb] if p.dim() == 2 else p for p in (qp, kp))
+        logits = _logits(ql, kl, qp, kp[..., lo:lo + n], causal=causal,
+                         window=window, softcap=softcap)
+        e = torch.exp(logits - reduce(logits.amax(dim=-1, keepdim=True),
+                                      "max"))
+        probs = (e / reduce(e.sum(dim=-1, keepdim=True), "sum")).to(ql.dtype)
+        return reduce(_values(probs, vl, ql.shape), "sum")
+
+    R = [Replicate()] * mesh.ndim
+    return on_shards(local, mesh, (q, k, v, q_pos, kv_pos),
+                     (whole, pl, pl, R, R), whole, q.shape)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -168,7 +255,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qi = q[:, i * chunk:(i + 1) * chunk]
         qp = q_pos[..., i * chunk:(i + 1) * chunk]
         if use_slice:
-            start = min(max(int(off) + i * chunk - window + 1, 0),
+            base = q_offset if isinstance(q_offset, int) else int(off)
+            start = min(max(base + i * chunk - window + 1, 0),
                         Skv - kv_span)
             ki, vi = k[:, start:start + kv_span], v[:, start:start + kv_span]
             kp = start + torch.arange(kv_span, dtype=torch.int32, device=dev)
@@ -209,11 +297,34 @@ def attn_init(gen: torch.Generator, cfg, *, cross: bool = False,
     return p
 
 
+def _heads_split_shards(heads: int) -> bool:
+    """True on a mesh whose 'model' axis does not divide `heads` (8 KV
+    heads on 16 ranks): a shard of their columns would end inside a head,
+    which a DTensor cannot reshape."""
+    mesh = current_mesh()
+    return mesh is not None and heads % axis_sizes(mesh).get("model", 1) != 0
+
+
+def split_heads(y: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """y (B, S, heads * hd) as (B, S, heads, hd), the columns gathered
+    over 'model' first where its shards would split a head."""
+    if _heads_split_shards(heads):
+        y = constrain(y, DATA, None, None)
+    return y.reshape(*y.shape[:2], heads, hd)
+
+
+def merge_heads(o: torch.Tensor, heads: int) -> torch.Tensor:
+    """o (B, S, heads, hd) as (B, S, heads * hd), kept whole over 'model'
+    where its shards would split a head (the gradient the row-parallel
+    output product hands back is split over the columns)."""
+    o = o.reshape(*o.shape[:2], -1)
+    return constrain(o, DATA, None, None) if _heads_split_shards(heads) else o
+
+
 def attn_q(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """Query projection only."""
-    B, S, _ = x.shape
     q = scaled(serve_matmul(x, p["Wq"]), p, "Wq", cfg.quant)
-    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    q = split_heads(q, cfg.n_heads, cfg.hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
     return q
@@ -221,11 +332,10 @@ def attn_q(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 def attn_kv(p: dict, src: torch.Tensor, cfg):
     """Key/value projections (the cache fill, the cross source's encode)."""
-    B, S, _ = src.shape
     k = scaled(serve_matmul(src, p["Wk"]), p, "Wk", cfg.quant)
     v = scaled(serve_matmul(src, p["Wv"]), p, "Wv", cfg.quant)
-    k = k.reshape(B, S, cfg.n_kv, cfg.hd)
-    v = v.reshape(B, S, cfg.n_kv, cfg.hd)
+    k = split_heads(k, cfg.n_kv, cfg.hd)
+    v = split_heads(v, cfg.n_kv, cfg.hd)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"])
     return k, v
@@ -241,8 +351,7 @@ def attn_qkv(p: dict, x: torch.Tensor, cfg,
 
 def attn_out(p: dict, o: torch.Tensor, cfg, *,
              cross: bool = False) -> torch.Tensor:
-    B, S = o.shape[:2]
-    o = o.reshape(B, S, cfg.n_heads * cfg.hd)
+    o = merge_heads(o, cfg.n_heads)
     y = scaled(serve_matmul(o, p["Wo"]), p, "Wo", cfg.quant)
     if cross and "xgate" in p:
         y = torch.tanh(p["xgate"]).to(y.dtype) * y

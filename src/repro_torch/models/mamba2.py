@@ -36,12 +36,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.qlinear import maybe_scale, scaled, winit
 from repro_torch.kernels.ops import serve_matmul
 from repro_torch.kernels.ordered_bmm import model_bmm
 from repro_torch.models.layers import mean_square
-from repro_torch.runtime import DATA, constrain
+from repro_torch.runtime import DATA, constrain, on_shards, shard_like
 
 
 
@@ -214,7 +215,16 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
                           Cc[:, 0].to(f32), h0)
         y = y1[:, None]
     else:
-        y, hT = ssd_chunked(xh, dt, A, Bc, Cc, cfg.ssm_chunk, h0)
+        scan = lambda *a: ssd_chunked(*a[:5], cfg.ssm_chunk, a[5])
+        args = (xh, dt, A, Bc, Cc, h0)
+        if isinstance(xh, DTensor):  # (B, S, H, P): batch and heads apart
+            bshp, bhnp = (shard_like(xh, {0: 0, 2: d}) for d in (2, 1))
+            y, hT = on_shards(scan, xh.device_mesh, args,
+                              (bshp, bshp, shard_like(xh, {2: 0}),
+                               shard_like(xh, {0: 0}), shard_like(xh, {0: 0}),
+                               bhnp), (bshp, bhnp))
+        else:
+            y, hT = scan(*args)
 
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh.to(y.dtype)
     y = y.reshape(Bsz, S, di)

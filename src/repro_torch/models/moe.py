@@ -40,9 +40,10 @@ the cast to the compute dtype, then the scale (`qlinear.scaled`).
 
 On a mesh (`DTensor` activations) the layer runs JAX's dense one-hot
 formulation instead (`_moe_mesh`: the same routing, `route`'s dispatch
-and combine, and the experts as JAX's einsums), with JAX's `constrain`
-calls and its expert/capacity sharding choice: the index gathers above
-have shapes that depend on the data, which a `DTensor` cannot carry.
+and combine, and the experts as JAX's einsums, the experts' products and
+the combine on each rank's shards), with JAX's `constrain` calls and its
+expert/capacity sharding choice: the index gathers above have shapes
+that depend on the data, which a `DTensor` cannot carry.
 """
 from __future__ import annotations
 
@@ -52,12 +53,13 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.qlinear import maybe_scale, scaled, winit
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels.ops import qmatmul, serve_matmul
-from repro_torch.runtime import DATA, axis_sizes, constrain, current_mesh
+from repro_torch.runtime import (DATA, axis_sizes, constrain, current_mesh,
+                                 on_shards)
 
 
 GROUP_SIZE = 4096  # tokens per routing group
@@ -184,6 +186,41 @@ def _kept_experts(p: dict, rows: torch.Tensor, expert: torch.Tensor,
     return out
 
 
+def _expert_mm(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """JAX's einsum "gecd,edf->gecf": on DTensors shard by shard, the
+    weight split over the experts as h is and whole elsewhere (an
+    all-gather of its FSDP and tensor-parallel shards)."""
+    mm = lambda x, y: torch.einsum("gecd,edf->gecf", x, y)
+    if not isinstance(h, DTensor):
+        return mm(h, w)
+    want = [Shard(0) if p.is_shard(1) else Replicate() for p in h.placements]
+    return on_shards(mm, h.device_mesh, (h, w), (h.placements, want),
+                     h.placements, (*h.shape[:3], w.shape[-1]))
+
+
+def _combine(ye: torch.Tensor, comb: torch.Tensor) -> torch.Tensor:
+    """JAX's einsum "gecd,gtec->gtd": on DTensors shard by shard, `comb`
+    split as `ye` over groups, experts and slots (slices: no collective),
+    the sums over a rank's experts and slots left partial."""
+    mm = lambda x, y: torch.einsum("gecd,gtec->gtd", x, y)
+    if not isinstance(ye, DTensor):
+        return mm(ye, comb)
+    want, out = [], []
+    for p in ye.placements:
+        if p.is_shard(0):
+            want.append(Shard(0))
+            out.append(Shard(0))
+        elif p.is_shard(1) or p.is_shard(2):
+            want.append(Shard(p.dim + 1))
+            out.append(Partial())
+        else:
+            want.append(Replicate())
+            out.append(Replicate())
+    G, E, C, d = ye.shape
+    return on_shards(mm, ye.device_mesh, (ye, comb), (ye.placements, want),
+                     out, (G, comb.shape[1], d))
+
+
 def _moe_mesh(p: dict, x: torch.Tensor, cfg, G: int, Tg: int,
               cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """`moe_apply` on `DTensor`s: JAX's dense formulation, einsum for
@@ -206,13 +243,13 @@ def _moe_mesh(p: dict, x: torch.Tensor, cfg, G: int, Tg: int,
         None, "model")
     xe = constrain(torch.einsum("gtd,gtec->gecd", xt, disp), DATA, *espec,
                    None)
-    mm = lambda h, n: torch.einsum("gecd,edf->gecf", h, p[n])
+    mm = lambda h, n: _expert_mm(h, p[n])
     g = scaled(mm(xe, "Wgate"), p, "Wgate", cfg.quant)
     u = scaled(mm(xe, "Wup"), p, "Wup", cfg.quant)
     h = constrain(F.silu(g) * u, DATA, *espec, None)
     ye = constrain(scaled(mm(h, "Wdown"), p, "Wdown", cfg.quant), DATA,
                    *espec, None)
-    y = torch.einsum("gecd,gtec->gtd", ye, comb)
+    y = _combine(ye, comb)
     return y.reshape(B, S, d), aux.float()
 
 

@@ -40,11 +40,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.qlinear import maybe_scale, scaled, winit
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels.ops import serve_matmul
-from repro_torch.runtime import DATA, constrain
+from repro_torch.models.layers import split_heads
+from repro_torch.runtime import (DATA, constrain, on_shards, reduced,
+                                 shard_like)
 
 
 LORA_R = 32
@@ -217,8 +220,8 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg, *,
 
     # data-dependent mixing (Finch): 5 deltas from a shared LoRA
     xxx = x + sx * p["mu_x"][0]
-    lora = torch.tanh(_mm(xxx, p["lora_A"].to(x.dtype))).reshape(
-        B, T, 5, LORA_R)
+    lora = split_heads(torch.tanh(_mm(xxx, p["lora_A"].to(x.dtype))), 5,
+                       LORA_R)
     lb = p["lora_B"].to(x.dtype)
     delta = torch.stack([_mm(lora[:, :, i], lb[i]) for i in range(5)], dim=2)
     mix = p["mu_x"].to(x.dtype)[None, None] + delta          # (B, T, 5, d)
@@ -245,10 +248,18 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg, *,
         y1, ST = wkv6_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], p["u"], S0)
         y = y1[:, None]
     else:
-        y, ST = wkv6_chunked(r, k, v, logw, p["u"], cfg.ssm_chunk, S0)
+        scan = lambda *a: wkv6_chunked(*a[:5], cfg.ssm_chunk, a[5])
+        args = (r, k, v, logw, p["u"], S0)
+        if isinstance(r, DTensor):  # (B, T, H, N): batch and heads apart
+            bthn, bhnn = (shard_like(r, {0: 0, 2: d}) for d in (2, 1))
+            y, ST = on_shards(scan, r.device_mesh, args,
+                              (bthn,) * 4 + (shard_like(r, {2: 0}), bhnn),
+                              (bthn, bhnn))
+        else:
+            y, ST = scan(*args)
 
     y = _group_norm(y.reshape(B, T, d), p["ln_x"], H) * g
-    out = _proj(p, y, "Wo", cfg)
+    out = reduced(_proj(p, y, "Wo", cfg))
     return out, ST, x[:, -1]
 
 
@@ -264,7 +275,7 @@ def rwkv6_channel_mix(p: dict, x: torch.Tensor, cfg, *,
     xr = x + sx * p["mu_cr"].to(x.dtype)
     k = constrain(torch.square(F.relu(_proj(p, xk, "Wck", cfg))), DATA,
                   None, "model")
-    kv = _proj(p, k, "Wcv", cfg)
+    kv = reduced(_proj(p, k, "Wcv", cfg))
     return torch.sigmoid(_proj(p, xr, "Wcr", cfg)) * kv, x[:, -1]
 
 

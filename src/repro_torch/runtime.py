@@ -27,7 +27,7 @@ import threading
 from typing import Optional, Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 _state = threading.local()
 
@@ -189,3 +189,79 @@ def constrain(x, *axes):
         return x
     spec = spec_for(x.shape, *axes)
     return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+
+def shard_extent(shape: Sequence[int], mesh, placements) -> tuple:
+    """(local shape, global offset) of this rank's shard of a tensor of
+    global `shape` laid out by `placements` over `mesh`."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return compute_local_shape_and_global_offset(shape, mesh, placements)
+
+
+def shard_like(lead: DTensor, dims: dict) -> list:
+    """Placements splitting a tensor as DTensor `lead` is split: `dims`
+    maps a split dim of `lead` to the tensor's dim for it; over a mesh dim
+    whose split `dims` does not map, the tensor is whole."""
+    return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims
+            else Replicate() for p in lead.placements]
+
+
+def on_shards(fn, mesh, args: Sequence, want: Sequence, out,
+              shapes=None):
+    """`fn` on each rank's shards, for work that DTensor's own ops cannot
+    lay out (they flatten a split dim with its neighbours, which some
+    versions refuse, or move data a rank can keep).  Arg i is laid out as
+    `want[i]` over `mesh` (a plain tensor taken as replicated; None in
+    `want` passes it as it is) and passed local; `fn`'s output, a tensor
+    or a tuple of them, becomes DTensors of placements `out` (one list, or
+    a list an output) and global shapes `shapes` where given (a shape, or
+    one an output); an `fn` that writes into the local shards returns
+    None.  to_local and
+    from_local carry gradients: an arg whole over a mesh dim that splits
+    another arg gets each rank's share of its gradient (`Partial`), a
+    partial-sum arg the whole of it."""
+    split = [any(w is not None and w[d].is_shard() for w in want)
+             for d in range(mesh.ndim)]
+    local = []
+    for a, w in zip(args, want):
+        if w is not None and a is not None:
+            if not isinstance(a, DTensor):
+                a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                       run_check=False)
+            if tuple(a.placements) != tuple(w):
+                a = a.redistribute(mesh, w)
+            a = a.to_local(grad_placements=[
+                Partial() if s and p.is_replicate() else
+                Replicate() if p.is_partial() else p
+                for s, p in zip(split, w)])
+        local.append(a)
+    got = fn(*local)
+    if got is None:  # fn wrote into the local shards
+        return None
+    if isinstance(got, torch.Tensor):
+        return _from_local(got, out, shapes, mesh=mesh)
+    shapes = shapes or (None,) * len(got)
+    return tuple(_from_local(*t, mesh=mesh) for t in zip(got, out, shapes))
+
+
+def _from_local(o: torch.Tensor, pl, shape=None, *, mesh) -> DTensor:
+    """Rank-local `o` as a DTensor of placements `pl`; even shards unless
+    the global `shape` is given."""
+    if shape is None:
+        return DTensor.from_local(o, mesh, pl, run_check=False)
+    return DTensor.from_local(o, mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def reduced(x):
+    """`x` with its pending partial sums reduced (a DTensor's `Partial`
+    mesh dims all-reduced, as XLA reduces a row-parallel product before
+    the elementwise ops that read it); anything else as it is.  Some
+    DTensor versions would otherwise move the other operand of such an op
+    to partial sums, which they cannot."""
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                              for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])

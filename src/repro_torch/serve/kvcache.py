@@ -3,8 +3,9 @@ cross-attention cache, ported from `repro/serve/kvcache.py`.
 
 Layout on a mesh (`kv_pspec`): the batch axis over ('pod', 'data'), the KV
 heads over 'model' where they divide, else the sequence axis over 'model'
-(a length-sharded cache).  `constrain_cache` redistributes a cache of
-`DTensor`s to it; on plain tensors or outside a mesh it does nothing.
+(a length-sharded cache, which each rank writes in its own range:
+`_write`).  `constrain_cache` redistributes a cache of `DTensor`s to it;
+on plain tensors or outside a mesh it does nothing.
 
 An `AttnCache` holds k, v (B, C, Hkv, hd) with capacity C and `pos`, the
 tokens written: a scalar () in lockstep, or (B,) when every row is a
@@ -33,8 +34,10 @@ import dataclasses
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
-from repro_torch.runtime import axis_sizes, constrain, current_mesh
+from repro_torch.runtime import (axis_sizes, constrain, current_mesh,
+                                 on_shards, shard_extent)
 
 
 @dataclasses.dataclass
@@ -184,9 +187,48 @@ def cache_update(c: AttnCache, k_new: torch.Tensor, v_new: torch.Tensor,
     else:
         slots = c.pos.clamp(0, cap - S) + ar(S)
     slots = slots.long()
-    c.k[:, slots] = k_new.to(c.k.dtype)
-    c.v[:, slots] = v_new.to(c.v.dtype)
+    _write(c.k, slots, k_new)
+    _write(c.v, slots, v_new)
     return c._replace(pos=c.pos + S)
+
+
+def _write(buf: torch.Tensor, slots: torch.Tensor, new: torch.Tensor) -> None:
+    """buf[:, slots] = new, in place; `slots` are consecutive modulo the
+    capacity.  A DTensor buffer is written rank by rank into its own shard,
+    `new` laid out as `buf` but whole along the slot axis: where that axis
+    is split over the mesh (a length-sharded cache) each rank keeps the
+    slots of its own range, a DTensor in-place write being unable to move
+    them."""
+    if not isinstance(buf, DTensor):
+        buf[:, slots] = new.to(buf.dtype)
+        return
+    mesh, pl = buf.device_mesh, buf.placements
+    if isinstance(slots, DTensor):
+        slots = slots.to_local()  # replicated: every rank holds them all
+    if not any(p.is_shard(1) for p in pl):
+        def write(local, new):
+            local[:, slots] = new.to(local.dtype)
+    else:
+        _, offset = shard_extent(buf.shape, mesh, pl)
+        lo, cap, S = offset[1], buf.shape[1], new.shape[1]
+
+        def write(local, new):
+            new, n = new.to(local.dtype), local.shape[1]
+            if S == 1:  # one slot: written where it falls, put back elsewhere
+                at = (slots - lo).clamp(0, n - 1)
+                inside = ((slots >= lo) & (slots < lo + n))[None, :, None,
+                                                           None]
+                local[:, at] = torch.where(inside, new, local[:, at])
+                return
+            # each local slot j takes new[:, (lo + j - slots[0]) % cap] if
+            # that is one of the S written, and keeps its bytes otherwise
+            j = torch.arange(n, device=slots.device)
+            src = torch.remainder(lo + j - slots[0], cap)
+            keep = (src < S)[None, :, None, None]
+            local.copy_(torch.where(keep, new[:, src.clamp(max=S - 1)],
+                                    local))
+    whole = [Replicate() if p.is_shard(1) else p for p in pl]
+    on_shards(write, mesh, (buf, new), (pl, whole), None)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,418 @@
+"""The port's dry-run (`repro_torch/launch/dryrun.py`) on the CPU: its
+per-rank counts against JAX's `_measure` on one mesh, its cells at full
+width on the production mesh, and the collectives it records.
+
+Every count runs in a child process, each with a timeout of its own: the
+port's as rank 0 of a fake process group (which must not meet the gloo
+groups other tests make in this process), JAX's under
+`XLA_FLAGS=--xla_force_host_platform_device_count=8`.  All children start
+at once.
+
+Against JAX.  Both count a reduced qwen3-0.6b (8 query and 4 KV heads, so
+the model axis divides the heads as it divides qwen3's 16 query heads at
+full width; attention in one chunk and remat off, because XLA counts a
+`lax.map` body once (JAX's query chunks) and CSEs JAX's unrolled
+`checkpoint(prevent_cse=False)` away, where the port runs every chunk
+and recomputes) on a (2, 4) ("data", "model") mesh, at reduced shapes
+under the cells' names (train B = 16, T = 256; prefill B = 8, S = 256;
+decode B = 16 over 256); JAX's `make_production_mesh` is pointed at
+that mesh, in its child only, and its scan unrolled (`unroll=True`), so
+no scan correction enters.
+
+Tolerances, per rank: model_flops equal (the same arithmetic); every
+other count within a factor of MARGIN (1.25) either way of its ratio to
+JAX's as measured on torch 2.13 and jax 0.9 (EXPECTED; the port's
+collectives follow DTensor's placements, which change with the torch
+version and the mesh's device type).  The ratios, port over JAX, and
+what carries them (the port's `elementwise_flops` and `collective_sites`
+name the ops):
+  * FLOPs 1.081 / 1.200 / 1.110 (train / prefill / decode).  The port
+    counts the products only; its elementwise ops and reductions, one
+    FLOP an element as XLA counts them, would add 5.2% / 6.2% / 9.0% of
+    its products, so they do not make up the difference the other way;
+  * bytes 1.238 / 1.171 / 0.418, both fusion-blind over other op sets;
+    a gather counts its rows and an in-place cache write its update, as
+    XLA's cost analysis counts them;
+  * all-gather 27.0 / 5.08 / 3.75: DTensor gathers activations where XLA
+    keeps them sharded (training's backward products and the loss's
+    logits over the vocabulary, the MLP's gate-up product); XLA's
+    all-gathers are the parameters' FSDP gathers;
+  * all-reduce 1.228 / 1.286 / 1.200: the norms' means all-reduced over
+    'model' beside the row-parallel sums;
+  * reduce-scatter, which XLA's partitioner does not issue here, against
+    XLA's all-reduce: 1.052 / 0.214 / 0.200 (DTensor reduce-scatters a
+    row-parallel product's partial sums where XLA all-reduces them).
+Ring factors and the FSDP gather bytes are exact: checked leaf by leaf.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.launch import roofline as R
+
+ROOT = Path(__file__).resolve().parents[1]
+CHILD_TIMEOUT = 240
+MARGIN = 1.25  # either way of the measured ratio (the module docstring)
+# port / JAX per rank, measured; reduce-scatter over JAX's all-reduce
+EXPECTED = {
+    "train_4k": {"flops": 1.081, "bytes": 1.238, "all-gather": 27.0,
+                 "all-reduce": 1.228, "reduce-scatter": 1.052},
+    "prefill_32k": {"flops": 1.200, "bytes": 1.171, "all-gather": 5.08,
+                    "all-reduce": 1.286, "reduce-scatter": 0.214},
+    "decode_32k": {"flops": 1.110, "bytes": 0.418, "all-gather": 3.75,
+                   "all-reduce": 1.200, "reduce-scatter": 0.200}}
+
+# the cells' shapes, reduced; (name, seq_len, global_batch, kind)
+SMALL = (("train_4k", 256, 16, "train"), ("prefill_32k", 256, 8, "prefill"),
+         ("decode_32k", 256, 16, "decode"))
+KINDS = [name for name, *_ in SMALL]
+
+PRELUDE = f"""
+import dataclasses, json, sys
+SMALL = {SMALL!r}
+
+def reduced(get_config, **kw):
+    cfg = get_config("qwen3-0.6b").reduced()
+    return dataclasses.replace(cfg, n_heads=8, n_kv=4, attn_chunk=256,
+                               remat=False, **kw)
+"""
+
+JAX_CHILD = PRELUDE + """
+import jax
+import numpy as np
+jax.devices()  # 8 host devices, before dryrun's own XLA_FLAGS
+from repro.configs import get_config
+from repro.configs.shapes import SHAPES, ShapeSpec
+from repro.launch import dryrun as JD
+from repro.launch.roofline import model_flops
+# Auto axes, as tests/test_torch_tp.py's mesh: jax.make_mesh's Explicit
+# axes refuse the package's with_sharding_constraint calls
+JD.make_production_mesh = lambda multi_pod=False: jax.sharding.Mesh(
+    np.asarray(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
+for name, S, B, kind in SMALL:
+    SHAPES[name] = ShapeSpec(name, S, B, kind)
+cfg = reduced(get_config, unroll=True)
+out = {}
+for name, *_ in SMALL:
+    m = JD._measure(cfg, name, False)
+    out[name] = {k: m[k] for k in ("flops", "bytes_accessed", "collectives",
+                                   "n_chips")}
+    out[name]["model_flops"] = model_flops(cfg, SHAPES[name], m["n_chips"])
+print("RESULT " + json.dumps(out))
+"""
+
+PORT_CHILD = PRELUDE + """
+import torch
+from torch.distributed.tensor import DTensor
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import SHAPES, ShapeSpec
+from repro_torch.core.qtensor import tree_map_with_path
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import sharding as S
+from repro_torch.launch.mesh import first_ranks_mesh
+from repro_torch.launch.roofline import model_flops
+for name, S_, B, kind in SMALL:
+    SHAPES[name] = ShapeSpec(name, S_, B, kind)
+cfg = reduced(get_config)
+D.fake_group(8)
+out = {"cells": {}, "one": {}, "gathers": []}
+mesh = first_ranks_mesh(D.mesh_device(), (2, 4), ("data", "model"))
+for name, *_ in SMALL:
+    c = D.count_step(cfg, name, mesh)
+    c["model_flops"] = model_flops(cfg, SHAPES[name], c["n_chips"])
+    out["cells"][name] = c
+one = first_ranks_mesh(D.mesh_device(), (1, 1), ("data", "model"))
+for name in ("train_4k", "decode_32k"):
+    out["one"][name] = D.count_step(cfg, name, one)["collectives"]
+
+# each leaf from its FSDP storage layout to its compute layout
+params = D.params_struct(cfg)
+lay = S.param_shardings(params, mesh)
+comp = tree_map_with_path(
+    lambda p, leaf: S.compute_param_pspec(p, leaf, mesh), params)
+def gather(path, leaf, spec, cspec):
+    d = S.to_dtensor(leaf, spec, mesh)
+    counter = D.RankCounter()
+    with counter:
+        got = d.redistribute(mesh, S.placements(cspec, mesh))
+    local = got.to_local()
+    out["gathers"].append({"path": "/".join(path), "spec": repr(spec),
+                           "records": counter.records,
+                           "local_bytes": local.numel() * local.element_size()})
+    return None
+tree_map_with_path(gather, params, lay, comp)
+print("RESULT " + json.dumps(out))
+"""
+
+FULL_CHILD = """
+import json, sys
+from repro_torch.launch import dryrun as D
+arch, shape = sys.argv[1], sys.argv[2]
+cell = D.run_cell(arch, shape, False)
+cell.pop("traceback", None)
+print("RESULT " + json.dumps(cell))
+"""
+
+# qwen3-0.6b's decode_32k at full width on the 256-rank mesh, cut to one
+# layer: XLA's compiled step's products (its dots; attention's two
+# einsums apart) and its elementwise outputs by opcode, read from the HLO,
+# beside the port's count of the same cell
+DECODE_GAP_JAX = """
+import dataclasses, json, re
+import jax
+import numpy as np
+jax.devices()
+from repro.configs import get_config
+from repro.launch import dryrun as JD
+JD.make_production_mesh = lambda multi_pod=False: jax.sharding.Mesh(
+    np.asarray(jax.devices()[:256]).reshape(16, 16), ("data", "model"))
+cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=1, unroll=True)
+compiled = JD.lower_cell(cfg, "decode_32k", False)[0].compile()
+text = compiled.as_text()
+shape_of, dots, attn, elems = {}, 0.0, 0.0, {}
+head = re.compile(r"\\s*(?:ROOT )?%?([\\w.\\-]+) = \\w+\\[([\\d,]*)\\]\\S* ([\\w\\-]+)\\(")
+dims = lambda s: [int(x) for x in s.split(",") if x]
+for line in text.splitlines():
+    m = head.match(line)
+    if m:
+        shape_of[m.group(1)] = dims(m.group(2))
+for line in text.splitlines():
+    m = head.match(line)
+    if not m:
+        continue
+    out, op = dims(m.group(2)), m.group(3)
+    n = int(np.prod(out)) if out else 1
+    if op == "dot":
+        lhs = re.search(r"dot\\([^%]*%([\\w.\\-]+)", line).group(1)
+        k = re.search(r"lhs_contracting_dims=\\{([\\d,]*)\\}", line)
+        f = 2.0 * n * int(np.prod([shape_of[lhs][i] for i in dims(k.group(1))]))
+        dots += f
+        if "bhgqk" in line:
+            attn += f
+    elif op in ("convert", "select", "dynamic-update-slice"):
+        elems[op] = elems.get(op, 0) + n
+print("RESULT " + json.dumps({"flops": compiled.cost_analysis()["flops"],
+                              "dots": dots, "attention": attn,
+                              "elements": elems}))
+"""
+
+DECODE_GAP_PORT = """
+import dataclasses, json
+from repro_torch.configs import get_config
+from repro_torch.kernels import dispatch
+from repro_torch.launch import dryrun as D
+attn = []
+dispatch.META_LISTENERS.append(
+    lambda name, flops, moved, ops: attn.append(flops)
+    if name == "ordered_bmm" else None)
+cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=1)
+c = D.count_cell(cfg, "decode_32k", False)
+print("RESULT " + json.dumps({"flops": c["flops"], "attention": sum(attn),
+                              "elementwise": c["elementwise_flops"]}))
+"""
+
+FULL_CELLS = [("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "prefill_32k"),
+              ("qwen3-0.6b", "decode_32k"), ("qwen3-moe-30b-a3b", "decode_32k"),
+              ("qwen3-0.6b", "long_500k")]
+
+
+def _env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    env.update(extra)
+    return env
+
+
+@pytest.fixture(scope="module")
+def children():
+    """Start every child at once; wait for each within its timeout, kill
+    them all on a timeout or a failure.  {key: the child's RESULT}."""
+    cmds = {"jax": ([sys.executable, "-c", textwrap.dedent(JAX_CHILD)],
+                    _env(JAX_PLATFORMS="cpu", XLA_FLAGS=
+                         "--xla_force_host_platform_device_count=8")),
+            "port": ([sys.executable, "-c", textwrap.dedent(PORT_CHILD)],
+                     _env())}
+    cmds["gap_jax"] = ([sys.executable, "-c", DECODE_GAP_JAX], _env(
+        JAX_PLATFORMS="cpu",
+        XLA_FLAGS="--xla_force_host_platform_device_count=256"))
+    cmds["gap_port"] = ([sys.executable, "-c", DECODE_GAP_PORT], _env())
+    for arch, shape in FULL_CELLS:
+        cmds[(arch, shape)] = ([sys.executable, "-c", FULL_CHILD, arch,
+                                shape], _env())
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=e,
+                                 cwd=ROOT) for k, (c, e) in cmds.items()}
+    out = {}
+    try:
+        for k, p in procs.items():
+            so, se = p.communicate(timeout=CHILD_TIMEOUT)
+            lines = [l for l in so.splitlines() if l.startswith("RESULT ")]
+            assert p.returncode == 0 and lines, (
+                f"child {k} exited {p.returncode}: {se[-3000:]}")
+            out[k] = json.loads(lines[-1][len("RESULT "):])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_counts_agree_with_jax_measure(children, kind):
+    """Per rank on the (2, 4) mesh, each count within MARGIN of its
+    measured ratio to JAX's (the module docstring); each collective kind
+    printed beside JAX's, with the port's sites."""
+    jx, pt = children["jax"][kind], children["port"]["cells"][kind]
+    assert pt["n_chips"] == jx["n_chips"] == 8
+    assert pt["model_flops"] == jx["model_flops"]
+    cj, cp = jx["collectives"], pt["collectives"]
+    assert set(cj) == {"all-gather", "all-reduce"}
+    assert set(cp) == {"all-gather", "all-reduce", "reduce-scatter"}
+    got = {"flops": pt["flops"] / jx["flops"],
+           "bytes": pt["bytes_accessed"] / jx["bytes_accessed"],
+           "all-gather": cp["all-gather"] / cj["all-gather"],
+           "all-reduce": cp["all-reduce"] / cj["all-reduce"],
+           "reduce-scatter": cp["reduce-scatter"] / cj["all-reduce"]}
+    for k in ("all-gather", "all-reduce", "reduce-scatter"):
+        print(f"{kind} {k:15s} jax {cj.get(k, 0.0):.4e} port {cp[k]:.4e}")
+    print(f"{kind} flops jax {jx['flops']:.4e} port {pt['flops']:.4e} "
+          f"(+ elementwise {pt['elementwise_flops']:.4e}); bytes jax "
+          f"{jx['bytes_accessed']:.4e} port {pt['bytes_accessed']:.4e}")
+    for site, b in pt["collective_sites"].items():
+        print(f"{kind}   {site}: {b:.4e}")
+    for k, want in EXPECTED[kind].items():
+        assert want / MARGIN <= got[k] <= want * MARGIN, (k, got[k], want)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_memory_keys_are_jax_s(children, kind):
+    mem = children["port"]["cells"][kind]["memory"]
+    assert set(mem) == {"argument_bytes", "output_bytes", "temp_bytes",
+                        "alias_bytes"}
+    assert mem["argument_bytes"] > 0 and mem["output_bytes"] > 0
+    assert mem["temp_bytes"] > 0
+    # the caches are updated in place: a serving step's outputs alias them
+    if kind != "train_4k":
+        assert mem["alias_bytes"] > 0
+
+
+@pytest.mark.parametrize("kind", ["train_4k", "decode_32k"])
+def test_one_rank_mesh_counts_no_collective(children, kind):
+    assert children["port"]["one"][kind] == {}
+
+
+def test_fsdp_gathers_are_the_layout_s_leaf_by_leaf(children):
+    """A leaf whose storage layout splits it over 'data' is gathered to
+    its compute layout by one all-gather over the 2 data ranks, of its
+    compute-layout shard's bytes; a leaf that is not moves nothing."""
+    gathers = children["port"]["gathers"]
+    assert gathers
+    n_sharded = 0
+    for g in gathers:
+        if "'data'" in g["spec"]:
+            n_sharded += 1
+            assert g["records"] == [["all-gather", float(g["local_bytes"]),
+                                     2]], g
+        else:
+            assert g["records"] == [], g
+        wire = R.collective_wire_bytes(tuple(r) for r in g["records"])
+        assert wire == ({"all-gather": g["local_bytes"] / 2}
+                        if g["records"] else {})
+    assert n_sharded >= 7  # every projection of a layer, the embedding
+
+
+@pytest.mark.parametrize("arch,shape", FULL_CELLS)
+def test_full_width_cells_on_the_production_mesh(children, arch, shape):
+    """run_cell at full width on the 256-rank mesh: ok, FLOPs counted,
+    the dominant term one of the three; long_500k skipped with JAX's
+    reason for a full-attention arch."""
+    cell = children[(arch, shape)]
+    assert (cell["arch"], cell["shape"], cell["mesh"]) == (arch, shape,
+                                                          "single")
+    if shape == "long_500k":
+        assert cell["status"] == "skipped"
+        assert cell["reason"] == ("pure full-attention arch — long_500k "
+                                  "needs sub-quadratic attention")
+        return
+    assert cell["status"] == "ok", cell.get("error")
+    assert cell["n_chips"] == 256 and cell["flops"] > 0
+    assert cell["raw"] == {k: cell[k] for k in ("flops", "bytes_accessed",
+                                                "collectives")}
+    rf = cell["roofline"]
+    assert rf["dominant"] in ("compute", "memory", "collective")
+    cfg, spec = get_config(arch), SHAPES[shape]
+    assert rf["model_flops_per_chip"] == R.model_flops(cfg, spec, 256)
+    assert rf["t_compute_s"] == cell["flops"] / R.PEAK_FLOPS
+    assert cell["count_s"] > 0
+
+
+def test_counter_counts_what_gathers_and_in_place_writes_move():
+    """A gather counts its rows (output read and written, indices read),
+    not its table; an in-place scatter three update sizes and its
+    indices, not its destination (XLA's cost analysis); the least traffic
+    reads each argument byte once however many ops read it, a slice at a
+    time or gathered."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.launch import dryrun as D
+
+    table = torch.empty((1000, 64), device="meta")          # 256,000 B
+    stack = torch.empty((4, 32, 64), device="meta")         # 32,768 B
+    cache = torch.empty((2, 100, 64), device="meta")        # 51,200 B
+    ids = torch.empty((8,), dtype=torch.int64, device="meta")
+    slot = torch.empty((1,), dtype=torch.int64, device="meta")
+
+    def step():
+        x = F.embedding(ids, table)                  # (8, 64): 2,048 B
+        for r in range(4):                           # each layer's slice
+            x = x @ stack[r].T[:64, :32] @ stack[r]  # reads stack[r] twice
+        cache[:, slot] = x[:2, None]                 # a (2, 1, 64) update
+        return x @ table.T                           # the tied head
+
+    counts, _ = D.count_call(step, (table, stack, cache, ids, slot))
+    fp = 4
+    gather = 2 * 8 * 64 * fp + 8 * 8
+    scatter = 3 * 2 * 64 * fp + 8
+    assert counts["bytes_accessed"] > gather + scatter
+    c = D.RankCounter()
+    with c:
+        F.embedding(ids, table)
+    assert c.bytes == gather
+    c = D.RankCounter()
+    with c:
+        cache[:, slot] = torch.empty((2, 1, 64), device="meta")
+    assert c.bytes == scatter
+    # the arguments once each (the cache: its one written slot, each
+    # row), the ids and slot, and the fresh logits (8, 1000) written
+    assert counts["min_bytes"] == (256000 + 32768 + 64 + 8
+                                   + 2 * 64 * fp + 8 * 1000 * fp)
+
+
+def test_decode_flops_gap_is_xla_s_elementwise_work_over_the_cache(children):
+    """qwen3-0.6b's decode_32k on the 256-rank mesh, one layer: the
+    port's attention products (`ordered_bmm` over each rank's 2048 keys
+    of the length-sharded cache, every query head) are XLA's attention
+    einsums within 1 %; XLA's FLOPs beyond its products are its converts,
+    selects and dynamic-update-slices over the rank's whole cache (one
+    FLOP an element), which the port, writing one slot in place, does not
+    run.  This is the decode FLOP gap of the production cells."""
+    jx, pt = children["gap_jax"], children["gap_port"]
+    print(f"decode_32k, 1 layer: XLA flops {jx['flops']:.4e}, dots "
+          f"{jx['dots']:.4e} (attention {jx['attention']:.4e}), elementwise "
+          f"outputs {jx['elements']}; port flops {pt['flops']:.4e} "
+          f"(attention {pt['attention']:.4e}, elementwise "
+          f"{pt['elementwise']:.4e})")
+    assert abs(pt["attention"] / jx["attention"] - 1) <= 0.01
+    rest = jx["flops"] - jx["dots"]
+    assert rest >= 0.5 * jx["flops"]
+    assert sum(jx["elements"].values()) >= 0.9 * rest
+    assert pt["elementwise"] <= 0.05 * rest
