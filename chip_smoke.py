@@ -2236,7 +2236,7 @@ def transformer_phase(report: dict) -> dict:
 # host-bound (about 0.85 s a decode step at B = 4, PERF.md), so its run is
 # cut to 8 requests of at most 16 tokens to keep the phase near 300 s
 POOL_PROMPT = 128
-ZAMBA2_ENGINE_LAYERS = 12
+ZAMBA2_ENGINE_LAYERS = 6
 POOL_ENGINE = {"qwen3-moe": (8, 16), "rwkv6-7b": (16, 32),
                "zamba2": (16, 32)}
 # Depth cuts, widths untouched, to keep the script inside its time limit
@@ -2244,12 +2244,13 @@ POOL_ENGINE = {"qwen3-moe": (8, 16), "rwkv6-7b": (16, 32),
 # runs (phase 9) on 8 of its 28 layers (phase 9 took 252.4 s at 28, 173 s
 # at 14 once the norms and attention ran ordered_bmm; 119.8 s at 8 with
 # the tensor-core GEMM, the script 735.2 s; at 14 the script took 1137 s
-# on a slow host once phase 16 joined); qwen3-moe's
+# on a slow host once phase 16 joined; 4 since the script took 1150.4 s on
+# a slow host with 8); qwen3-moe's
 # lockstep run and engine run on 8 of its 48 layers (at 48 they took 117.9
 # and 119 s of host-bound time), rwkv6's engine on 4 of its 32 layers
-# (100.4 s at 32, 39.7 s at 8 on that slow host), zamba2's on 12 of its
-# 38 (75 s at 38)
-QWEN_ENGINE_LAYERS = 8
+# (100.4 s at 32, 39.7 s at 8 on that slow host), zamba2's on 6 of its
+# 38, one shared application (75 s at 38, 40.7 s at 12 on the slow host)
+QWEN_ENGINE_LAYERS = 4
 MOE_SERVE_LAYERS = 8
 RWKV_ENGINE_LAYERS = 4
 
@@ -2831,8 +2832,8 @@ def hybrid_audio_phase(report: dict, card: str) -> tuple:
     t0 = time.perf_counter()
     z["lockstep"] = pool_lockstep("zamba2", zrt, 4, 128, 32, attn_proj=0)
     z["lockstep_s"] = secs(t0)
-    # the engine on a cut of ZAMBA2_ENGINE_LAYERS mamba layers (two shared
-    # applications): a host-bound decode step at 38 layers is 100 ms
+    # the engine on a cut of ZAMBA2_ENGINE_LAYERS mamba layers (one shared
+    # application): a host-bound decode step at 38 layers is 100 ms
     t0 = time.perf_counter()
     ecut = pool_config("zamba2-1.2b", n_layers=ZAMBA2_ENGINE_LAYERS)
     z["engine"] = pool_engine("zamba2", TransformerRuntime(
@@ -3715,8 +3716,10 @@ def mesh_phase(report: dict, card: str) -> dict:
     step through the tensor-parallel DTensor step, bit-equal to the plain
     step; the mesh engine (`make_serve_mesh("data=1")`) over an fp
     qwen3-0.6b tree on a cut of MESH_LAYERS layers, every stream equal to
-    the mesh=None engine's and `tick_collectives() == 0`; and the packed
-    tree refused on a mesh with JAX's reason.  Launches counted."""
+    the mesh=None engine's and `tick_collectives() == 0`, then with a
+    prefix cache over requests behind one shared prompt prefix (streams
+    the mesh=None engine's without it, hits > 0); and the packed tree
+    refused on a mesh with JAX's reason.  Launches counted."""
     import dataclasses
 
     import numpy as np
@@ -3730,7 +3733,8 @@ def mesh_phase(report: dict, card: str) -> dict:
     from repro_torch.launch import mesh as M
     from repro_torch.launch.serve import synth_traffic
     from repro_torch.models import transformer as T
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.prefixcache import PrefixCache
     from repro_torch.serve.recurrent import TransformerRuntime
     from repro_torch.train import train_step as TS
     from repro_torch.train.optimizer import OptConfig
@@ -3809,6 +3813,32 @@ def mesh_phase(report: dict, card: str) -> dict:
           f"engine's; tick collectives 0; {out['engine_mesh']['agg_tok_s']:.1f}"
           f" tok/s (mesh=None {out['engine_none']['agg_tok_s']:.1f})",
           flush=True)
+    # the mesh engine with a prefix cache: 6 requests behind one 64-token
+    # prefix (chunks of 32: its boundaries cached by the first)
+    system = rng.integers(0, cfg.vocab, P)
+    shared = [Request(prompt=np.concatenate([system, rng.integers(
+        0, cfg.vocab, int(rng.integers(1, 9)))]), max_tokens=8,
+        temperature=0.8 if i % 2 else 0.0, top_k=40, seed=150 + i, rid=i)
+        for i in range(6)]
+    cache = PrefixCache(1 << 30)
+    for label, m, pc in (("none", None, None), ("mesh", smesh, cache)):
+        eng = ServeEngine(rt, cfg.vocab, slots=4, max_context=P + G,
+                          prefill_chunk=32, mesh=m, prefix_cache=pc)
+        comps, _ = eng.run([dataclasses.replace(r) for r in shared[:1]],
+                           realtime=False)
+        more, _ = eng.run([dataclasses.replace(r) for r in shared[1:]],
+                          realtime=False)
+        streams[f"prefix_{label}"] = {c.rid: c.tokens for c in comps + more}
+    out["prefix_cache"] = cache.stats()
+    if streams["prefix_mesh"] != streams["prefix_none"]:
+        fail("mesh engine with a prefix cache: a stream differs from the "
+             "mesh=None engine's")
+    if out["prefix_cache"]["hits"] < 1:
+        fail(f"mesh engine: no prefix-cache hit ({out['prefix_cache']})")
+    print(f"  mesh engine with a prefix cache, 6 requests behind a {P}-token "
+          f"prefix: every stream == the mesh=None engine's (no cache); "
+          f"{out['prefix_cache']['hits']} hits, "
+          f"{out['prefix_cache']['hit_tokens']} tokens spliced", flush=True)
     del rt
     prt = TransformerRuntime(ecfg.with_quant(QuantSpec(mode="ternary",
                                                        norm="channel")),
@@ -3848,6 +3878,11 @@ DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", "single"),
                 ("qwen3-0.6b", "decode_32k", "single"),
                 ("qwen3-moe-30b-a3b", "decode_32k", "multi"))
 DRYRUN_TIMEOUT = 240
+# JAX's `run_cell` on the 256-rank mesh, per rank (PERF.md section 7: its
+# count on the CPU, jax 0.9): qwen3-0.6b's all-gather bytes; the port's
+# may be at most GATHER_LIMIT times these
+JAX_ALL_GATHER = {"train_4k": 2.9723e9, "decode_32k": 1.4312e8}
+GATHER_LIMIT = 2.0
 
 
 def dryrun_start() -> list:
@@ -3963,6 +3998,15 @@ def roofline_phase(report: dict, card: str) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    for shape, jax_bytes in JAX_ALL_GATHER.items():
+        got = cells[f"qwen3-0.6b {shape} single"]["collectives"].get(
+            "all-gather", 0.0)
+        print(f"  dry-run qwen3-0.6b {shape}: all-gather {got:.4e} bytes a "
+              f"rank, JAX's {jax_bytes:.4e} ({got / jax_bytes:.3f}x)",
+              flush=True)
+        if got > GATHER_LIMIT * jax_bytes:
+            fail(f"dry-run qwen3-0.6b {shape}: all-gather {got:.4e} bytes "
+                 f"a rank, above {GATHER_LIMIT} x JAX's {jax_bytes:.4e}")
     for name, c in cells.items():
         r = c["roofline"]
         print(f"  dry-run {name:38s}: {r['dominant']:10s} compute "

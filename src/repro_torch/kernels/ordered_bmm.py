@@ -57,12 +57,9 @@ def ordered_bmm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def model_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A model's batched product: `ordered_bmm` in serving, the library's
-    where autograd records (training; DTensors shard by shard, as
-    `ordered_bmm` runs them: a DTensor product flattens its batch dims,
-    which DTensor refuses where a later one is split)."""
+    where autograd records (training; a model's DTensor training paths
+    call it on each rank's shards, `runtime.on_shards`)."""
     if torch.is_grad_enabled():
-        if isinstance(a, DTensor) or isinstance(b, DTensor):
-            return _on_shards(a, b, torch.matmul)
         return a @ b
     return ordered_bmm(a, b)
 
@@ -196,8 +193,8 @@ def _label(t: DTensor, dim: int, contract: int, own: int, off: int):
     return dim + off
 
 
-def _on_shards(a, b, product=None) -> DTensor:
-    """`ordered_bmm` (or `product`) of DTensors, rank by rank: each rank
+def _on_shards(a, b) -> DTensor:
+    """`ordered_bmm` of DTensors, rank by rank: each rank
     multiplies its own shards and the result carries the placements that
     follow (`runtime.on_shards`, which carries gradients).  Per mesh
     dim: a split contraction dim is gathered first (a partial sum would
@@ -242,5 +239,4 @@ def _on_shards(a, b, product=None) -> DTensor:
         pb.append(Replicate() if lb is None else
                   Shard(b.dim() - 1 if lb == "P" else lb - ob))
         po.append(Replicate() if lo is None else Shard(lo))
-    return on_shards(product or ordered_bmm, mesh, (a, b), (pa, pb), po,
-                     shape)
+    return on_shards(ordered_bmm, mesh, (a, b), (pa, pb), po, shape)

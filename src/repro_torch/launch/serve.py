@@ -57,19 +57,26 @@ POST /v1/generate, GET /v1/stats), with hangups cancelling and a
 prefix-state cache of --prefix-cache-mb where the runtime supports one
 (token-granularity chunks, non-ring caches; otherwise it serves without).
 
---mesh data=D,model=M shards the engine of --traffic over a mesh of D * M
-ranks (`launch.mesh.make_serve_mesh`), one process a device under
-torchrun: the slot pool D-way along 'data' (D must divide --slots), the
-weights tensor-parallel along 'model'.  Every rank builds the same
-weights from --seed and runs the same scheduler; rank 0 prints.
+--mesh data=D,model=M shards the engine of --traffic or --listen over a
+mesh of D * M ranks (`launch.mesh.make_serve_mesh`), one process a device
+under torchrun: the slot pool D-way along 'data' (D must divide --slots),
+the weights tensor-parallel along 'model'.  Every rank builds the same
+weights from --seed and runs the same scheduler; rank 0 prints.  With
+--listen rank 0 runs the front door and sends each iteration's arrivals
+and cancellations to the other ranks, and rank 0 streams the tokens; the
+prefix cache of --prefix-cache-mb serves the mesh too.
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --reduced --device cpu --traffic --slots 4 --mesh data=2,model=2
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --reduced --device cpu --quant none --listen --port 8700 \\
+      --slots 4 --mesh data=2
 
 Refused: speculation on MoE, rwkv, mamba and ring-cache archs (the
-engine's refusal); --mesh with --listen (the front door is one process,
-and every rank of a mesh must see each request).
+engine's refusal); a packed tree on a mesh where the CUDA kernels are
+the route (the engine's refusal, as JAX's).
 """
 from __future__ import annotations
 
@@ -250,10 +257,12 @@ def run_traffic(cfg, rt, args, draft=None) -> dict:
 
 def run_listen(cfg, rt, args, draft=None) -> None:
     """Serve over HTTP/SSE: the engine built and warmed as --traffic builds
-    it, behind the asyncio front door, until interrupted."""
+    it, behind the asyncio front door, until interrupted.  On a mesh rank
+    0 runs the front door and the other ranks follow its scheduler
+    (`frontdoor.follow`)."""
     import asyncio
 
-    from repro_torch.serve.frontdoor import FrontDoor
+    from repro_torch.serve.frontdoor import FrontDoor, follow
     from repro_torch.serve.prefixcache import PrefixCache
 
     ctx = args.prompt_len + args.gen
@@ -263,14 +272,25 @@ def run_listen(cfg, rt, args, draft=None) -> None:
                 and not getattr(rt, "ring_caches", False)):
             cache = PrefixCache(args.prefix_cache_mb << 20)
         else:
-            print("prefix cache: unsupported for this runtime (needs "
-                  "token-granularity chunking; non-ring caches): serving "
-                  "without it")
+            say("prefix cache: unsupported for this runtime (needs "
+                "token-granularity chunking; non-ring caches): serving "
+                "without it")
+    mesh = serve_mesh(args)
+    if mesh is not None and mesh.size() != M.world_size():
+        raise SystemExit(f"--listen --mesh {args.mesh}: run one process a "
+                         f"device of the mesh ({mesh.size()}), not "
+                         f"{M.world_size()}")
     eng = ServeEngine(rt, cfg.vocab, slots=args.slots, max_context=ctx,
                       prefill_chunk=args.prefill_chunk,
                       draft=draft, spec_k=args.spec_k if draft else 0,
-                      prefix_cache=cache)
+                      prefix_cache=cache, mesh=mesh)
     eng.warm()
+    if M.rank() != 0:
+        try:
+            follow(eng)
+        except KeyboardInterrupt:
+            pass
+        return
 
     async def _serve():
         fd = FrontDoor(eng, host=args.host, port=args.port)
@@ -278,9 +298,9 @@ def run_listen(cfg, rt, args, draft=None) -> None:
         print(f"front door listening on http://{fd.host}:{fd.port}  "
               f"({args.slots} slots, ctx {ctx}, chunk {args.prefill_chunk}"
               + (f", prefix cache {args.prefix_cache_mb} MB" if cache
-                 else "") + f", {rt.device})")
+                 else "") + f", {rt.device})", flush=True)
         print(f"  curl -N -X POST http://{fd.host}:{fd.port}/v1/generate "
-              "-d '{\"prompt\": [1,2,3], \"max_tokens\": 16}'")
+              "-d '{\"prompt\": [1,2,3], \"max_tokens\": 16}'", flush=True)
         try:
             await fd.serve_forever()
         finally:
@@ -341,11 +361,9 @@ def main(argv=None):
                          "device (torchrun --nproc-per-node D*M)")
     args = ap.parse_args(argv)
 
-    if args.mesh and not args.traffic:
+    if args.mesh and not (args.traffic or args.listen):
         raise SystemExit("--mesh shards the continuous-batching engine; "
-                         "run it with --traffic (the front door of "
-                         "--listen is one process, and every rank of a "
-                         "mesh must see each request)")
+                         "run it with --traffic or --listen")
     if args.mesh:  # join the ranks first: each builds on its own device
         M.init_group(M.local_device(args.device))
     build = build_rnn if args.arch in RNN_ARCH_IDS else build_transformer

@@ -42,7 +42,8 @@ from repro_torch.core.qlinear import maybe_scale, scaled, winit
 from repro_torch.kernels.ops import serve_matmul
 from repro_torch.kernels.ordered_bmm import model_bmm
 from repro_torch.models.layers import mean_square
-from repro_torch.runtime import DATA, constrain, on_shards, shard_like
+from repro_torch.runtime import (DATA, constrain, grad_reduced, on_shards,
+                                 reduced, shard_like)
 
 
 
@@ -196,6 +197,7 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
     if decode is None:
         decode = state is not None and S == 1
 
+    x = grad_reduced(x)
     proj = scaled(serve_matmul(x, p["Win"]), p, "Win", cfg.quant)
     z, xin, Bc, Cc, dt = torch.split(proj, [di, di, N, N, H], dim=-1)
     dt = F.softplus(dt.to(f32) + p["dt_bias"])    # (B, S, H)
@@ -234,7 +236,7 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
     g = (g32 * torch.rsqrt(mean_square(g32) + 1e-6)).to(x.dtype) * \
         p["norm"].to(x.dtype)
 
-    out = scaled(serve_matmul(g, p["Wout"]), p, "Wout", cfg.quant)
+    out = reduced(scaled(serve_matmul(g, p["Wout"]), p, "Wout", cfg.quant))
     new_state = None
     if state is not None or decode:
         pos = (state.pos if state is not None else

@@ -43,7 +43,11 @@ formulation instead (`_moe_mesh`: the same routing, `route`'s dispatch
 and combine, and the experts as JAX's einsums, the experts' products and
 the combine on each rank's shards), with JAX's `constrain` calls and its
 expert/capacity sharding choice: the index gathers above have shapes
-that depend on the data, which a `DTensor` cannot carry.
+that depend on the data, which a `DTensor` cannot carry.  A packed tree on
+a mesh runs the gathers above rank by rank (`_moe_packed_mesh`: each rank
+its experts, or its capacity slots, on its local codes), as JAX runs a
+packed expert through `qmatmul` under its mesh; the engine refuses it
+where the CUDA kernels are the route.
 """
 from __future__ import annotations
 
@@ -59,7 +63,7 @@ from repro_torch.core.qlinear import maybe_scale, scaled, winit
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels.ops import qmatmul, serve_matmul
 from repro_torch.runtime import (DATA, axis_sizes, constrain, current_mesh,
-                                 on_shards)
+                                 grad_reduced, on_shards, reduced)
 
 
 GROUP_SIZE = 4096  # tokens per routing group
@@ -226,13 +230,12 @@ def _moe_mesh(p: dict, x: torch.Tensor, cfg, G: int, Tg: int,
     """`moe_apply` on `DTensor`s: JAX's dense formulation, einsum for
     einsum, with its layouts.  The expert axis goes over 'model' where it
     divides, else the CAPACITY axis (mixtral: 8 experts on a 16-way model
-    axis), so the dispatch and combine do not replicate over 'model'."""
+    axis), so the dispatch and combine do not replicate over 'model'.  A
+    packed tree takes `_moe_packed_mesh`."""
     if isinstance(p["Wgate"], QTensor):
-        raise NotImplementedError(
-            "a packed MoE layer on a mesh: the experts run one by one over "
-            "data-dependent row counts, which a DTensor cannot carry")
+        return _moe_packed_mesh(p, x, cfg, G, Tg, cap)
     B, S, d = x.shape
-    xt = constrain(x.reshape(G, Tg, d), DATA, None, None)
+    xt = constrain(grad_reduced(x).reshape(G, Tg, d), DATA, None, None)
     logits = torch.einsum("gtd,de->gte", xt.float(), p["router"])
     routes = [route(logits[g], cfg, cap) for g in range(G)]
     disp = torch.stack([r[0] for r in routes]).to(x.dtype)
@@ -249,8 +252,78 @@ def _moe_mesh(p: dict, x: torch.Tensor, cfg, G: int, Tg: int,
     h = constrain(F.silu(g) * u, DATA, *espec, None)
     ye = constrain(scaled(mm(h, "Wdown"), p, "Wdown", cfg.quant), DATA,
                    *espec, None)
-    y = _combine(ye, comb)
+    y = reduced(_combine(ye, comb))
     return y.reshape(B, S, d), aux.float()
+
+
+def _moe_packed_mesh(p: dict, x: DTensor, cfg, G: int, Tg: int,
+                     cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`moe_apply` of a packed tree on `DTensor`s: every rank routes its
+    rows as mesh=None does and runs its own experts, the expert axis over
+    'model' where it divides, else its range of capacity slots (the
+    layouts `_moe_mesh` gives fp weights), through `qmatmul` on its local
+    codes over the kept rows routed to them (`_kept_experts`), inside
+    `on_shards`, so the data-dependent row counts never meet a DTensor.
+    Each rank's fp32 sum over a token's choices is added over 'model' and
+    cast, mesh=None's combine.  The rows stay split over the data axes
+    where their routing groups do."""
+    mesh, (B, S, d), E = x.device_mesh, x.shape, cfg.n_experts
+    names = mesh.mesh_dim_names
+    md = names.index("model") if "model" in names else None
+    m = mesh.size(md) if md is not None else 1
+    by_expert = m > 1 and E % m == 0
+    by_slot = m > 1 and not by_expert and cap % m == 0
+    r = mesh.get_local_rank(md) if m > 1 else 0
+    rows = [Shard(0) if q.is_shard(0) and G % mesh.size(dim) == 0
+            else Replicate() for dim, q in enumerate(x.placements)]
+    split = [dim for dim, q in enumerate(rows) if q.is_shard(0)]
+    R = [Replicate()] * mesh.ndim
+    ws = ("Wgate", "Wup", "Wdown")
+    whole = [Shard(0) if dim == md and by_expert else Replicate()
+             for dim in range(mesh.ndim)]
+    scales = [k for k in ("sgate", "sup", "sdown") if k in p]
+    args = [x, p["router"]] + [p[n].codes for n in ws] + [
+        p[n].scale for n in ws] + [p[k] for k in scales]
+    want = [rows, R] + [whole] * 3 + [
+        None if p[n].scale is None else whole for n in ws] + [R] * len(scales)
+    n_groups = 1
+    for dim in split:
+        n_groups *= mesh.size(dim)
+    E_l = E // m if by_expert else E
+    e0, C_l = r * E_l if by_expert else 0, cap // m if by_slot else cap
+    c0 = r * C_l if by_slot else 0
+
+    def local(xl, router, *flat):
+        codes, sc, ch = flat[:3], flat[3:6], flat[6:]
+        pl = {k: v for k, v in zip(scales, ch)}
+        for n, c, s in zip(ws, codes, sc):
+            pl[n] = dataclasses.replace(p[n], codes=c, scale=s)
+        T = xl.shape[0] * xl.shape[1]
+        xt = xl.reshape(T, d)
+        logits = serve_matmul(xt.float(), router).reshape(-1, Tg, E)
+        routes = [route_slots(logits[g], cfg, cap)
+                  for g in range(logits.shape[0])]
+        idx, gates, pos, keep = (torch.cat([rt[i] for rt in routes])
+                                 for i in range(4))
+        aux = torch.stack([rt[4] for rt in routes]).mean() / n_groups
+        mine = keep & (idx >= e0) & (idx < e0 + E_l) & (pos >= c0) & (
+            pos < c0 + C_l)
+        out = torch.zeros((T, cfg.topk, d), dtype=torch.float32,
+                          device=xl.device)
+        if bool(mine.any()):
+            tok = torch.arange(T, device=xl.device)[:, None].expand_as(
+                idx)[mine]
+            ye = _kept_experts(pl, xt[tok], idx[mine] - e0, cfg)
+            out[mine] = ye.float() * gates.to(xl.dtype)[mine].float()[:, None]
+        return out.sum(dim=1), aux
+
+    y_pl = [Partial() if dim == md and (by_expert or by_slot) else q
+            for dim, q in enumerate(rows)]
+    aux_pl = [Partial() if dim in split else Replicate()
+              for dim in range(mesh.ndim)]
+    y, aux = on_shards(local, mesh, args, want, (y_pl, aux_pl),
+                       ((B * S, d), ()))
+    return reduced(y).to(x.dtype).reshape(B, S, d), reduced(aux)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg, *, no_drop: bool = False,

@@ -66,6 +66,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils import checkpoint as CP
 
 from repro_torch.core.qlinear import quantize_tree, winit
@@ -76,7 +77,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
-from repro_torch.runtime import DATA, constrain
+from repro_torch.runtime import (DATA, constrain, on_shards, reduce_over,
+                                 shard_extent, sum_over)
 from repro_torch.serve.kvcache import (AttnCache, CrossCache, cache_init,
                                        cache_positions, cache_update,
                                        kv_pspec)
@@ -331,14 +333,17 @@ def _self_attn_cached(p_attn: dict, h: torch.Tensor, cfg, cache: AttnCache,
     """h (B, S, d) new tokens attend over cache + new; returns (o, cache).
     `live` (B,) freezes dead rows' cache bytes and pos."""
     q = L.attn_q(p_attn, h, cfg)
-    k_new, v_new = L.attn_kv(p_attn, h, cfg)
     S = h.shape[1]
     # scalar pos -> (S,); per-slot pos (B,) -> (B, S)
     ar = torch.arange(S, dtype=torch.int32, device=h.device)
     positions = cache.pos[:, None] + ar if cache.pos.dim() else cache.pos + ar
     q = L.rope(q, positions, cfg.rope_theta)
-    k_new = L.rope(k_new, positions, cfg.rope_theta)
-    cache = cache_update(cache, k_new, v_new, live)
+    if L.kv_local_slots(cache.k, S):
+        cache = L.kv_write_local(p_attn, h, cfg, cache, positions)
+    else:
+        k_new, v_new = L.attn_kv(p_attn, h, cfg)
+        k_new = L.rope(k_new, positions, cfg.rope_theta)
+        cache = cache_update(cache, k_new, v_new, live)
     # heads over 'model' where the cache's heads are (kv_pspec's layout),
     # so attention reads its shard of the cache in place
     spec = kv_pspec(*cache.k.shape[-4:-1])
@@ -489,15 +494,70 @@ def init_caches(cfg, batch: int, context: int, *, src_len: int = 0,
 # ---------------------------------------------------------------------------
 
 
+def _split_dims(t, dim: int) -> list:
+    """The mesh dims splitting dim `dim` of DTensor `t`; [] for a plain
+    tensor."""
+    if not isinstance(t, DTensor):
+        return []
+    dim %= t.dim()
+    return [d for d, p in enumerate(t.placements) if p.is_shard(dim)]
+
+
+def _row_placements(like: DTensor) -> list:
+    """Placements of a (B, ...) tensor split over the batch as `like` is,
+    whole over every other mesh dim."""
+    return [Shard(0) if p.is_shard(0) else Replicate()
+            for p in like.placements]
+
+
 def _embed(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """The rows of `tokens`, cast to the compute dtype.  `F.embedding`, a
     gather whose backward sums a row's gradients in a fixed order on the
-    card: a training rerun there is bit-equal.  On a mesh the table is
-    gathered whole first (DTensor's vocab-sharded lookup mis-sizes its
-    mask when the tokens are sharded too) and the rows laid over the data
-    axes, as JAX's `constrain`."""
-    x = F.embedding(tokens, constrain(params["embed"], None, None))
-    return constrain(x.to(cfg.torch_dtype), DATA, None, None)
+    card: a training rerun there is bit-equal.  On a mesh whose 'model'
+    axis splits the table's vocabulary, each rank looks up the tokens of
+    its own range (zero rows elsewhere) in its shard, whole over the data
+    axes (the FSDP gather of a weight), and one sum over 'model' gives the
+    rows (`_vocab_lookup`), unless the sum would move more bytes than the
+    table (a long prompt of a small vocabulary), which is then gathered
+    whole.  The rows are laid over the data axes, as JAX's `constrain`."""
+    table = params["embed"]
+    if not _split_dims(table, 0) or 2 * _local_numel(tokens) * table.shape[
+            1] * cfg.torch_dtype.itemsize >= table.numel() * \
+            table.element_size():
+        x = F.embedding(tokens, constrain(table, None, None))
+        return constrain(x.to(cfg.torch_dtype), DATA, None, None)
+    return constrain(_vocab_lookup(table, tokens, cfg.torch_dtype), DATA,
+                     None, None)
+
+
+def _local_numel(t: torch.Tensor) -> int:
+    """Elements of this rank's shard of `t` (all of a plain tensor)."""
+    return (t.to_local() if isinstance(t, DTensor) else t).numel()
+
+
+def _vocab_lookup(table: DTensor, tokens: torch.Tensor, dtype) -> DTensor:
+    """`_embed`'s lookup in a table split over its vocabulary: (B, S, d)
+    rows, a partial sum over the vocabulary's mesh dims (exactly one rank
+    adds a nonzero row), split over the batch as the tokens are."""
+    mesh, vdims = table.device_mesh, _split_dims(table, 0)
+    want = [p if d in vdims else Replicate()
+            for d, p in enumerate(table.placements)]
+    shape, off = shard_extent(table.shape, mesh, want)
+    lo, n = off[0], shape[0]
+    tok_pl = (_row_placements(tokens) if isinstance(tokens, DTensor)
+              else [Replicate()] * mesh.ndim)
+
+    def local(tab, tok):
+        t = tok.long() - lo
+        hit = ((t >= 0) & (t < n))[..., None]
+        rows = F.embedding(t.clamp(0, n - 1), tab)
+        return torch.where(hit, rows, torch.zeros((), dtype=rows.dtype,
+                                                  device=rows.device)
+                           ).to(dtype)
+
+    out = [Partial() if d in vdims else p for d, p in enumerate(tok_pl)]
+    return on_shards(local, mesh, (table, tokens), (want, tok_pl), out,
+                     (*tokens.shape, table.shape[1]))
 
 
 def _head(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -713,20 +773,58 @@ def forward(params: dict, tokens: torch.Tensor, cfg, *,
     return _head(qparams, x, cfg), aux
 
 
+def _logz_and_target(logits: torch.Tensor, targets: torch.Tensor):
+    """(logsumexp of `logits` (B, S, Vp) over the vocabulary, the
+    targets' logits), each (B, S).  On a mesh whose 'model' axis splits
+    the vocabulary, vocabulary-parallel (`_vocab_parallel`); elsewhere
+    the library's `logsumexp` and a gather."""
+    if _split_dims(logits, -1):
+        return _vocab_parallel(logits, targets)
+    logits = constrain(logits, DATA, None, None)
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return logz, tgt
+
+
+def _vocab_parallel(logits: DTensor, targets: torch.Tensor):
+    """`_logz_and_target` over logits split along the vocabulary, as XLA
+    partitions JAX's `logsumexp` and `take_along_axis`: each rank's max,
+    the max over the vocabulary's mesh dims, each rank's sum of
+    exp(x - max), their sum; the target's logit each rank's masked pick,
+    summed.  Only (B, S) values cross those dims, forward and backward:
+    the gradient of each rank's logits is computed on its shard."""
+    mesh, pl = logits.device_mesh, logits.placements
+    vdims = _split_dims(logits, -1)
+    groups = [mesh.get_group(d).group_name for d in vdims]
+    shape, off = shard_extent(logits.shape, mesh, pl)
+    lo, n = off[-1], shape[-1]
+
+    def local(lg, tg):
+        m = reduce_over(lg.detach().amax(dim=-1, keepdim=True), groups, "max")
+        logz = m[..., 0] + torch.log(sum_over(torch.exp(lg - m).sum(dim=-1),
+                                              groups))
+        t = tg.long() - lo
+        hit = (t >= 0) & (t < n)
+        pick = torch.gather(lg, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+        zero = torch.zeros((), dtype=lg.dtype, device=lg.device)
+        return logz, sum_over(torch.where(hit, pick, zero), groups)
+
+    rows = _row_placements(logits)
+    return on_shards(local, mesh, (logits, targets), (pl, rows),
+                     (rows, rows), (logits.shape[:2], logits.shape[:2]))
+
+
 def lm_loss(params: dict, batch: dict, cfg, *, training: bool = True,
             noise=None, aux_weight: float = 0.01, z_weight: float = 1e-4):
     """batch {'tokens': (B, S), 'targets': (B, S), and 'img' or
     'enc_frames' where the family reads one} -> (loss, {'nll', 'moe_aux'}):
     the mean nll, plus `aux_weight` x the MoE aux loss, plus `z_weight` x
-    mean(logz^2)."""
+    mean(logz^2).  On a tensor-parallel mesh the logits stay split over
+    the vocabulary (`_logz_and_target`)."""
     logits, aux = forward(params, batch["tokens"], cfg, training=training,
                           noise=noise, img=batch.get("img"),
                           enc_frames=batch.get("enc_frames"))
-    # the vocab gathered whole before the target's logit is picked: a
-    # DTensor's vocab-sharded gather mis-sizes its mask
-    logits = constrain(logits, DATA, None, None)
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, batch["targets"].long()[..., None])[..., 0]
+    logz, tgt = _logz_and_target(logits, batch["targets"])
     nll = torch.mean(logz - tgt)
     loss = nll + aux_weight * aux + z_weight * torch.mean(torch.square(logz))
     return loss, {"nll": nll, "moe_aux": aux}

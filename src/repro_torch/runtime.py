@@ -19,6 +19,13 @@ by a row-parallel one ends in a `Partial` sum and its all-reduce.
 
 `abstract_mesh(sizes, names)` is JAX's device-free mesh: axis sizes only,
 so rules can be built and tested for a 512-device pod without a process.
+
+Where DTensor's own choices would move more than XLA's partitioner does,
+the model code states the layout: `reduced` sums a row-parallel product
+at once, `grad_reduced` sums the input gradients of column-parallel
+products once, and `on_shards` runs an op on each rank's shards, with
+`reduce_over`/`sum_over` for the (B, S)-sized reductions of a
+vocabulary-parallel loss.
 """
 from __future__ import annotations
 
@@ -240,18 +247,84 @@ def on_shards(fn, mesh, args: Sequence, want: Sequence, out,
     if got is None:  # fn wrote into the local shards
         return None
     if isinstance(got, torch.Tensor):
-        return _from_local(got, out, shapes, mesh=mesh)
+        return from_local(got, mesh, out, shapes)
     shapes = shapes or (None,) * len(got)
-    return tuple(_from_local(*t, mesh=mesh) for t in zip(got, out, shapes))
+    return tuple(from_local(o, mesh, pl, sh)
+                 for o, pl, sh in zip(got, out, shapes))
 
 
-def _from_local(o: torch.Tensor, pl, shape=None, *, mesh) -> DTensor:
-    """Rank-local `o` as a DTensor of placements `pl`; even shards unless
-    the global `shape` is given."""
+def reduce_over(t: torch.Tensor, groups: Sequence[str],
+                op: str = "sum") -> torch.Tensor:
+    """`t` all-reduced (`op`: "sum" or "max") over each process group in
+    `groups` (group names) in turn: the rank-local half of a reduction
+    over mesh dims, inside `on_shards`.  Carries no gradient."""
+    for g in groups:
+        t = torch.ops._c10d_functional.wait_tensor(
+            torch.ops._c10d_functional.all_reduce(t, op, g))
+    return t
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of every rank's share over `groups`; its gradient is the
+    caller's replicated gradient as it is (each share enters the sum
+    once, so its gradient is the sum's)."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        return reduce_over(t, groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over(t: torch.Tensor, groups: Sequence[str]) -> torch.Tensor:
+    """`reduce_over(t, groups)` with gradients: each rank's share of a sum
+    whose result every rank holds whole (a vocabulary-parallel softmax's
+    denominator, a lookup's rows)."""
+    return _SumOver.apply(t, tuple(groups))
+
+
+def from_local(o: torch.Tensor, mesh, pl, shape=None) -> DTensor:
+    """Rank-local `o` as a DTensor of placements `pl` over `mesh`; even
+    shards unless the global `shape` is given (its strides contiguous,
+    computed: a tensor of the global shape, even on the meta device, would
+    count as an allocation in the dry-run)."""
     if shape is None:
         return DTensor.from_local(o, mesh, pl, run_check=False)
+    stride, n = [], 1
+    for size in reversed(tuple(shape)):
+        stride.append(n)
+        n *= max(int(size), 1)
     return DTensor.from_local(o, mesh, pl, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=tuple(reversed(stride)))
+
+
+class _ReducedGrad(torch.autograd.Function):
+    """The identity, whose gradient has its pending partial sums reduced
+    (`reduced`)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduced(grad)
+
+
+def grad_reduced(x):
+    """`x`, whose gradient is summed over the mesh dims where it arrives
+    as partial sums: the input of column-parallel products (the
+    attention's projections, the MLP's gate and up, the experts' and
+    the SSD mixer's input) gets one all-reduce of their summed input
+    gradients, as XLA's
+    partitioner reduces the transpose of JAX's products, and the residual
+    stream's gradient stays whole over 'model'.  A plain tensor as it
+    is."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _ReducedGrad.apply(x)
 
 
 def reduced(x):

@@ -67,10 +67,9 @@ recurrent step on the device, so every chunk runs at its own length and
 `prefill_steps` counts prompt tokens.  `warm()` runs a chunk and a
 throwaway request before the clock starts.  Refused: a prefix cache over
 ring (sliding-window) caches, whose live window need not start at column
-0, and on a mesh (a splice would move a slot's bytes between data
-shards); and, with JAX's messages, runtimes with `extras`
-(cross-attention sources: whisper and the VLM serve in lockstep),
-speculation and a prefix cache over a "whole" runtime.
+0; and, with JAX's messages, runtimes with `extras` (cross-attention
+sources: whisper and the VLM serve in lockstep), speculation and a prefix
+cache over a "whole" runtime.
 
 A mesh (`mesh=`, a `DeviceMesh` with JAX's axis names, one process a
 device: `launch.mesh.make_serve_mesh`).  The slot pool shards over the
@@ -91,7 +90,13 @@ first; 0 on a data-only mesh, JAX's assertion on the HLO.  As in JAX,
 `slots % D` raises, admission spreads over the shards, `stats()` reports
 each shard and the mesh, and a packed tree is refused when the CUDA
 kernels are the route (they are single-device launches); on the CPU it
-serves through the plain versions with its codes sharded.
+serves through the plain versions with its codes sharded.  A prefix cache
+serves a mesh as JAX's does: an entry is the batch-1 state of a slot
+copied on the rank that owns it and broadcast over the data axes
+(`_from_owner`; a tensor-parallel state's shard over 'model' stays each
+rank's), so every rank holds the same entry, and a splice writes it into
+the owning shard's pool alone.  Every rank runs the same scheduler, so
+lookups, insertions and evictions happen alike on every rank.
 """
 from __future__ import annotations
 
@@ -105,6 +110,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
 
 from repro_torch.core import bnlstm as BL
@@ -114,7 +120,8 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch import sharding as S
 from repro_torch.runtime import axis_sizes
 from repro_torch.serve.kvcache import (AttnCache, cache_gather_slot,
-                                       cache_reset_slots, cache_write_slot)
+                                       cache_reset_slots, cache_write_slot,
+                                       same_bytes)
 from repro_torch.serve.prefixcache import narrow_state, widen_state
 from repro_torch.serve.sampler import DRAFT, sample_slots, spec_accept
 
@@ -207,7 +214,7 @@ def tree_write_slot(pool, sub, slot: int):
         if isinstance(p, AttnCache):
             return cache_write_slot(p, s, slot)
         row = p.narrow(_slot_axis(path), slot, 1)
-        if row.data_ptr() != s.data_ptr():
+        if not same_bytes(row, s):
             row.copy_(s.reshape(row.shape))
         return p
     return tree_map_with_path(write, pool, sub)
@@ -287,8 +294,10 @@ class ServeEngine:
         family = getattr(rt, "family", None)
         if family not in ("rnn", "transformer"):
             raise NotImplementedError(
-                "the port's engine schedules the RNN and transformer "
-                "runtimes; other runtimes wait for ROADMAP Queue 1 item 9")
+                f"the engine schedules the serving runtimes of "
+                f"serve/recurrent.py (the RNN's and the transformer "
+                f"pool's), as JAX's does; a {family} runtime has none of "
+                f"their slot hooks")
         whole = getattr(rt, "chunk_granularity", "token") == "whole"
         if prefix_cache is not None and whole:
             raise NotImplementedError(
@@ -326,10 +335,6 @@ class ServeEngine:
             if draft.device != rt.device:
                 raise ValueError(f"draft on {draft.device}, target on "
                                  f"{rt.device}")
-        if mesh is not None and prefix_cache is not None:
-            raise NotImplementedError(
-                "a prefix cache on a mesh: a splice would move a slot's "
-                "state between data shards")
         self.mesh = mesh
         self._data_shards, self._shard = 1, 0
         self._data_dims: Tuple[str, ...] = ()
@@ -450,6 +455,32 @@ class ServeEngine:
             dist.all_gather(parts, t.contiguous(), group=group)
             t = torch.cat(parts)
         return t
+
+    def _from_owner(self, state, slot: int):
+        """`state` (a copied slot state, a DTensor's local shard on a
+        tensor-parallel runtime) broadcast over the data axes from the
+        data shard that owns `slot`, in place: every rank then holds the
+        owner's bytes (one broadcast a data axis, the inner axis first, as
+        `_gather_data`).  Without data shards, `state`."""
+        if not self._data_dims:
+            return state
+        sizes, shard, src = axis_sizes(self.mesh), slot // self._per, {}
+        for a in reversed(self._data_dims):
+            shard, src[a] = divmod(shard, sizes[a])
+
+        def bcast(t):
+            t = t.to_local() if isinstance(t, DTensor) else t
+            for a in reversed(self._data_dims):
+                group = self.mesh.get_group(a)
+                dist.broadcast(t, src=dist.get_global_rank(group, src[a]),
+                               group=group)
+        for leaf in tree_leaves(state):
+            if isinstance(leaf, AttnCache):
+                for t in (leaf.k, leaf.v, leaf.pos):
+                    bcast(t)
+            else:
+                bcast(leaf)
+        return state
 
     def _agreed(self, now: float) -> float:
         """On a mesh of several ranks, the latest of the ranks' clocks (one
@@ -822,14 +853,17 @@ class ServeEngine:
         if self.prefix_cache is not None:
             cached, entry = self.prefix_cache.lookup(prompt)
             if entry is not None and self.spec and entry.draft_state is None:
-                cached, entry = 0, None  # stored by a plain engine: no draft
-            if entry is not None:        # half to keep in step
-                self._write(self.pool, widen_state(entry.state, self.pool),
-                            slot)
-                if self.spec:
-                    self._write(self.draft_pool,
-                                widen_state(entry.draft_state,
-                                            self.draft_pool), slot)
+                # stored by a plain engine: no draft half to keep in step
+                cached, entry = 0, None
+            row = self._local(slot)  # the owning data shard splices
+            if entry is not None and row is not None:
+                with self.rt.mesh_context():
+                    self._write(self.pool, widen_state(entry.state,
+                                                       self.pool), row)
+                    if self.spec:
+                        self._write(self.draft_pool,
+                                    widen_state(entry.draft_state,
+                                                self.draft_pool), row)
         C = prompt.size if self.whole_prompt else self.prefill_chunk
         chunks = deque(prompt[i:i + C].astype(np.int64)
                        for i in range(cached, prompt.size, C))
@@ -846,10 +880,15 @@ class ServeEngine:
         prefix = act.prompt[:act.off]
         if self.prefix_cache.contains(prefix):
             return
-        keep = lambda pool: _clone(narrow_state(self._slot_row(pool, slot),
-                                                act.off))
-        sub = keep(self.pool)
-        dsub = keep(self.draft_pool) if self.spec else None
+        row = self._local(slot)
+        with self.rt.mesh_context():
+            # a rank of another data shard copies a row of its own as the
+            # buffer the owner's bytes are broadcast into
+            keep = lambda pool: self._from_owner(_clone(narrow_state(
+                self._slot_row(pool, 0 if row is None else row), act.off)),
+                slot)
+            sub = keep(self.pool)
+            dsub = keep(self.draft_pool) if self.spec else None
         self.prefix_cache.insert(prefix, sub, dsub)
 
     def _prefill_step(self):

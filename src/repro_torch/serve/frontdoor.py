@@ -33,6 +33,14 @@ Tokens stream as ids, not text: the repo has no tokenizer dependency and
 the paper's PTB/wiki vocabularies are word-level anyway; a real deployment
 maps ids to text at the edge.
 
+A MESH ENGINE (`ServeEngine(mesh=...)`, one process a device) runs the
+same scheduler on every rank.  Rank 0 runs the front door; before each
+scheduler iteration it sends the submissions and cancellations it took
+since the last one to every rank (`MeshFeed`: one
+`broadcast_object_list`, a heartbeat while idle), and every other rank
+applies them in the same order and runs the same iteration (`follow`),
+so all ranks admit, tick and retire alike.  Rank 0 streams the tokens.
+
 `python -m repro_torch.serve.frontdoor --smoke [--device cpu]` runs the
 smoke: start a tiny packed-ternary LSTM server on 127.0.0.1, stream one
 request to completion, cancel a second mid-stream by hanging up, re-send a
@@ -44,16 +52,53 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import sys
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.serve.engine import Request, ServeEngine
 
 _MAX_BODY = 1 << 20  # a 1 MiB prompt is ~260k int32 tokens — far past any
                      # context this engine provisions; bigger is a bad client
+HEARTBEAT_S = 10.0   # an idle mesh front door's broadcast period: the other
+                     # ranks wait in a collective, which has a timeout
+
+
+class MeshFeed:
+    """Rank 0's side of a mesh engine's scheduler: the submissions and
+    cancellations of the front door, in the order they happened, sent to
+    every rank of the default process group before each iteration."""
+
+    def __init__(self):
+        self.ops: List[Tuple[str, object]] = []
+
+    def send(self, stop: bool = False) -> None:
+        msg = ["stop" if stop else self.ops]
+        dist.broadcast_object_list(msg, src=0)
+        self.ops = []
+
+
+def follow(engine: ServeEngine) -> None:
+    """A rank other than 0 of a mesh engine behind the front door: apply
+    each batch of rank 0's submissions and cancellations in order, then
+    run the iteration rank 0 runs (one `step()` when there is work), until
+    rank 0 stops."""
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0)
+        if msg[0] == "stop":
+            return
+        for op, arg in msg[0]:
+            if op == "submit":
+                engine.submit(arg)
+            else:
+                engine.cancel(arg)
+        if engine.has_work():
+            engine.step()
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +165,9 @@ class FrontDoor:
     def __init__(self, engine: ServeEngine, host: str = "127.0.0.1",
                  port: int = 8700):
         self.engine = engine
+        mesh = engine.mesh
+        self._feed = (MeshFeed() if mesh is not None and mesh.size() > 1
+                      else None)
         self.host, self.port = host, int(port)
         self._streams: Dict[int, asyncio.Queue] = {}
         self._wake = asyncio.Event()
@@ -129,19 +177,45 @@ class FrontDoor:
 
     # -- engine pump --------------------------------------------------------
 
+    def _submit(self, req: Request) -> int:
+        rid = self.engine.submit(req)
+        if self._feed is not None:
+            self._feed.ops.append(("submit", dataclasses.replace(req,
+                                                                 rid=rid)))
+        return rid
+
+    def _cancel(self, rid: int) -> None:
+        self.engine.cancel(rid)
+        if self._feed is not None:
+            self._feed.ops.append(("cancel", rid))
+
     async def _pump(self) -> None:
         """The scheduler loop as an asyncio task: one `engine.step()` per
         iteration while work exists, fan the sampled tokens out to the
-        per-request stream queues, park on an Event when idle.  The
-        `sleep(0)` between steps is the handlers' window to submit and
-        cancel — the same between-iterations granularity `run()` gives a
-        batch of requests."""
+        per-request stream queues, park on an Event when idle (on a mesh,
+        waking every HEARTBEAT_S to keep the other ranks' collective
+        alive).  The `sleep(0)` between steps is the handlers' window to
+        submit and cancel — the same between-iterations granularity
+        `run()` gives a batch of requests.  On a mesh every iteration
+        first sends what the handlers did since the last one, and the
+        other ranks run it alike (`follow`)."""
         while not self._closing:
-            if not self.engine.has_work():
+            if not self.engine.has_work() and not (self._feed and
+                                                   self._feed.ops):
                 self._wake.clear()
                 if self.engine.has_work():  # submit raced the clear
                     continue
-                await self._wake.wait()
+                try:
+                    await asyncio.wait_for(
+                        self._wake.wait(),
+                        HEARTBEAT_S if self._feed is not None else None)
+                except asyncio.TimeoutError:
+                    pass
+                if self._feed is None or self._closing:
+                    continue
+            if self._feed is not None:
+                self._feed.send()
+            if not self.engine.has_work():
                 continue
             events, comps = self.engine.step()
             for rid, toks in events:
@@ -194,7 +268,7 @@ class FrontDoor:
     async def _generate(self, reader, writer, body: bytes) -> None:
         try:
             req = self._parse_request(body)
-            rid = self.engine.submit(req)
+            rid = self._submit(req)
         except (KeyError, TypeError, ValueError, json.JSONDecodeError) as e:
             writer.write(_json_response("400 Bad Request",
                                         {"error": str(e)}))
@@ -218,7 +292,7 @@ class FrontDoor:
                     {get, hangup}, return_when=asyncio.FIRST_COMPLETED)
                 if get not in done:  # client hung up mid-stream
                     get.cancel()
-                    self.engine.cancel(rid)
+                    self._cancel(rid)
                     return
                 kind, payload = get.result()
                 if kind == "tokens":
@@ -237,7 +311,7 @@ class FrontDoor:
                     return
         except (ConnectionError, OSError):
             # the SSE write itself failed: same as a hangup
-            self.engine.cancel(rid)
+            self._cancel(rid)
         finally:
             hangup.cancel()
             self._streams.pop(rid, None)
@@ -260,6 +334,9 @@ class FrontDoor:
         self._wake.set()
         if self._pump_task is not None:
             self._pump_task.cancel()
+        if self._feed is not None:  # the other ranks leave `follow`
+            self._feed.send(stop=True)
+            self._feed = None
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()

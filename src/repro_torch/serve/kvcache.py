@@ -258,9 +258,17 @@ def cache_write_slot(c: AttnCache, sub: AttnCache, slot: int) -> AttnCache:
     ax = _slot_axis(c)
     for dst, src in ((c.k, sub.k), (c.v, sub.v), (c.pos, sub.pos)):
         row = dst.narrow(ax, slot, 1)
-        if row.data_ptr() != src.data_ptr():
+        if not same_bytes(row, src):
             row.copy_(src.reshape(row.shape))
     return c
+
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True where `a` and `b` view the same memory (a DTensor by its local
+    shard: the wrapper's own address is its offset alone, so slot 0's row
+    and any fresh tensor would compare equal)."""
+    local = lambda t: t.to_local() if isinstance(t, DTensor) else t
+    return local(a).data_ptr() == local(b).data_ptr()
 
 
 def cache_reset_slots(c: AttnCache, slots: Sequence[int]) -> AttnCache:

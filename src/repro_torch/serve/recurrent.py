@@ -328,8 +328,9 @@ def speculative_draft(rt, mode: str = "ternary"):
                           device=rt.device)
     if not isinstance(rt, TransformerRuntime):
         raise NotImplementedError(
-            f"speculative pairing of a {getattr(rt, 'family', type(rt))} "
-            f"runtime waits for ROADMAP Queue 1 item 9")
+            f"speculative pairing packs the target's fp masters into the "
+            f"RNN's or the transformer pool's runtime, as JAX's does; a "
+            f"{getattr(rt, 'family', type(rt))} runtime is neither")
     if any(is_qtensor(l) for l in tree_leaves(rt.params)):
         raise ValueError(packed_msg)
     dcfg = rt.cfg.with_quant(QuantSpec(mode=mode, norm="channel"))

@@ -555,7 +555,7 @@ def test_engine_refuses_bad_requests_and_unported_modes():
     comps, _ = eng.run([r], realtime=False)
     assert r.rid is None and comps[0].rid == 0
     # a mesh is served (its refusal is gone): a data mesh of one rank is
-    # one shard, and a prefix cache beside a mesh is refused
+    # one shard, and so is a prefix cache beside it
     from repro_torch.launch import mesh as M
     from repro_torch.serve.prefixcache import PrefixCache
     try:
@@ -566,9 +566,11 @@ def test_engine_refuses_bad_requests_and_unported_modes():
         assert mcomps[0].tokens == comps[0].tokens
         assert meng.stats()["mesh"] == {"data": 1, "model": 1}
         assert meng.tick_collectives() == 0
-        with pytest.raises(NotImplementedError, match="prefix cache"):
-            ServeEngine(trt, VOCAB, slots=2, max_context=8, mesh=mesh,
-                        prefix_cache=PrefixCache(1 << 20))
+        peng = ServeEngine(trt, VOCAB, slots=2, max_context=8, mesh=mesh,
+                           prefix_cache=PrefixCache(1 << 20))
+        pcomps, _ = peng.run([Request(prompt=np.zeros(2, np.int32),
+                                      max_tokens=2)], realtime=False)
+        assert pcomps[0].tokens == comps[0].tokens
     finally:
         torch.distributed.destroy_process_group()
 
@@ -580,7 +582,8 @@ def test_engine_refuses_bad_requests_and_unported_modes():
 
     class Hybrid:  # a family the engine does not schedule
         family = "hybrid"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="hybrid runtime has none of their slot hooks"):
         ServeEngine(Hybrid(), VOCAB, slots=2, max_context=8)
     with pytest.raises(ValueError, match="BOTH"):
         ServeEngine(trt, VOCAB, slots=2, max_context=8, spec_k=2)

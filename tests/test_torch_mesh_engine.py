@@ -20,10 +20,15 @@ chunks of 4 so that the data axis divides the pool, over JAX's weights
 Each rank is a child process (a file store, a timeout for each); the
 meshes are built over the first D * M of 4 ranks, the rest wait.  A
 packed qwen3 at data = 2, model = 2 drains with its codes sharded per
-`qtensor_pspecs` (a liveness and layout proof: tensor parallelism sums
-over shards in another order, as JAX's test says), `slots % D` raises,
-`stats()` reports the shards, and `launch.serve --mesh` runs under
-`torchrun`.
+`qtensor_pspecs`, its streams the mesh=None engine's (tensor parallelism
+sums over shards in another order, 2e-7 of the logits here), and so
+does a packed qwen3-moe (`moe._moe_packed_mesh`, its layer within 1e-5
+of mesh=None's); a prefix cache on a data mesh splices an entry built on
+one data shard into a slot of another, every stream the mesh=None
+engine's with and without the cache; `slots % D` raises, `stats()`
+reports the shards, and `launch.serve --mesh` runs under `torchrun`, with
+--traffic and with --listen (two requests over HTTP, one behind the
+other's prefix, streamed what --listen without a mesh streams).
 """
 import dataclasses
 import os
@@ -63,6 +68,38 @@ CHILD_TIMEOUT = 240
 CTX, SLOTS, CHUNK = 32, 8, 4
 SEEDS = {"lstm-packed": (100, 101, 103), "qwen3": (300, 302)}
 SPECS = ("data=2", "data=4")
+_ARCH = {"qwen3": "qwen3-0.6b", "qwen3-packed": "qwen3-0.6b",
+         "moe-packed": "qwen3-moe-30b-a3b"}
+MOE_SEEDS = (300, 301)
+MOE_REL = 1e-5
+
+
+def prefix_workload(vocab: int) -> list:
+    """Two phases over one engine: request 0 alone (admitted to slot 0, on
+    data shard 0, its chunk boundaries cached), then requests 1 and 2
+    behind the same 8-token prefix (the balancer puts 2 on another data
+    shard), each phase a list of requests; greedy and sampled."""
+    rng = np.random.default_rng(11)
+    system = rng.integers(0, vocab, size=8)
+    tail = lambda n: np.concatenate([system, rng.integers(0, vocab, size=n)])
+    return [[Request(prompt=tail(3), max_tokens=5, temperature=0.0, seed=1,
+                     rid=0)],
+            [Request(prompt=tail(2), max_tokens=6, temperature=0.8,
+                     top_k=5, seed=2, rid=1),
+             Request(prompt=tail(5), max_tokens=4, temperature=0.0, seed=3,
+                     rid=2)]]
+
+
+def drain_phases(eng, phases) -> dict:
+    """Each phase drained in turn on one engine: {rid: (tokens, finished,
+    slot, cached tokens)}."""
+    out = {}
+    for reqs in phases:
+        comps, _ = eng.run([dataclasses.replace(r) for r in reqs],
+                           realtime=False)
+        out.update({c.rid: (c.tokens, c.finished, c.slot, c.cached_tokens)
+                    for c in comps})
+    return out
 
 
 def _env() -> dict:
@@ -105,8 +142,8 @@ def jax_variables(family: str):
         var = JBL.rnn_lm_init(jax.random.PRNGKey(0), cfg)
         return {"params": JBL.export_packed_rnn(var["params"], cfg),
                 "state": var["state"]}
-    cfg = j_get_config("qwen3-0.6b").reduced()
-    if family == "qwen3-packed":
+    cfg = j_get_config(_ARCH[family]).reduced()
+    if family.endswith("-packed"):
         cfg = cfg.with_quant(JQuantSpec(mode="ternary", norm="channel"))
         return j_export_packed(JT.model_init(jax.random.PRNGKey(0), cfg),
                                cfg.quant)
@@ -130,8 +167,8 @@ def port_runtime(family: str, tree):
                            quant=QuantSpec(mode="ternary", norm="batch"))
         return R.RNNRuntime(cfg, convert.from_numpy(tree, "cpu"),
                             device="cpu"), cfg.vocab
-    cfg = get_config("qwen3-0.6b").reduced()
-    if family == "qwen3-packed":
+    cfg = get_config(_ARCH[family]).reduced()
+    if family.endswith("-packed"):
         cfg = cfg.with_quant(QuantSpec(mode="ternary", norm="channel"))
     return R.TransformerRuntime(cfg, convert.from_numpy(tree, "cpu"),
                                 device="cpu"), cfg.vocab
@@ -214,6 +251,36 @@ def rank_runs(rank: int, trees: dict) -> dict:
     out["tp"] = {"streams": got, "layouts": layouts,
                  "collectives": eng.tick_collectives(),
                  "stats": eng.stats()}
+    # a packed MoE layer on data = 2, model = 2: the experts split over
+    # 'model', each rank's on its local codes
+    rt, vocab = port_runtime("moe-packed", trees["moe-packed"])
+    mesh = M.make_serve_mesh("data=2,model=2", "cpu")
+    eng = ServeEngine(rt, vocab, slots=SLOTS, max_context=CTX,
+                      prefill_chunk=CHUNK, mesh=mesh)
+    out["moe"] = {seed: drain(eng, scenario(seed, vocab))
+                  for seed in MOE_SEEDS}
+    x = torch.randn((3, 5, rt.cfg.d_model),
+                    generator=torch.Generator().manual_seed(5))
+    from repro_torch.models.moe import moe_apply
+    from torch.distributed.tensor import DTensor, Replicate
+    with torch.no_grad():
+        want = moe_apply(rt.served.layers[0][1]["moe"], x, rt.cfg)[0]
+        with eng.rt.mesh_context():
+            got = moe_apply(eng.rt.served.layers[0][1]["moe"],
+                            DTensor.from_local(x, eng.rt.tp_mesh,
+                                               [Replicate()]), rt.cfg)[0]
+    out["moe_apply"] = (S.full(got), want)
+    # a prefix cache on a data mesh: entries broadcast from the owning shard
+    from repro_torch.serve.prefixcache import PrefixCache
+    rt, vocab = port_runtime("qwen3", trees["qwen3"])
+    mesh = M.make_serve_mesh("data=2", "cpu")
+    if mesh.get_coordinate() is not None:
+        cache = PrefixCache(1 << 22)
+        eng = ServeEngine(rt, vocab, slots=SLOTS, max_context=CTX,
+                          prefill_chunk=CHUNK, mesh=mesh, prefix_cache=cache)
+        out["prefix"] = {"streams": drain_phases(eng,
+                                                 prefix_workload(vocab)),
+                         "stats": cache.stats()}
     # slots must split over the data shards
     mesh = M.make_serve_mesh("data=4", "cpu")
     rt, vocab = port_runtime("lstm-packed", trees["lstm-packed"])
@@ -242,7 +309,7 @@ def rank_runs(rank: int, trees: dict) -> dict:
 def ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh")
     jtrees = {f: jax_variables(f) for f in ("lstm-packed", "qwen3",
-                                            "qwen3-packed")}
+                                            "qwen3-packed", "moe-packed")}
     trees = {f: _numpy(t) for f, t in jtrees.items()}
     job = tmp / "job.pkl"
     with open(job, "wb") as f:
@@ -322,16 +389,19 @@ def test_data_sharded_streams_are_the_single_device_engines(ranks, family,
 
 def test_packed_qwen3_drains_with_codes_sharded_over_model(ranks):
     """data = 2, model = 2 over a packed qwen3: the workload drains on
-    every rank alike, every packed leaf's codes are a DTensor in
-    `qtensor_pspecs`' layout over the model axis, some sharded along
-    'model' (columns of the up-projections, packed rows of the down);
-    the tensor-parallel tick reduces over 'model'."""
+    every rank alike, its streams the mesh=None engine's, every packed
+    leaf's codes are a DTensor in `qtensor_pspecs`' layout over the model
+    axis, some sharded along 'model' (columns of the up-projections,
+    packed rows of the down); the tensor-parallel tick reduces over
+    'model'."""
     trees, _, got = ranks
     runs = [g["tp"] for g in got]
     rt, vocab = port_runtime("qwen3-packed", trees["qwen3-packed"])
     reqs = scenario(301, vocab)
+    want = drain(ServeEngine(rt, vocab, slots=SLOTS, max_context=CTX,
+                             prefill_chunk=CHUNK), reqs)
     for r in runs:
-        assert r["streams"] == runs[0]["streams"]
+        assert r["streams"] == runs[0]["streams"] == want
         assert sorted(r["streams"]) == [q.rid for q in reqs]
         for q in reqs:
             toks, fin = r["streams"][q.rid]
@@ -340,6 +410,52 @@ def test_packed_qwen3_drains_with_codes_sharded_over_model(ranks):
         assert any("model" in str(spec) for spec, _, _ in r["layouts"])
         assert r["collectives"] > 0
         assert r["stats"]["mesh"] == {"data": 2, "model": 2}
+
+
+def test_packed_moe_on_a_mesh_is_the_single_device_engines(ranks):
+    """A packed qwen3-moe at data = 2, model = 2 (4 experts over 'model',
+    each rank's through `qmatmul` on its local codes): every stream, on
+    every rank, is the mesh=None engine's, and the layer's output is
+    within 1e-5 of mesh=None's."""
+    trees, _, got = ranks
+    rt, vocab = port_runtime("moe-packed", trees["moe-packed"])
+    for seed in MOE_SEEDS:
+        eng = ServeEngine(rt, vocab, slots=SLOTS, max_context=CTX,
+                          prefill_chunk=CHUNK)
+        want = drain(eng, scenario(seed, vocab))
+        for g in got:
+            assert g["moe"][seed] == want, (seed, g["moe"][seed], want)
+    for g in got:
+        mesh_y, plain_y = g["moe_apply"]
+        err = float((mesh_y - plain_y).abs().max() / plain_y.abs().max())
+        assert err <= MOE_REL, err
+
+
+def test_prefix_cache_on_a_mesh_is_the_single_device_engines(ranks):
+    """A prefix cache on a data = 2 mesh: every rank's streams equal the
+    mesh=None engine's with the cache and without it; the shared prefix
+    hits, and the entry built from request 0's slot on data shard 0 is
+    spliced into request 2's slot on shard 1."""
+    from repro_torch.serve.prefixcache import PrefixCache
+    trees, _, got = ranks
+    rt, vocab = port_runtime("qwen3", trees["qwen3"])
+    phases = prefix_workload(vocab)
+    stream = lambda d: {rid: v[:2] for rid, v in d.items()}
+    cached = ServeEngine(rt, vocab, slots=SLOTS, max_context=CTX,
+                         prefill_chunk=CHUNK,
+                         prefix_cache=PrefixCache(1 << 22))
+    want = drain_phases(cached, phases)
+    cold = drain_phases(ServeEngine(rt, vocab, slots=SLOTS, max_context=CTX,
+                                    prefill_chunk=CHUNK), phases)
+    assert stream(want) == stream(cold)
+    on = [g for g in got if "prefix" in g]
+    assert len(on) == 2
+    for g in on:
+        mine = g["prefix"]["streams"]
+        assert stream(mine) == stream(want), (mine, want)
+        assert g["prefix"]["stats"]["hits"] > 0
+        assert mine[0][2] < SLOTS // 2 <= mine[2][2]  # shard 0, then 1
+        assert mine[2][3] > 0 and mine[1][3] > 0
 
 
 def test_slots_must_split_over_the_data_shards(ranks):
@@ -379,3 +495,79 @@ def test_serve_mesh_under_torchrun(tmp_path):
                      "sharded along 'data', weights tensor-parallel along "
                      "'model'") == 1, out
     assert "traffic: 6 requests" in out and "aggregate decode" in out, out
+
+
+LISTEN_ARGS = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
+               "--quant", "none", "--listen", "--port", "0", "--slots", "4",
+               "--prefill-chunk", "4", "--prompt-len", "16", "--gen", "8",
+               "--prefix-cache-mb", "8"]
+
+
+def _listening(proc, deadline: float) -> int:
+    """The port a launcher's front door reports it listens on."""
+    import re
+    import time
+    while time.time() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            break
+        m = re.search(r"front door listening on http://[\d.]+:(\d+)", line)
+        if m:
+            return int(m.group(1))
+    raise AssertionError(f"no front door: exit {proc.poll()}, "
+                         f"{proc.stderr.read()[-3000:]}")
+
+
+def test_listen_on_a_mesh_under_torchrun(tmp_path):
+    """`torchrun --nproc-per-node 2` of `launch.serve --listen --mesh
+    data=2` beside `--listen` without a mesh: two requests over HTTP, the
+    second behind the first's 8-token prefix, get the same tokens from
+    both; on the mesh the second is served from the prefix cache."""
+    import asyncio
+    import signal
+    import time
+    from repro_torch.serve.frontdoor import _post_stream
+    env = _env()
+    env["PYTHONUNBUFFERED"] = "1"
+    cmds = {"mesh": [sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc-per-node", "2", "-m",
+                     "repro_torch.launch.serve", *LISTEN_ARGS, "--mesh",
+                     "data=2"],
+            "plain": [sys.executable, "-m", "repro_torch.launch.serve",
+                      *LISTEN_ARGS]}
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env,
+                                 cwd=tmp_path, start_new_session=True)
+             for k, c in cmds.items()}
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, 256, size=8).tolist()
+    bodies = [{"prompt": system + rng.integers(0, 256, size=6).tolist(),
+               "max_tokens": 6, "temperature": 0.8, "top_k": 5, "seed": 1},
+              {"prompt": system + rng.integers(0, 256, size=3).tolist(),
+               "max_tokens": 5, "temperature": 0.0, "seed": 2}]
+    got = {}
+    try:
+        deadline = time.time() + CHILD_TIMEOUT
+        for k, p in procs.items():
+            port = _listening(p, deadline)
+
+            async def client():
+                return [await asyncio.wait_for(_post_stream(
+                    "127.0.0.1", port, b), timeout=CHILD_TIMEOUT)
+                    for b in bodies]
+            got[k] = asyncio.run(client())
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGINT)
+        for p in procs.values():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    for (toks, done), (want, wdone) in zip(got["mesh"], got["plain"]):
+        assert done is not None and toks == want, (toks, want)
+        assert done["n_tokens"] == wdone["n_tokens"] == len(toks)
+    assert got["mesh"][1][1]["cached_tokens"] >= 8
+    assert got["plain"][1][1]["cached_tokens"] >= 8

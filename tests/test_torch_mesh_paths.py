@@ -9,9 +9,12 @@ the (2, 2) tests of tests/test_torch_tp.py do not:
     the KV projections gathered before the head reshape (`split_heads`),
     the cache split along its length (`kv_pspec`), each rank writing the
     slots of its own range (`kvcache._write`) and scoring its own keys
-    (`layers._sdpa_split_keys`); in training K/V repeated to the query
-    heads (`_kv_heads_split`).  Serving: a 6-token prefill, a 5-token
-    chunk across the ranks' ranges, three decode steps, capacity 16;
+    (`layers._sdpa_split_keys`); in training each rank projecting the KV
+    heads its query heads read (`layers._attend_kv_local`).  Serving: a
+    6-token prefill, a 5-token chunk across the ranks' ranges, three
+    decode steps, capacity 16; and a 40-token prefill, longer than a
+    rank's 36 slots, each rank projecting the tokens of its own slots
+    (`layers.kv_write_local`), then the same chunk and steps;
   * reduced rwkv6-7b and zamba2-1.2b at (2, 2): the chunked scans rank by
     rank (`runtime.on_shards`: batch and heads apart, the shared inputs'
     gradients summed over the ranks that split the work) and rwkv6's
@@ -19,7 +22,14 @@ the (2, 2) tests of tests/test_torch_tp.py do not:
   * reduced mixtral-8x7b with 3 experts at (2, 2), trained: the experts'
     products and the combine rank by rank with the capacity axis over
     'model' (`moe._expert_mm`, `_combine`), the expert weights' gradients
-    summed over the ranks.
+    summed over the ranks;
+  * reduced qwen3-0.6b with a padded vocabulary (250 of 256) at (2, 2)
+    and (1, 4): `lm_loss` (deterministic quantization) and its gradients
+    with the logits split over the vocabulary (`transformer._vocab_parallel`,
+    the targets on every rank's range) and the table looked up shard by
+    shard (`_vocab_lookup`), against mesh=None and against JAX's
+    `lm_loss` on the same inputs; at (1, 4) the KV heads (2) are whole
+    on every rank (`layers._head_proj`).
 
 Each rank is a gloo child process (a file store, a timeout for each); the
 meshes are built over the first D * M of 4 ranks.  Training is one SGD
@@ -29,7 +39,10 @@ tolerances are fp32 sums over other shard boundaries (measured on torch
 2.13: serving at most 1.8e-6, updates at most 6.7e-6):
   * serving logits and caches: max |mesh - plain| <= 2e-5 max |plain|;
   * training: the loss within 1e-6 relative; each leaf's update within
-    2e-5 relative L2 of the plain step's.
+    2e-5 relative L2 of the plain step's;
+  * the loss: within 1e-6 relative, each gradient within 2e-5 relative
+    L2, the embedding's rows within 2e-5 of max |plain|, of mesh=None's
+    and of JAX's.
 """
 import contextlib
 import dataclasses
@@ -40,6 +53,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,13 +66,19 @@ SERVE_REL = 2e-5
 LOSS_REL = 1e-6
 UPDATE_REL = 2e-5
 CASES = [("qwen3-0.6b", (1, 4), "serve"), ("qwen3-0.6b", (1, 4), "train"),
+         ("qwen3-0.6b", (1, 4), "serve_long"),
          ("rwkv6-7b", (2, 2), "serve"), ("rwkv6-7b", (2, 2), "train"),
          ("zamba2-1.2b", (2, 2), "serve"), ("zamba2-1.2b", (2, 2), "train"),
-         ("mixtral-8x7b", (2, 2), "train")]
+         ("mixtral-8x7b", (2, 2), "train"), ("qwen3-0.6b", (2, 2), "loss"),
+         ("qwen3-0.6b", (1, 4), "loss")]
 # 3 experts on a 2-way model axis: the MoE splits its capacity axis over
 # 'model' (as mixtral's 8 experts on the production mesh's 16)
 OVERRIDES = {"mixtral-8x7b": {"n_experts": 3}}
+LOSS_VOCAB = 250  # padded to 256: 6 pad columns on the last rank's range
 B, CHUNKS, STEPS, CAP, T_SEQ = 4, (6, 5), 3, 16, 16
+# a first chunk longer than a rank's 36 of the cache's 144 slots: each rank
+# projects the tokens of its own slots (`layers.kv_write_local`)
+LONG_CHUNKS = (40, 5)
 
 
 def _flat(tree) -> list:
@@ -80,7 +100,7 @@ def _whole(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
-def serve(cfg, mesh) -> dict:
+def serve(cfg, mesh, chunks=CHUNKS) -> dict:
     """Prefill CHUNKS then STEPS decode steps: every call's logits, the
     caches' whole tensors, and which cache leaves the mesh splits along
     their length."""
@@ -93,7 +113,7 @@ def serve(cfg, mesh) -> dict:
     params = T.model_init(torch.Generator().manual_seed(0), cfg)
     g = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, cfg.vocab, (B, n), generator=g)
-               for n in CHUNKS]
+               for n in chunks]
     tokens = [torch.randint(0, cfg.vocab, (B,), generator=g)
               for _ in range(STEPS)]
     caches = T.init_caches(cfg, B, CAP, device="cpu")
@@ -150,6 +170,44 @@ def train(cfg, mesh) -> dict:
                        zip(tree_paths(state.params), before)}}
 
 
+def loss_batch(cfg) -> dict:
+    """A (B, T_SEQ) batch from a seed, its targets on every vocabulary
+    range of a 4-way split."""
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, size=(B, T_SEQ + 1)).astype(np.int32)
+    toks[0, 1:5] = [1, 70, 140, cfg.vocab - 1]
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def loss(cfg, mesh) -> dict:
+    """`lm_loss` at training=False and its gradients from model_init's
+    parameters, and the embedding's rows of the batch: whole tensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.core.qtensor import tree_paths
+    from repro_torch.data import loader as LD
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import use_mesh
+    from repro_torch.train import train_step as TS
+
+    params = T.model_init(torch.Generator().manual_seed(0), cfg)
+    batch = {k: torch.from_numpy(v) for k, v in loss_batch(cfg).items()}
+    on_mesh = contextlib.ExitStack()
+    if mesh is not None:
+        params = S.distribute(params, S.param_shardings(params, mesh), mesh)
+        batch = TS.shard_batch(LD.data_block(batch, mesh), mesh)
+        on_mesh.enter_context(use_mesh(mesh, param_rules=S.param_pspec))
+        on_mesh.enter_context(implicit_replication())
+    with on_mesh:
+        value, _, grads = TS.value_and_grad(
+            lambda l: T.lm_loss(l, batch, cfg, training=False), params)
+        with torch.no_grad():
+            rows = T._embed(T._serve_quant(params, cfg), batch["tokens"],
+                            cfg)
+    return {"loss": float(_whole(value)), "rows": _whole(rows),
+            "grads": {"/".join(p): _whole(g) for p, g in tree_paths(grads)}}
+
+
 def rank_runs(rank: int) -> dict:
     """Every case on this rank: the plain run and the mesh run (the mesh
     over the first D * M ranks; the others take part in making it)."""
@@ -162,7 +220,10 @@ def rank_runs(rank: int) -> dict:
             continue
         cfg = dataclasses.replace(get_config(arch).reduced(),
                                   **OVERRIDES.get(arch, {}))
-        run = serve if kind == "serve" else train
+        if kind == "loss":
+            cfg = dataclasses.replace(cfg, vocab=LOSS_VOCAB)
+        run = {"serve": serve, "train": train, "loss": loss,
+               "serve_long": lambda c, m: serve(c, m, LONG_CHUNKS)}[kind]
         out[(arch, shape, kind)] = (run(cfg, None), run(cfg, mesh))
     return out
 
@@ -218,13 +279,61 @@ def _rel_max(got, want) -> float:
                  / max(float(want.double().abs().max()), 1e-30))
 
 
+def _rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+def _jax_loss(cfg_kw: dict) -> dict:
+    """JAX's `lm_loss` (training=False) and its gradients on the loss
+    case's parameters and batch."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as j_get_config
+    from repro.models import transformer as JT
+    from repro_torch.configs import get_config
+    from repro_torch.core.qtensor import tree_map, tree_paths
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(), **cfg_kw)
+    params = tree_map(lambda t: jnp.asarray(t.numpy()), T.model_init(
+        torch.Generator().manual_seed(0), cfg))
+    jcfg = dataclasses.replace(j_get_config("qwen3-0.6b").reduced(),
+                               **cfg_kw)
+    batch = {k: jnp.asarray(v) for k, v in loss_batch(cfg).items()}
+    (value, _), grads = jax.value_and_grad(
+        lambda p: JT.lm_loss(p, batch, jcfg, training=False),
+        has_aux=True)(params)
+    return {"loss": float(value),
+            "grads": {"/".join(p): np.asarray(g)
+                      for p, g in tree_paths(tree_map(np.asarray, grads))}}
+
+
 @pytest.mark.parametrize("arch,shape,kind", CASES)
 def test_mesh_path_matches_no_mesh(ranks, arch, shape, kind):
     case = (arch, shape, kind)
     runs = [r[case] for r in ranks if case in r]
     assert len(runs) == shape[0] * shape[1]
+    if kind == "loss":
+        want = _jax_loss({"vocab": LOSS_VOCAB})
+        plain = runs[0][0]
+        assert abs(plain["loss"] - want["loss"]) <= LOSS_REL * abs(
+            want["loss"])
+        assert list(plain["grads"]) == list(want["grads"])
+        bad = {k: _rel_l2(plain["grads"][k], g)
+               for k, g in want["grads"].items()
+               if not _rel_l2(plain["grads"][k], g) <= UPDATE_REL}
+        assert not bad, bad
     for plain, mesh in runs:
-        if kind == "serve":
+        if kind == "loss":
+            assert abs(mesh["loss"] - plain["loss"]) <= LOSS_REL * abs(
+                plain["loss"])
+            assert _rel_max(mesh["rows"], plain["rows"]) <= SERVE_REL
+            bad = {k: _rel_l2(mesh["grads"][k], g)
+                   for k, g in plain["grads"].items()
+                   if not _rel_l2(mesh["grads"][k], g) <= UPDATE_REL}
+            assert not bad, bad
+        elif kind.startswith("serve"):
             assert len(mesh["logits"]) == len(CHUNKS) + STEPS
             for got, want in zip(mesh["logits"], plain["logits"]):
                 assert _rel_max(got, want) <= SERVE_REL

@@ -359,5 +359,6 @@ def test_unsupported_pairings_are_refused():
     with pytest.raises(ValueError, match="64"):
         ServeEngine(rt, VOCAB, slots=2, max_context=CTX, draft=draft,
                     spec_k=65)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="speculative pairing packs the target's fp"):
         R.speculative_draft(Other())
