@@ -98,8 +98,8 @@ Phases, in order; any failure exits non-zero before the last line:
                 drive_session (fused tick, GEMV prefill); every kernel must
                 have launched.  Then one train step under torch.profiler;
   8. pipeline — `repro_torch.launch.train --pipeline --quick` at
-                rnn-paper's full width (batch 32, seq 100, 60 steps a leg):
-                a real SIGTERM at step 30, exit 43 and the resume, the two
+                rnn-paper's full width (batch 32, seq 100, 20 steps a leg):
+                a real SIGTERM at step 10, exit 43 and the resume, the two
                 legs' final checkpoints bit-equal, the packed export served
                 through the engine with every stream equal to
                 drive_session(B=1), and the trained accept rate of the fp
@@ -127,7 +127,7 @@ Phases, in order; any failure exits non-zero before the last line:
                 greedy requests: accept rate, streams equal to the plain
                 engine's); 8 requests behind a 64-token prefix (at least 7
                 prefix-cache hits); the engine, speculative and prefix runs
-                on a cut of 8 of the 28 layers;
+                on a cut of 4 of the 28 layers;
   10. pool    — the transformer pool's MoE and RWKV6 families, ternary with
                 channel scales, bf16, random weights from a seed, each tree
                 drawn a layer at a time on the card and exported as it is
@@ -143,7 +143,7 @@ Phases, in order; any failure exits non-zero before the last line:
                 lockstep B = 4, prompt 128, gen 32 with a decode step and a
                 prefill profiled (host, device busy, idle share, GEMV and
                 GEMM launches, experts run a layer), and the engine, on a
-                cut of 8 of its 48 layers, at 8
+                cut of 2 of its 48 layers, at 8
                 slots over 8 requests of synth_traffic(seed=0) (prompts
                 U[1, 128], gen U[1, 16]: host-bound steps cut the count;
                 the lockstep run on the same cut),
@@ -160,7 +160,7 @@ Phases, in order; any failure exits non-zero before the last line:
                 packed against dequantized logits on a 2-layer cut,
                 wkv6_chunked over a 4,096-token prompt (peak memory within
                 32 inputs, the first 256 outputs against the unrolled
-                step), then lockstep and the engine (on a cut of 4 of its
+                step), then lockstep and the engine (on a cut of 2 of its
                 32 layers) as for qwen3-moe, over 16 requests of gen U[1,
                 32].  Launches counted for the MoE runs and the rwkv runs
                 apart;
@@ -183,7 +183,7 @@ Phases, in order; any failure exits non-zero before the last line:
                 memory within 16 times its inputs, the first 256 outputs
                 against the unrolled step); then, counted: zamba2's lockstep
                 B = 4, prompt 128, gen 32 with a decode step and a prefill
-                profiled, its engine (on a cut of 12 of its 38 mamba
+                profiled, its engine (on a cut of 6 of its 38 mamba
                 layers) over 16 requests (gen U[1, 32]) held as rwkv6's,
                 and its CLI;
                 whisper's lockstep B = 4, prompt 32, gen 32 over 1500
@@ -228,7 +228,7 @@ Phases, in order; any failure exits non-zero before the last line:
                 of a runtime with extras, and its CLI (B = 4, prompt 32,
                 gen 8);
   14. compressed DP — `repro_torch.launch.train --pipeline --quick
-                --compress-grads` at rnn-paper's full width (60 steps a
+                --compress-grads` at rnn-paper's full width (20 steps a
                 leg, B = 32, T = 100, a data mesh of one rank over NCCL):
                 SIGTERM, exit 43 and the resume, the legs' final
                 checkpoints bit-equal with their residual, the residual
@@ -258,7 +258,8 @@ Phases, in order; any failure exits non-zero before the last line:
                 engine's and tick_collectives() == 0; the packed tree
                 refused on a mesh with JAX's reason;
   16. roofline — the dry-run CLI (`python -m repro_torch.launch.dryrun`,
-                each cell a process of its own over a fake process group)
+                each cell a process of its own over a fake process group,
+                started before the build: the meta device, no kernel)
                 on qwen3-0.6b x train_4k, prefill_32k and decode_32k on the
                 single mesh and qwen3-moe-30b-a3b x decode_32k on the multi
                 mesh: each cell's dominant term and its terms, any error
@@ -267,15 +268,24 @@ Phases, in order; any failure exits non-zero before the last line:
                 train step: counted FLOPs and bytes, the bound and its term,
                 the bound over the phase's device busy and host wall.  It
                 times nothing anew and launches no kernel;
-  17. result  — the kernels JSON line (each kernel's launches on every
-                path), the card line, and {"ok": true, "device": {...}}
-                last.
+  17. examples — `examples/torch_quickstart.py`, `torch_serve_lstm.py`
+                and `torch_train_char_lm.py` (10 steps, a checkpoint),
+                each a process on the card, their default device, all at
+                once: any non-zero exit fails, and so do the quickstart's
+                straight-through gradient or its packed product off the
+                dequantized one by 1e-5 or more, the packed decode's
+                self-check, or a missing checkpoint;
+  18. result  — every phase's seconds, the kernels JSON line (each
+                kernel's launches on every path), the card line, and
+                {"ok": true, "device": {...}} last.
 
 It needs one card and no network; the build goes to `build/kernels/`.
 Details land in `chiprun_out/chip_smoke.json`.
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
 import json
 import re
 import subprocess
@@ -1727,9 +1737,13 @@ def training_phase(report: dict, argv: list = TRAIN_ARGS) -> dict:
     return launches
 
 
+# the RNN pipelines' steps a leg (phases 8 and 14): SIGTERM at step 10
+PIPELINE_STEPS = 20
+
+
 def pipeline_phase(report: dict) -> dict:
     """`repro_torch.launch.train --pipeline` at rnn-paper's full width
-    (H = 1000, batch 32, seq 100, 60 steps a leg): a real SIGTERM, exit 43
+    (H = 1000, batch 32, seq 100, 20 steps a leg): a real SIGTERM, exit 43
     and the resume, bit-equal checkpoints of the two legs, the packed
     export served through the engine byte for byte like drive_session
     (B = 1), and the trained accept rate (reported, not held: JAX's 0.976
@@ -1742,8 +1756,9 @@ def pipeline_phase(report: dict) -> dict:
     from repro_torch.kernels import dispatch
     from repro_torch.launch import train as launch_train
 
-    argv = ["--pipeline", "--quick", "--arch", "rnn-paper", "--steps", "60",
-            "--batch", "32", "--seq", "100", "--device", "cuda",
+    argv = ["--pipeline", "--quick", "--arch", "rnn-paper", "--steps",
+            str(PIPELINE_STEPS), "--batch", "32", "--seq", "100", "--device",
+            "cuda",
             "--results-dir", str(ROOT / "chiprun_out")]
     dispatch.reset_counts()   # ---- the counted pipeline run starts here
     t0 = time.perf_counter()
@@ -2246,13 +2261,15 @@ POOL_ENGINE = {"qwen3-moe": (8, 16), "rwkv6-7b": (16, 32),
 # the tensor-core GEMM, the script 735.2 s; at 14 the script took 1137 s
 # on a slow host once phase 16 joined; 4 since the script took 1150.4 s on
 # a slow host with 8); qwen3-moe's
-# lockstep run and engine run on 8 of its 48 layers (at 48 they took 117.9
-# and 119 s of host-bound time), rwkv6's engine on 4 of its 32 layers
-# (100.4 s at 32, 39.7 s at 8 on that slow host), zamba2's on 6 of its
-# 38, one shared application (75 s at 38, 40.7 s at 12 on the slow host)
+# lockstep run and engine run on 2 of its 48 layers (at 48 they took 117.9
+# and 119 s of host-bound time, at 8 30.5 and 44.5 s on a slow host, at 4
+# 14.7 and 21.1 s; 2 since the script grew by its examples phase),
+# rwkv6's engine on 2 of its 32 layers (100.4 s at 32, 39.7 s at 8 on
+# that slow host, 18.4 s at 4), zamba2's on 6 of its 38, one shared
+# application (75 s at 38, 40.7 s at 12 on the slow host)
 QWEN_ENGINE_LAYERS = 4
-MOE_SERVE_LAYERS = 8
-RWKV_ENGINE_LAYERS = 4
+MOE_SERVE_LAYERS = 2
+RWKV_ENGINE_LAYERS = 2
 
 
 def pool_config(arch: str, **over):
@@ -3376,8 +3393,9 @@ def vlm_phase(report: dict, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 COMPRESS_PIPELINE_ARGS = ["--pipeline", "--quick", "--compress-grads",
-                          "--arch", "rnn-paper", "--steps", "60", "--batch",
-                          "32", "--seq", "100", "--device", "cuda"]
+                          "--arch", "rnn-paper", "--steps",
+                          str(PIPELINE_STEPS), "--batch", "32", "--seq",
+                          "100", "--device", "cuda"]
 CARD_CPU_REL = 1e-5  # card against CPU, a compressed step's state leaves
 
 
@@ -3518,7 +3536,7 @@ def card_against_cpu(kind: str) -> dict:
 def compressed_dp_phase(report: dict, card: str) -> dict:
     """Compressed data parallelism on one card (an NCCL group of one
     rank): `launch.train --pipeline --quick --compress-grads` at rnn-paper's
-    full width (60 steps a leg, B = 32, T = 100): SIGTERM, exit 43 and the
+    full width (20 steps a leg, B = 32, T = 100): SIGTERM, exit 43 and the
     resume, both legs' final checkpoints bit-equal with their residual, the
     residual non-zero and finite, the export served through the engine byte
     for byte like drive_session(B=1), the accept rate; launches counted
@@ -3575,7 +3593,7 @@ def compressed_dp_phase(report: dict, card: str) -> dict:
             and serve["engine_byte_parity"] and spec["greedy_equal_plain"]
             and res is not None and 0 < res < float("inf")):
         fail(f"compressed pipeline rows {train} {serve} {spec}")
-    keys = json.loads((base / "straight" / "step_00000060" /
+    keys = json.loads((base / "straight" / f"step_{PIPELINE_STEPS:08d}" /
                        "manifest.json").read_text())["leaves"]
     if not any(k.startswith("residual.") for k in keys):
         fail("the compressed pipeline's checkpoint holds no residual")
@@ -3892,12 +3910,13 @@ def dryrun_start() -> list:
     chiprun_out/torch_dryrun/."""
     import os
     out_dir = ROOT / "chiprun_out" / "torch_dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return [(cell, subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0],
          "--shape", cell[1], "--mesh", cell[2], "--out", str(out_dir)],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)) for cell in DRYRUN_CELLS]
+        cwd=ROOT, env=env, stdout=(out_dir / ("__".join(cell) + ".log")).open(
+            "w"), stderr=subprocess.STDOUT)) for cell in DRYRUN_CELLS]
 
 
 def dryrun_wait(procs: list) -> dict:
@@ -3906,12 +3925,13 @@ def dryrun_wait(procs: list) -> dict:
     out_dir = ROOT / "chiprun_out" / "torch_dryrun"
     cells = {}
     for (arch, shape, mesh), p in procs:
-        so, se = p.communicate(timeout=DRYRUN_TIMEOUT)
+        p.wait(timeout=DRYRUN_TIMEOUT)
         path = out_dir / f"{arch}__{shape}__{mesh}.json"
         cell = json.loads(path.read_text()) if path.exists() else {}
         if p.returncode != 0 or cell.get("status") != "ok":
+            log = (out_dir / f"{arch}__{shape}__{mesh}.log").read_text()
             fail(f"dry-run {arch} {shape} {mesh}: exit {p.returncode}, "
-                 f"{cell.get('error', '')} {(so + se)[-1500:]}")
+                 f"{cell.get('error', '')} {log[-1500:]}")
         cells[f"{arch} {shape} {mesh}"] = cell
     return cells
 
@@ -3984,20 +4004,25 @@ def one_rank_counts(report: dict) -> dict:
     return out
 
 
-def roofline_phase(report: dict, card: str) -> dict:
-    """Phase 16: the dry-run CLI on DRYRUN_CELLS (each cell's dominant term
-    and its terms), and meanwhile `one_rank_counts` beside phases 9 and
-    12's measured device busy and host wall.  Launches no kernel."""
+def stop(procs: list) -> None:
+    """Kill whichever of `procs` still runs."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def roofline_phase(report: dict, card: str, procs: list) -> dict:
+    """Phase 16: the dry-run CLI on DRYRUN_CELLS (`procs`, started after
+    the build: each cell's dominant term and its terms), and
+    `one_rank_counts` beside phases 9 and 12's measured device busy and
+    host wall.  Launches no kernel."""
     t0 = time.perf_counter()
-    procs = dryrun_start()
     try:
         calls = one_rank_counts(report)
         cells = dryrun_wait(procs)
     finally:
-        for _, p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop([p for _, p in procs])
     for shape, jax_bytes in JAX_ALL_GATHER.items():
         got = cells[f"qwen3-0.6b {shape} single"]["collectives"].get(
             "all-gather", 0.0)
@@ -4028,6 +4053,98 @@ def roofline_phase(report: dict, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the examples a user starts from
+# ---------------------------------------------------------------------------
+
+EXAMPLES_TIMEOUT = 120
+EXAMPLE_CKPT = ROOT / "build" / "example_ckpt"
+# (name, script, arguments): run at once, each a process on the card (no
+# --device: the examples' default); the character LM trains 10 steps and
+# checkpoints (its resume, of a JAX checkpoint too, is held in
+# tests/test_torch_examples.py)
+EXAMPLES = (("quickstart", "torch_quickstart.py", []),
+            ("serve_lstm", "torch_serve_lstm.py", []),
+            ("train_char_lm", "torch_train_char_lm.py",
+             ["--steps", "10", "--ckpt-dir", str(EXAMPLE_CKPT)]))
+
+
+def run_examples(todo) -> dict:
+    """Each example of `todo` in a process of its own, all at once: {name:
+    its stdout}; a non-zero exit or a timeout fails the run, and every
+    process is stopped."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / script), *args], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, script, args in todo}
+    out = {}
+    try:
+        for name, p in procs.items():
+            so, se = p.communicate(timeout=EXAMPLES_TIMEOUT)
+            if p.returncode != 0:
+                fail(f"example {name}: exit {p.returncode}: {se[-2000:]}")
+            out[name] = so
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def examples_phase(report: dict) -> dict:
+    """`examples/torch_quickstart.py`, `torch_serve_lstm.py` and
+    `torch_train_char_lm.py` on the card (their default device), as the
+    README starts a user: the quantizer's straight-through gradient, the
+    packed product within 1e-5 of the dequantized one, the packed decode's
+    self-check against the full-sequence forward, a checkpointed run.
+    Their kernels launch in their own processes, outside this script's
+    counts."""
+    import shutil
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = run_examples(EXAMPLES)
+    saved = (EXAMPLE_CKPT / "step_00000010" / "manifest.json").exists()
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    quick = out["quickstart"]
+    err = re.search(r"max err vs reference: (\S+)", quick)
+    if "STE gradient is identity: True" not in quick or not err or \
+            not float(err.group(1)) < 1e-5:
+        fail(f"example quickstart: {quick[-1500:]}")
+    if "matches the full-sequence forward ✓" not in out["serve_lstm"]:
+        fail(f"example serve_lstm: {out['serve_lstm'][-1500:]}")
+    if "step    9  train bpc" not in out["train_char_lm"] or not saved:
+        fail(f"example train_char_lm (checkpoint of step 10 written: "
+             f"{saved}): {out['train_char_lm'][-1500:]}")
+    res = {"packed_err": float(err.group(1)), "wall_s":
+           time.perf_counter() - t0,
+           "last_lines": {k: v.strip().splitlines()[-1] for k, v in
+                          out.items()}}
+    report["examples"] = res
+    for k, v in res["last_lines"].items():
+        print(f"  {k}: {v}", flush=True)
+    print(f"  examples: packed product off the dequantized one by "
+          f"{res['packed_err']:.3e}; the packed decode's self-check passed; "
+          f"the character LM's step-10 checkpoint written; "
+          f"{res['wall_s']:.1f} s", flush=True)
+    return res
+
+
+PHASE_S: dict = {}
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Time a phase of main (its seconds in PHASE_S, printed)."""
+    print(f"{name}:", flush=True)
+    t0 = time.perf_counter()
+    yield
+    PHASE_S[name] = round(time.perf_counter() - t0, 1)
+    print(f"  [{name}: {PHASE_S[name]} s]", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4050,10 +4167,15 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
+    # 16's dry-run cells (CPU only, on the meta device, each a process)
+    # count while the kernels build
+    dryrun_procs = dryrun_start()
+    atexit.register(stop, [p for _, p in dryrun_procs])
+
     # 2. build, then the multiply-free proof
     t0 = time.perf_counter()
     built = build.build_all()
-    report["build_s"] = time.perf_counter() - t0
+    report["build_s"] = PHASE_S["build"] = round(time.perf_counter() - t0, 1)
     print(f"build: {report['build_s']:.1f} s for {len(built)} kernels "
           f"(parallel nvcc)", flush=True)
     report["ptxas"] = {}
@@ -4074,59 +4196,62 @@ def main() -> int:
           flush=True)
 
     # 3. kernels against their plain versions
-    launch_floor(report)
-    rows = kernels_phase(report)
+    with phase("kernels"):
+        launch_floor(report)
+        rows = kernels_phase(report)
 
     # 4. the serving path, then where its time goes
-    launches, rt = main_path_phase(report)
-    profile_phase(report, rt)
+    with phase("main path"):
+        launches, rt = main_path_phase(report)
+        profile_phase(report, rt)
 
     # 6. the continuous-batching engine
-    print("engine:", flush=True)
-    t0 = time.perf_counter()
-    engine_launches = engine_phase(report)
-    report["engine_s"] = time.perf_counter() - t0
-    print(f"  engine phase: {report['engine_s']:.1f} s", flush=True)
+    with phase("engine"):
+        engine_launches = engine_phase(report)
 
     # 7. the training path
-    print("training:", flush=True)
-    launches["quantize_pack"] = training_phase(report)["quantize_pack"]
+    with phase("training"):
+        launches["quantize_pack"] = training_phase(report)["quantize_pack"]
 
     # 8. the pipeline: train -> SIGTERM/restart -> export -> serve
-    print("pipeline:", flush=True)
-    pipeline_launches = pipeline_phase(report)
+    with phase("pipeline"):
+        pipeline_launches = pipeline_phase(report)
 
     # 9. the transformer pool: qwen3-0.6B at full width
-    print("transformer:", flush=True)
-    transformer_launches = transformer_phase(report)
+    with phase("transformer"):
+        transformer_launches = transformer_phase(report)
 
     # 10. the pool's MoE and RWKV6 families
-    print("pool:", flush=True)
-    moe_launches, rwkv_launches = pool_phase(report)
+    with phase("pool"):
+        moe_launches, rwkv_launches = pool_phase(report)
 
     # 11. the pool's hybrid and audio families
-    print("hybrid and audio:", flush=True)
-    hybrid_launches, audio_launches = hybrid_audio_phase(report, card)
+    with phase("hybrid and audio"):
+        hybrid_launches, audio_launches = hybrid_audio_phase(report, card)
 
     # 12. training the transformer pool
-    print("pool training:", flush=True)
-    pool_training_phase(report, card)
+    with phase("pool training"):
+        pool_training_phase(report, card)
 
     # 13. the VLM at full width
-    print("vlm:", flush=True)
-    vlm_launches = vlm_phase(report, card)
+    with phase("vlm"):
+        vlm_launches = vlm_phase(report, card)
 
     # 14. compressed data parallelism
-    print("compressed DP:", flush=True)
-    compress_launches = compressed_dp_phase(report, card)
+    with phase("compressed DP"):
+        compress_launches = compressed_dp_phase(report, card)
 
     # 15. the model axis and the mesh engine at one rank
-    print("mesh:", flush=True)
-    mesh_launches = mesh_phase(report, card)
+    with phase("mesh"):
+        mesh_launches = mesh_phase(report, card)
 
     # 16. the dry-run's counts and the one-rank roofline (no kernel)
-    print("roofline:", flush=True)
-    roofline_phase(report, card)
+    with phase("roofline"):
+        roofline_phase(report, card, dryrun_procs)
+
+    # 17. the examples the README starts from, on the card
+    with phase("examples"):
+        examples_phase(report)
     pool, ha = report["pool"], report["hybrid_audio"]
     all_rows = (rows + report["transformer"]["kernel_rows"]
                 + pool["qwen3_moe"]["kernel_rows"]
@@ -4135,7 +4260,7 @@ def main() -> int:
                 + ha["zamba2"]["kernel_rows"] + ha["whisper"]["kernel_rows"]
                 + report["vlm"]["kernel_rows"])
 
-    # 17. result
+    # 18. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",
@@ -4186,6 +4311,9 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     report["kernels"] = kernels
     report["wall_s"] = time.perf_counter() - t_start
+    report["phase_s"] = PHASE_S
+    print("phases: " + ", ".join(f"{k} {v} s" for k, v in PHASE_S.items()),
+          flush=True)
     report["profiler_missed_calls"] = PROFILER_MISSES["calls"]
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(f"chip_smoke: {report['wall_s']:.1f} s in all, the build included, "

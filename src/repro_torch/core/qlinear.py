@@ -46,6 +46,7 @@ from typing import Any, Callable, Mapping, Optional, Union
 
 import torch
 
+from repro_torch import runtime as R
 from repro_torch.core import quantize as Q
 from repro_torch.core.qtensor import is_qtensor, tree_map_with_path
 from repro_torch.runtime import constrain_param
@@ -195,3 +196,14 @@ def scaled(y: torch.Tensor, params: dict, wname: str,
     if spec.enabled and spec.norm == "channel" and s is not None:
         return y * s.to(y.dtype)
     return y
+
+
+def scaled_sum(y: torch.Tensor, params: dict, wname: str,
+               spec: Q.QuantSpec) -> torch.Tensor:
+    """`reduced(scaled(y, ...))` for a row-parallel product's partial sums
+    `y`: scaled, then summed over the mesh, the scale's gradient taken on
+    each rank's partial sums (`runtime.scaled_sum`)."""
+    s = params.get("s" + wname[1:])
+    if spec.enabled and spec.norm == "channel" and s is not None:
+        return R.scaled_sum(y, s.to(y.dtype))
+    return R.reduced(y)

@@ -355,15 +355,20 @@ class RankCounter(TorchDispatchMode):
                 [self.records[-1]]).get(kind, 0.0)
 
 
+# the layout helpers a model calls: a collective is its caller's
+_PLUMBING = {(__name__, None), ("repro_torch.runtime", None),
+             ("repro_torch.core.qlinear", "scaled_sum")}
+
+
 def _site() -> str:
     """The innermost frame of the port's model, serving or training code
     on the stack: where a collective was issued (module.function)."""
     f = sys._getframe(2)
     while f is not None:
-        name = f.f_globals.get("__name__", "")
-        if name.startswith("repro_torch.") and name not in (
-                __name__, "repro_torch.runtime"):
-            return f"{name[len('repro_torch.'):]}.{f.f_code.co_name}"
+        name, fn = f.f_globals.get("__name__", ""), f.f_code.co_name
+        if name.startswith("repro_torch.") and not (
+                (name, None) in _PLUMBING or (name, fn) in _PLUMBING):
+            return f"{name[len('repro_torch.'):]}.{fn}"
         f = f.f_back
     return "?"
 

@@ -28,7 +28,8 @@ On a mesh the activations are DTensors and `runtime.constrain` lays them
 out at JAX's sites: the queries' heads and the MLP's hidden over 'model',
 the batch over the data axes; elsewhere it does nothing.  The residual
 stream stays whole over 'model', as XLA keeps it: a row-parallel
-product's partial sums are all-reduced at once (`runtime.reduced`), and
+product's partial sums are scaled and all-reduced at once, its scale's
+gradient taken on each rank's partial sums (`runtime.scaled_sum`), and
 the input gradients of a block's column-parallel products once, summed
 (`runtime.grad_reduced`).  Attention runs rank by rank on each rank's
 batch rows and heads (`_sdpa_heads`).  Where 'model' does not divide a
@@ -49,13 +50,13 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.core.qlinear import maybe_scale, scaled, winit
+from repro_torch.core.qlinear import maybe_scale, scaled, scaled_sum, winit
 from repro_torch.core.qtensor import is_qtensor
 from repro_torch.kernels.ops import serve_matmul
 from repro_torch.kernels.ordered_bmm import model_bmm, ordered_bmm
 from repro_torch.runtime import (DATA, axis_sizes, constrain, current_mesh,
                                  from_local, grad_reduced, on_shards,
-                                 reduce_over, reduced, shard_extent)
+                                 reduce_over, shard_extent)
 
 NEG_INF = -1e30
 
@@ -549,7 +550,7 @@ def attn_qkv(p: dict, x: torch.Tensor, cfg,
 def attn_out(p: dict, o: torch.Tensor, cfg, *,
              cross: bool = False) -> torch.Tensor:
     o = merge_heads(o, cfg.n_heads)
-    y = reduced(scaled(serve_matmul(o, p["Wo"]), p, "Wo", cfg.quant))
+    y = scaled_sum(serve_matmul(o, p["Wo"]), p, "Wo", cfg.quant)
     if cross and "xgate" in p:
         y = torch.tanh(p["xgate"]).to(y.dtype) * y
     return y
@@ -654,10 +655,10 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         g = scaled(serve_matmul(x, p["Wgate"]), p, "Wgate", cfg.quant)
         u = scaled(serve_matmul(x, p["Wup"]), p, "Wup", cfg.quant)
         h = constrain(F.silu(g) * u, DATA, None, "model")
-        return reduced(scaled(serve_matmul(h, p["Wdown"]), p, "Wdown",
-                              cfg.quant))
+        return scaled_sum(serve_matmul(h, p["Wdown"]), p, "Wdown",
+                          cfg.quant)
     h = F.gelu(scaled(serve_matmul(x, p["Wfc1"]), p, "Wfc1", cfg.quant)
                + p["bfc1"].to(x.dtype), approximate="tanh")
     h = constrain(h, DATA, None, "model")
-    return (reduced(scaled(serve_matmul(h, p["Wfc2"]), p, "Wfc2", cfg.quant))
+    return (scaled_sum(serve_matmul(h, p["Wfc2"]), p, "Wfc2", cfg.quant)
             + p["bfc2"].to(x.dtype))

@@ -38,12 +38,12 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.core.qlinear import maybe_scale, scaled, winit
+from repro_torch.core.qlinear import maybe_scale, scaled, scaled_sum, winit
 from repro_torch.kernels.ops import serve_matmul
 from repro_torch.kernels.ordered_bmm import model_bmm
 from repro_torch.models.layers import mean_square
 from repro_torch.runtime import (DATA, constrain, grad_reduced, on_shards,
-                                 reduced, shard_like)
+                                 shard_like)
 
 
 
@@ -236,7 +236,7 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg, *,
     g = (g32 * torch.rsqrt(mean_square(g32) + 1e-6)).to(x.dtype) * \
         p["norm"].to(x.dtype)
 
-    out = reduced(scaled(serve_matmul(g, p["Wout"]), p, "Wout", cfg.quant))
+    out = scaled_sum(serve_matmul(g, p["Wout"]), p, "Wout", cfg.quant)
     new_state = None
     if state is not None or decode:
         pos = (state.pos if state is not None else

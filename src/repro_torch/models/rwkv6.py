@@ -42,12 +42,11 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.core.qlinear import maybe_scale, scaled, winit
+from repro_torch.core.qlinear import maybe_scale, scaled, scaled_sum, winit
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels.ops import serve_matmul
 from repro_torch.models.layers import split_heads
-from repro_torch.runtime import (DATA, constrain, on_shards, reduced,
-                                 shard_like)
+from repro_torch.runtime import DATA, constrain, on_shards, shard_like
 
 
 LORA_R = 32
@@ -259,7 +258,7 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, cfg, *,
             y, ST = scan(*args)
 
     y = _group_norm(y.reshape(B, T, d), p["ln_x"], H) * g
-    out = reduced(_proj(p, y, "Wo", cfg))
+    out = scaled_sum(_mm(y, p["Wo"]), p, "Wo", cfg.quant)
     return out, ST, x[:, -1]
 
 
@@ -275,7 +274,7 @@ def rwkv6_channel_mix(p: dict, x: torch.Tensor, cfg, *,
     xr = x + sx * p["mu_cr"].to(x.dtype)
     k = constrain(torch.square(F.relu(_proj(p, xk, "Wck", cfg))), DATA,
                   None, "model")
-    kv = reduced(_proj(p, k, "Wcv", cfg))
+    kv = scaled_sum(_mm(k, p["Wcv"]), p, "Wcv", cfg.quant)
     return torch.sigmoid(_proj(p, xr, "Wcr", cfg)) * kv, x[:, -1]
 
 

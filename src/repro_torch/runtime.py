@@ -22,10 +22,10 @@ so rules can be built and tested for a 512-device pod without a process.
 
 Where DTensor's own choices would move more than XLA's partitioner does,
 the model code states the layout: `reduced` sums a row-parallel product
-at once, `grad_reduced` sums the input gradients of column-parallel
-products once, and `on_shards` runs an op on each rank's shards, with
-`reduce_over`/`sum_over` for the (B, S)-sized reductions of a
-vocabulary-parallel loss.
+at once (`scaled_sum` with its channel scale), `grad_reduced` sums the
+input gradients of column-parallel products once, and `on_shards` runs
+an op on each rank's shards, with `reduce_over`/`sum_over` for the
+(B, S)-sized reductions of a vocabulary-parallel loss.
 """
 from __future__ import annotations
 
@@ -338,3 +338,44 @@ def reduced(x):
         return x
     return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
                                           else p for p in x.placements])
+
+
+class _ScaledPartial(torch.autograd.Function):
+    """`y * s` for partial sums `y` and a scale `s` whole on every rank
+    (`scaled_sum`).  Its backward runs on each rank's partial sums: `y`'s
+    gradient is `s` times the whole gradient, `s`'s a partial sum of each
+    rank's rows, so no op reads `y` whole (DTensor's own `mul` backward
+    would, in some versions: an all-reduce of `y`).  The sum itself is
+    left to `reduced`, so a recomputed region that stops once its saved
+    tensors are back stops before it."""
+
+    @staticmethod
+    def forward(ctx, y, s):
+        ctx.save_for_backward(y, s)
+        return y * s
+
+    @staticmethod
+    def backward(ctx, grad):
+        y, s = ctx.saved_tensors
+        mesh = y.device_mesh
+        grad = grad.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                        for p in y.placements])
+        ds = (grad.to_local() * y.to_local()).sum_to_size(s.shape)
+        return grad * s, from_local(ds, mesh, [
+            Partial() if p.is_partial() or p.is_shard() else Replicate()
+            for p in y.placements])
+
+
+def scaled_sum(y, s):
+    """`reduced(y * s)`: a row-parallel product's partial sums `y` scaled
+    by `s` (its output channels' scale) and summed over the mesh dims
+    where they are partial.  The scale's gradient stays a partial sum per
+    rank, so the backward moves no activation; anything but partial sums
+    of a last dim that no mesh dim splits, scaled by a whole `s`, as
+    `reduced(y * s)`."""
+    if (isinstance(y, DTensor) and isinstance(s, DTensor)
+            and any(p.is_partial() for p in y.placements)
+            and all(p.is_replicate() for p in s.placements)
+            and not any(p.is_shard(y.dim() - 1) for p in y.placements)):
+        return reduced(_ScaledPartial.apply(y, s))
+    return reduced(y * s)

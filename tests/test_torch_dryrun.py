@@ -41,20 +41,38 @@ name the ops):
   * all-reduce 1.585 / 0.857 / 1.000: the row-parallel products' sums,
     decode's looked-up rows, and in training one all-reduce of the
     summed input gradients of each block's column-parallel products, and
-    one of the head's.  JAX's `_measure` misses XLA's all-reduces of several
-    operands (a tuple shape its pattern does not read): counted with
-    them (`jax_full`), XLA's training all-reduce is 1.249e7 against the
-    port's 7.12e6;
+    one of the head's: 4 a layer and the head's, the layout's least.  JAX's
+    `_measure` misses XLA's all-reduces of several operands (a tuple
+    shape its pattern does not read): counted with them (`jax_full`),
+    XLA's training all-reduce is 1.249e7 against the port's 7.12e6, most
+    of it in f32, to which XLA's CPU backend widens a bf16 all-reduce
+    (`jax_full`'s `promoted`).  A row-parallel product's channel scale
+    takes its gradient on each rank's partial sums (`runtime.scaled_sum`):
+    torch 2.11's DTensor otherwise all-reduced the product again for it,
+    two more a layer in the backward, which torch 2.13's (these ratios')
+    never did, so the ratios stand;
   * reduce-scatter, which XLA's partitioner does not issue here, against
     XLA's all-reduce: 0.0100 / 0 / 0 (the weights' and the table's
     gradients back to their FSDP shards).
 Ring factors and the FSDP gather bytes are exact: checked leaf by leaf.
+
+The production case in miniature: train_4k with 2 KV heads, which the
+4 'model' ranks do not divide (qwen3-0.6b's 8 on 16), in the same two
+children.  Each rank projects the one KV head its query heads read, so
+two ranks project each head, where XLA projects half a head a rank and
+exchanges the halves; the port's FLOPs stay under KV2_FLOP_LIMIT times
+JAX's (0.930 measured), its reductions within MARGIN of XLA's all-reduce
+with its tuples (0.550 measured).
+
+At the end of this file, a one-off like-for-like count at full width
+(not a test; `python tests/test_torch_dryrun.py`).
 """
 import json
 import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import pytest
@@ -75,20 +93,69 @@ EXPECTED = {
     "decode_32k": {"flops": 0.845, "bytes": 0.277, "all-gather": 1.071,
                    "all-reduce": 1.000, "reduce-scatter": 0.0}}
 GATHER_LIMIT = 2.0  # the port's all-gather over JAX's, every kind
+KV2_FLOP_LIMIT = 1.15  # the port's FLOPs over JAX's, KV heads split
 
 # the cells' shapes, reduced; (name, seq_len, global_batch, kind)
 SMALL = (("train_4k", 256, 16, "train"), ("prefill_32k", 256, 8, "prefill"),
          ("decode_32k", 256, 16, "decode"))
 KINDS = [name for name, *_ in SMALL]
+KV2 = "train_kv2"  # train_4k at n_kv = 2: 'model' (4) does not divide it
 
 PRELUDE = f"""
 import dataclasses, json, sys
 SMALL = {SMALL!r}
+KV2 = {KV2!r}
 
 def reduced(get_config, **kw):
     cfg = get_config("qwen3-0.6b").reduced()
     return dataclasses.replace(cfg, n_heads=8, n_kv=4, attn_chunk=256,
                                remat=False, **kw)
+
+# (result key, config, shape name): the cells, and the train cell with
+# KV heads that 'model' does not divide
+def cells(cfg):
+    return ([(name, cfg, name) for name, *_ in SMALL]
+            + [(KV2, dataclasses.replace(cfg, n_kv=2), "train_4k")])
+"""
+
+# every kind's wire bytes from the HLO text `_measure` reads (`texts`),
+# an all-reduce of several operands (a tuple shape) included, and a
+# collective-permute's result bytes; `promoted` the all-reduces XLA's CPU
+# backend widened to f32 (their reduction `*_promoted`), as counted
+FULL_WIRE = r"""
+import re
+import numpy as np
+from repro.launch import dryrun as JD
+texts = []
+_wire = JD.collective_wire_bytes
+JD.collective_wire_bytes = lambda text: (texts.append(text), _wire(text))[1]
+SIZE = {"f32": 4, "bf16": 2, "s32": 4, "u32": 4, "f16": 2, "pred": 1}
+def full_wire(text):
+    out = {}
+    for line in text.splitlines():
+        m = re.search(r"=\s+(\(.*?\)|\S+)\s+(all-reduce|all-gather|"
+                      r"reduce-scatter|all-to-all|collective-permute)"
+                      r"(?:-start)?\(", line)
+        if not m or "-done" in line:
+            continue
+        n = sum(SIZE.get(dt, 4) * int(np.prod([int(d) for d in dims.split(",")
+                                                if d]))
+                for dt, dims in re.findall(r"([a-z]+\d*)\[([\d,]*)\]",
+                                           m.group(1)))
+        kind = m.group(2)
+        if kind == "collective-permute":
+            out[kind] = out.get(kind, 0.0) + n
+            continue
+        g = re.search(r"replica_groups=\[(\d+),(\d+)\]", line)
+        if not g or int(g.group(2)) <= 1:
+            continue
+        frac = 1 - 1 / int(g.group(2))
+        wire = 2 * n * frac if kind == "all-reduce" else n * frac
+        out[kind] = out.get(kind, 0.0) + wire
+        if kind == "all-reduce" and re.search(r"to_apply=%?[\w.]*_promoted",
+                                              line):
+            out["promoted"] = out.get("promoted", 0.0) + wire
+    return out
 """
 
 JAX_CHILD = PRELUDE + """
@@ -99,43 +166,20 @@ from repro.configs import get_config
 from repro.configs.shapes import SHAPES, ShapeSpec
 from repro.launch import dryrun as JD
 from repro.launch.roofline import model_flops
-# every kind's wire bytes from the HLO text `_measure` reads, an
-# all-reduce of several operands (a tuple shape) included
-import re
-texts = []
-_wire = JD.collective_wire_bytes
-JD.collective_wire_bytes = lambda text: (texts.append(text), _wire(text))[1]
-SIZE = {"f32": 4, "bf16": 2, "s32": 4, "u32": 4, "f16": 2, "pred": 1}
-def full_wire(text):
-    out = {}
-    for line in text.splitlines():
-        m = re.search(r"=\\s+(\\(.*?\\)|\\S+)\\s+(all-reduce|all-gather|"
-                      r"reduce-scatter|all-to-all)(?:-start)?\\(", line)
-        g = re.search(r"replica_groups=\\[(\\d+),(\\d+)\\]", line)
-        if not m or not g or "-done" in line or int(g.group(2)) <= 1:
-            continue
-        n = sum(SIZE.get(dt, 4) * int(np.prod([int(d) for d in dims.split(",")
-                                                if d]))
-                for dt, dims in re.findall(r"([a-z]+\\d*)\\[([\\d,]*)\\]",
-                                           m.group(1)))
-        frac = 1 - 1 / int(g.group(2))
-        out[m.group(2)] = out.get(m.group(2), 0.0) + (
-            2 * n * frac if m.group(2) == "all-reduce" else n * frac)
-    return out
+""" + FULL_WIRE + """
 # Auto axes, as tests/test_torch_tp.py's mesh: jax.make_mesh's Explicit
 # axes refuse the package's with_sharding_constraint calls
 JD.make_production_mesh = lambda multi_pod=False: jax.sharding.Mesh(
     np.asarray(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
 for name, S, B, kind in SMALL:
     SHAPES[name] = ShapeSpec(name, S, B, kind)
-cfg = reduced(get_config, unroll=True)
 out = {}
-for name, *_ in SMALL:
+for key, cfg, name in cells(reduced(get_config, unroll=True)):
     m = JD._measure(cfg, name, False)
-    out[name] = {k: m[k] for k in ("flops", "bytes_accessed", "collectives",
-                                   "n_chips")}
-    out[name]["model_flops"] = model_flops(cfg, SHAPES[name], m["n_chips"])
-    out[name]["jax_full"] = full_wire(texts[-1])
+    out[key] = {k: m[k] for k in ("flops", "bytes_accessed", "collectives",
+                                  "n_chips")}
+    out[key]["model_flops"] = model_flops(cfg, SHAPES[name], m["n_chips"])
+    out[key]["jax_full"] = full_wire(texts[-1])
 print("RESULT " + json.dumps(out))
 """
 
@@ -155,10 +199,10 @@ cfg = reduced(get_config)
 D.fake_group(8)
 out = {"cells": {}, "one": {}, "gathers": []}
 mesh = first_ranks_mesh(D.mesh_device(), (2, 4), ("data", "model"))
-for name, *_ in SMALL:
-    c = D.count_step(cfg, name, mesh)
-    c["model_flops"] = model_flops(cfg, SHAPES[name], c["n_chips"])
-    out["cells"][name] = c
+for key, kcfg, name in cells(cfg):
+    c = D.count_step(kcfg, name, mesh)
+    c["model_flops"] = model_flops(kcfg, SHAPES[name], c["n_chips"])
+    out["cells"][key] = c
 one = first_ranks_mesh(D.mesh_device(), (1, 1), ("data", "model"))
 for name in ("train_4k", "decode_32k"):
     out["one"][name] = D.count_step(cfg, name, one)["collectives"]
@@ -278,13 +322,23 @@ def children():
     for arch, shape in FULL_CELLS:
         cmds[(arch, shape)] = ([sys.executable, "-c", FULL_CHILD, arch,
                                 shape], _env())
+    return _run(cmds, CHILD_TIMEOUT)[0]
+
+
+def _run(cmds: dict, timeout: float) -> tuple:
+    """Start every child of `cmds` ({key: (argv, env)}) at once; wait for
+    each in turn within `timeout` s, kill them all on a timeout or a
+    failure.  ({key: the child's RESULT}, {key: seconds from the start to
+    its end})."""
+    t0 = time.time()
     procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE, text=True, env=e,
                                  cwd=ROOT) for k, (c, e) in cmds.items()}
-    out = {}
+    out, secs = {}, {}
     try:
         for k, p in procs.items():
-            so, se = p.communicate(timeout=CHILD_TIMEOUT)
+            so, se = p.communicate(timeout=timeout)
+            secs[k] = round(time.time() - t0, 1)
             lines = [l for l in so.splitlines() if l.startswith("RESULT ")]
             assert p.returncode == 0 and lines, (
                 f"child {k} exited {p.returncode}: {se[-3000:]}")
@@ -294,7 +348,7 @@ def children():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return out
+    return out, secs
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -342,6 +396,24 @@ def test_no_more_gathered_or_reduced_than_jax(children, kind):
     assert cp["all-gather"] <= GATHER_LIMIT * cj["all-gather"]
     assert cp["all-reduce"] + cp.get("reduce-scatter", 0.0) <= \
         MARGIN * jx["jax_full"]["all-reduce"]
+
+
+def test_kv_heads_that_model_does_not_divide(children):
+    """train_4k with 2 KV heads on the (2, 4) mesh (remat off, one chunk):
+    the production cell's 8 KV heads on 16 'model' ranks in miniature.
+    Each rank projects the one KV head its query heads read, so two ranks
+    project each head; the port's FLOPs at most KV2_FLOP_LIMIT times
+    JAX's, and its reductions within MARGIN of XLA's all-reduce counted
+    with its tuple operands."""
+    jx, pt = children["jax"][KV2], children["port"]["cells"][KV2]
+    cp = pt["collectives"]
+    red = cp["all-reduce"] + cp.get("reduce-scatter", 0.0)
+    print(f"{KV2} flops jax {jx['flops']:.4e} port {pt['flops']:.4e}; "
+          f"reductions XLA with its tuples {jx['jax_full']['all-reduce']:.4e}"
+          f" port {red:.4e}")
+    assert pt["model_flops"] == jx["model_flops"]
+    assert pt["flops"] <= KV2_FLOP_LIMIT * jx["flops"]
+    assert red <= MARGIN * jx["jax_full"]["all-reduce"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -467,3 +539,145 @@ def test_decode_flops_gap_is_xla_s_elementwise_work_over_the_cache(children):
     assert rest >= 0.5 * jx["flops"]
     assert sum(jx["elements"].values()) >= 0.9 * rest
     assert pt["elementwise"] <= 0.05 * rest
+
+
+# ---------------------------------------------------------------------------
+# Like for like at full width: a one-off count, not a test.
+#   PYTHONPATH=src python tests/test_torch_dryrun.py [--side both|port]
+# counts qwen3-0.6b train_4k on the (16, 16) mesh, per rank, with remat off
+# and attention in one chunk on both sides, and writes LFL_OUT.  JAX's side
+# (a child on the CPU, 256 host devices) unrolls its layers, so XLA counts
+# each once, and points its `attn_apply`, which passes a chunk of its own
+# (1024) rather than the config's, at the config's; its collectives are
+# also read with FULL_WIRE (tuple all-reduces, collective-permutes).  The
+# port's side is `count_cell`'s, like for like and at the production
+# config; and, to show what JAX's sweep count (`run_cell`) misses, that
+# count and its steps to the like-for-like one (LFL_VARIANTS).  `--side
+# port` counts the port's side only (a host without JAX, such as the
+# card's) and adds it beside the sides already in LFL_OUT.
+# ---------------------------------------------------------------------------
+
+LFL_OUT = ROOT / "results" / "torch_dryrun" / \
+    "like_for_like__qwen3-0.6b__train_4k.json"
+LFL_TIMEOUT = 900
+LFL_CFG = ('dataclasses.replace(get_config("qwen3-0.6b"), remat=False, '
+           'attn_chunk=4096)')
+
+# JAX's side, one variant a child (argv[1]): "like_for_like" as above;
+# the yardstick's steps from it: "run_cell" (the sweep's count: remat on,
+# scanned layers and their correction, four query chunks), "run_cell,
+# remat off", and "unrolled, remat off" (four query chunks)
+LFL_VARIANTS = ("like_for_like", "run_cell", "run_cell, remat off",
+                "unrolled, remat off")
+LFL_JAX = """
+import dataclasses, json, sys
+import jax
+jax.devices()  # 256 host devices, before dryrun's own XLA_FLAGS
+from repro.configs import get_config
+from repro.configs.shapes import SHAPES
+from repro.launch.roofline import model_flops
+from repro.models import layers as JL
+""" + FULL_WIRE + """
+JD.make_production_mesh = lambda multi_pod=False: jax.sharding.Mesh(
+    np.asarray(jax.devices()[:256]).reshape(16, 16), ("data", "model"))
+variant = sys.argv[1]
+cfg = dataclasses.replace(""" + LFL_CFG + """, unroll=True)
+if variant == "like_for_like":
+    _attention = JL.attention
+    JL.attention = lambda q, k, v, **kw: _attention(
+        q, k, v, **{**kw, "chunk": cfg.attn_chunk})
+if variant.startswith("run_cell"):
+    if variant.endswith("remat off"):
+        _get = JD.get_config
+        JD.get_config = lambda arch: dataclasses.replace(_get(arch),
+                                                         remat=False)
+    m = JD.run_cell("qwen3-0.6b", "train_4k", False)
+    assert m["status"] == "ok", m
+else:
+    m = JD._measure(cfg, "train_4k", False)
+    m["full_wire"] = full_wire(texts[-1])
+out = {k: m[k] for k in ("flops", "bytes_accessed", "collectives", "n_chips",
+                         "full_wire") if k in m}
+out["model_flops"] = model_flops(cfg, SHAPES["train_4k"], m["n_chips"])
+out["jax"] = jax.__version__
+print("RESULT " + json.dumps(out))
+"""
+
+LFL_PORT = """
+import dataclasses, json
+import torch
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.roofline import model_flops
+out = {"torch": torch.__version__, "mesh_device": D.mesh_device()}
+for key, cfg in (("like_for_like", """ + LFL_CFG + """),
+                 ("production", get_config("qwen3-0.6b"))):
+    c = D.count_cell(cfg, "train_4k", False)
+    out[key] = {k: c[k] for k in ("flops", "elementwise_flops",
+                                  "bytes_accessed", "collectives",
+                                  "collective_sites", "n_chips", "count_s")}
+    out[key]["model_flops"] = model_flops(cfg, SHAPES["train_4k"], 256)
+print("RESULT " + json.dumps(out))
+"""
+
+
+def _lfl_ratios(port: dict, jax: dict) -> dict:
+    """The port's like-for-like counts over JAX's: FLOPs (the port's
+    products, and with its elementwise ops, which XLA's count holds);
+    reductions (all-reduce and reduce-scatter) over XLA's all-reduce with
+    its tuples, as XLA's CPU backend counts it (f32) and with the
+    all-reduces it widened at their bf16 width; all-gather."""
+    full = jax["full_wire"]
+    c = port["collectives"]
+    red = c.get("all-reduce", 0.0) + c.get("reduce-scatter", 0.0)
+    return {
+        "flops": port["flops"] / jax["flops"],
+        "flops_with_elementwise": (port["flops"] + port["elementwise_flops"])
+        / jax["flops"],
+        "reductions_over_xla_full": red / full["all-reduce"],
+        "reductions_over_xla_full_bf16": red / (
+            full["all-reduce"] - full.get("promoted", 0.0) / 2),
+        "reductions_over_jax_measure": red / jax["collectives"]["all-reduce"],
+        "all_gather_over_xla": c.get("all-gather", 0.0)
+        / full["all-gather"]}
+
+
+def like_for_like(argv=None) -> dict:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--side", choices=("both", "port"), default="both")
+    ap.add_argument("--out", type=Path, default=LFL_OUT)
+    args = ap.parse_args(argv)
+    rec = json.loads(args.out.read_text()) if args.out.exists() else {}
+    cmds = {"port": ([sys.executable, "-c", LFL_PORT], _env())}
+    if args.side == "both":
+        for v in LFL_VARIANTS:
+            cmds[v] = ([sys.executable, "-c", LFL_JAX, v], _env(
+                JAX_PLATFORMS="cpu",
+                XLA_FLAGS="--xla_force_host_platform_device_count=256"))
+    got, secs = _run(cmds, LFL_TIMEOUT)
+    rec["cell"] = ("qwen3-0.6b train_4k, 256 ranks as (16 data, 16 model), "
+                   "per rank; like for like: remat off, attention in one "
+                   "chunk of 4096, JAX's layers unrolled")
+    cmd = ("PYTHONPATH=src python tests/test_torch_dryrun.py "
+           f"--side {args.side}")
+    if args.side == "both":
+        rec["jax"] = {**got["like_for_like"], "seconds": secs["like_for_like"],
+                      "command": cmd}
+        rec["jax_yardstick"] = {v: {**got[v], "seconds": secs[v]}
+                                for v in LFL_VARIANTS[1:]}
+    port = got["port"]
+    key = f"{port['mesh_device']} mesh, torch {port['torch']}"
+    rec.setdefault("port", {})[key] = {**port, "seconds": secs["port"],
+                                       "command": cmd}
+    rec["ratios"] = {k: _lfl_ratios(p["like_for_like"], rec["jax"])
+                     for k, p in rec["port"].items()}
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(rec, indent=1) + "\n")
+    print(json.dumps(rec["ratios"], indent=1))
+    return rec
+
+
+if __name__ == "__main__":
+    like_for_like()
