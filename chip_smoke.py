@@ -275,7 +275,17 @@ Phases, in order; any failure exits non-zero before the last line:
                 straight-through gradient or its packed product off the
                 dequantized one by 1e-5 or more, the packed decode's
                 self-check, or a missing checkpoint;
-  18. result  — every phase's seconds, the kernels JSON line (each
+  18. tables  — the paper's tables (`repro_torch.experiments`): 3 steps
+                of Table 4's (sequential MNIST, H = 64, T = 256) and
+                Table 5's (the QA readout over a GRU, H = 48) ternary step
+                functions at their table sizes in float64, each on the
+                card from the CPU's state before it, with one noise draw:
+                each step's loss and every parameter, moment and BN-state
+                leaf within TABLES_REL relative L2 of the CPU's; one
+                float32 step, its loss held alike; then `experiments.run
+                --only table7_hardware` on the card into a temporary
+                `--out` (the card's name in its meta);
+  19. result  — every phase's seconds, the kernels JSON line (each
                 kernel's launches on every path), the card line, and
                 {"ok": true, "device": {...}} last.
 
@@ -4132,6 +4142,118 @@ def examples_phase(report: dict) -> dict:
     return res
 
 
+TABLES_REL = 1e-4  # card against CPU, Tables 4 and 5's steps
+TABLES_STEPS = 3
+
+
+def tables_phase(report: dict) -> dict:
+    """Tables 4 and 5's ternary step functions at their table sizes: the
+    CPU runs TABLES_STEPS steps in float64 from weights drawn on the CPU,
+    and each step also runs on the card from the CPU's state before it,
+    with the same noise (drawn on the CPU and moved); the step's loss and
+    every leaf of its parameters, AdamW moments and BN state are held
+    within TABLES_REL relative L2 of the CPU's.  One step in float32, the
+    tables' dtype, holds its loss alike and reports its worst leaf: there
+    AdamW's first update, about lr * g / (|g| + eps), takes the sign of
+    gradients that are rounding alone (a BN over a column whose ternary
+    input weights are equal for both of Table 4's tokens sees x - mean of
+    one ulp), so such elements move by +-lr on either side at random.
+    (Run on, rather than restarted from the CPU's state, the two sides'
+    stochastic weights part as soon as a master crosses a sampling
+    threshold by a rounding: that is the algorithm, not a fault.)  Then
+    Table 7 through the experiments' CLI on the card into a temporary
+    directory.  The CPU side runs on one thread: its eager steps are
+    thousands of small ops, which threads slow down.  Training launches
+    no kernel of this script's."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import bnlstm as BL
+    from repro_torch.core.qtensor import tree_paths, tree_to
+    from repro_torch.data.loader import to_device
+    from repro_torch.data.synth import seq_mnist_like
+    from repro_torch.experiments import run as XR
+    from repro_torch.experiments import tables as XT
+    from repro_torch.train.optimizer import opt_init
+
+    t0 = time.perf_counter()
+    cases = (("table4_mnist", XT.mnist_config("ternary"), XT.mnist_init,
+              XT.mnist_step, XT.MNIST_OPT,
+              lambda i: seq_mnist_like(i, XT.MNIST_BATCH,
+                                       side=XT.MNIST_SIDE)),
+             ("table5_qa", XT.qa_config("ternary"), XT.qa_init, XT.qa_step,
+              XT.QA_OPT, XT.qa_batch))
+    threads = torch.get_num_threads()
+    res = {}
+    for name, cfg32, init, make_step, opt_cfg, batches in cases:
+        for dtype, steps in (("float64", TABLES_STEPS), ("float32", 1)):
+            cfg = dataclasses.replace(cfg32, dtype=getattr(torch, dtype))
+            params, bn = init(cfg, "cpu")
+            g = torch.Generator().manual_seed(1)
+            state = (params, opt_init(params, opt_cfg), bn)
+            step = make_step(cfg)
+            row = {"card_losses": [], "cpu_losses": [], "loss_rel": [],
+                   "worst_leaf_rel": [], "worst_leaf": [], "card_s": 0.0,
+                   "cpu_s": 0.0}
+            for i in range(steps):
+                noise, batch = BL.draw_noise(params, g), batches(i)
+                got = {}
+                for dev in ("cpu", "cuda"):
+                    torch.set_num_threads(1 if dev == "cpu" else threads)
+                    t = time.perf_counter()
+                    got[dev] = step(*tree_to(state, dev),
+                                    to_device(batch, dev),
+                                    noise=tree_to(noise, dev))
+                    row["card_s" if dev == "cuda" else "cpu_s"] += \
+                        time.perf_counter() - t
+                torch.set_num_threads(threads)
+                leaves = {dev: tree_paths({"params": p, "m": o.m, "v": o.v,
+                                           "bn": b})
+                          for dev, (p, o, b, _, _) in got.items()}
+                worst = max((rel_l2(a, c), "/".join(pa)) for (pa, a), (_, c)
+                            in zip(leaves["cuda"], leaves["cpu"]))
+                card_loss = float(got["cuda"][3])
+                cpu_loss = float(got["cpu"][3])
+                state = got["cpu"][:3]
+                row["card_losses"].append(card_loss)
+                row["cpu_losses"].append(cpu_loss)
+                row["loss_rel"].append(abs(card_loss - cpu_loss)
+                                       / abs(cpu_loss))
+                row["worst_leaf_rel"].append(worst[0])
+                row["worst_leaf"].append(worst[1])
+            res[f"{name} {dtype}"] = row
+            held = max(row["loss_rel"]) <= TABLES_REL and (
+                dtype == "float32" or max(row["worst_leaf_rel"]) <= TABLES_REL)
+            if not held:
+                fail(f"{name}, {steps} ternary step(s) in {dtype}, card "
+                     f"against CPU: {row}")
+            print(f"  {name} {dtype}: {steps} ternary step(s), card losses "
+                  + ", ".join(f"{x:.6f}" for x in row["card_losses"])
+                  + f" (worst rel {max(row['loss_rel']):.1e}); worst leaf a "
+                  "step " + ", ".join(f"{w} {v:.1e}" for w, v in zip(
+                      row["worst_leaf"], row["worst_leaf_rel"]))
+                  + (f" (limit {TABLES_REL:g})" if dtype == "float64" else
+                     " (reported)")
+                  + f"; card {row['card_s']:.2f} s, CPU {row['cpu_s']:.2f} s",
+                  flush=True)
+    out = Path(tempfile.mkdtemp(prefix="torch_tables_"))
+    try:
+        XR.main(["--only", "table7_hardware", "--out", str(out)])
+        t7 = json.loads((out / "table7_hardware.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if t7["meta"]["device"] != "cuda" or not t7["meta"]["card"]:
+        fail(f"table7_hardware's meta names no card: {t7['meta']}")
+    res["table7"] = {"meta": t7["meta"], "h100": t7["meta"]["h100"]}
+    res["wall_s"] = time.perf_counter() - t0
+    report["tables"] = res
+    print(f"  table7_hardware on {t7['meta']['card']}: decode bound "
+          f"{t7['meta']['h100']['decode_bound_us']} us; tables phase "
+          f"{res['wall_s']:.1f} s", flush=True)
+    return res
+
+
 PHASE_S: dict = {}
 
 
@@ -4252,6 +4374,10 @@ def main() -> int:
     # 17. the examples the README starts from, on the card
     with phase("examples"):
         examples_phase(report)
+
+    # 18. the paper's tables: Tables 4 and 5's steps, card against CPU
+    with phase("tables"):
+        tables_phase(report)
     pool, ha = report["pool"], report["hybrid_audio"]
     all_rows = (rows + report["transformer"]["kernel_rows"]
                 + pool["qwen3_moe"]["kernel_rows"]
@@ -4260,7 +4386,7 @@ def main() -> int:
                 + ha["zamba2"]["kernel_rows"] + ha["whisper"]["kernel_rows"]
                 + report["vlm"]["kernel_rows"])
 
-    # 18. result
+    # 19. result
     sources = {"packed_gemv": ("src/repro_torch/csrc/packed_gemv.cu",
                                "src/repro/kernels/packed_matmul.py:106"),
                "packed_matmul": ("src/repro_torch/csrc/packed_matmul.cu",

@@ -74,6 +74,14 @@ def step_noise(noise_seed: int, step: int) -> Callable:
     return draw
 
 
+def is_quantizable(path_key: str, spec: Optional[Q.QuantSpec] = None) -> bool:
+    """Whether a leaf named `path_key` quantizes under `spec`'s policy (the
+    default spec's when None); JAX's thin wrapper, for callers that only
+    have a leaf name."""
+    spec = spec if spec is not None else Q.QuantSpec()
+    return spec.policy().matches_name(path_key)
+
+
 def _policy_leaves(params: Any, spec: Q.QuantSpec, fn) -> Any:
     """Map `fn(name, leaf)` over the policy-matching tensor leaves; the
     rest (packed `QTensor`s included) pass through."""
@@ -82,7 +90,7 @@ def _policy_leaves(params: Any, spec: Q.QuantSpec, fn) -> Any:
     def f(path, leaf):
         if is_qtensor(leaf) or not isinstance(leaf, torch.Tensor):
             return leaf
-        name = "/".join(path)
+        name = Q.path_str(path)
         if not policy.matches_name(path[-1] if path else "", name,
                                    leaf.dim()):
             return leaf

@@ -170,7 +170,7 @@ def export_packed(params: Any, spec: Q.QuantSpec, *,
         if is_qtensor(leaf) or not isinstance(leaf, torch.Tensor):
             return leaf
         name = path[-1] if path else ""
-        if not policy.matches_name(name, "/".join(path), leaf.dim()):
+        if not policy.matches_name(name, Q.path_str(path), leaf.dim()):
             return leaf
         if name == "embed":  # consumed by row gather, not matmul
             return leaf

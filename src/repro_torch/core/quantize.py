@@ -277,6 +277,14 @@ def packed_nbytes(shape: tuple, mode: str) -> int:
 # ---------------------------------------------------------------------------
 
 
+def path_str(path) -> str:
+    """'/'-joined string form of a leaf's path, a tuple of keys (dict keys,
+    NamedTuple field names, list indices; `qtensor.tree_paths`): the one
+    rendering policy matching, the per-leaf noise salt and export use, as
+    JAX's `path_str` renders a key-path."""
+    return "/".join(str(p) for p in path)
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
     """Which parameter leaves are quantizable matmul weights.  Patterns are

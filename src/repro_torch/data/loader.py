@@ -9,20 +9,43 @@ takes its contiguous block [r*B/D, (r+1)*B/D) of the global batch, what
 """
 from __future__ import annotations
 
+import math
 import queue
 import threading
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.launch import mesh as M
+from repro_torch.runtime import axis_sizes
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
     """numpy batch -> tensors on `device`, token ids as int64."""
     return {k: torch.from_numpy(np.asarray(v, dtype=np.int64)).to(device)
             for k, v in batch.items()}
+
+
+def batch_sharding(mesh) -> Optional[tuple]:
+    """The layout of a batch's leading axis on `mesh` (JAX's
+    `NamedSharding` spec of it): None without a mesh, else the
+    (pod, data) axes a batch leaf shards over
+    (`sharding.batch_shardings`' rule)."""
+    if mesh is None:
+        return None
+    from repro_torch.launch import sharding as S
+    n = math.prod(axis_sizes(mesh).get(a, 1) for a in S.DATA_AXES)
+    return S.batch_shardings(torch.empty(n, device="meta"), mesh)
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """This rank's block of a batch as DTensors sharded over the data axes
+    (`train_step.shard_batch`); the batch as it is without a mesh."""
+    if mesh is None:
+        return batch
+    from repro_torch.train.train_step import shard_batch as shard
+    return shard(batch, mesh)
 
 
 def data_block(batch: dict, mesh) -> dict:

@@ -90,6 +90,7 @@ import torch
 from repro_torch.configs import (ARCH_IDS, RNN_ARCH_IDS, get_config,
                                   get_rnn_config, rnn_paper)
 from repro_torch.core import bnlstm as BL
+from repro_torch.core.qtensor import tree_nbytes
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as T
@@ -116,6 +117,12 @@ def serve_mesh(args):
     say(f"mesh: {shape} over {mesh.size()} device(s) — slot pool sharded "
         f"along 'data', weights tensor-parallel along 'model'", flush=True)
     return mesh
+
+
+def packed_model_bytes(qparams) -> tuple[int, int]:
+    """(fp32-equivalent bytes, actual bytes) of an exported serving tree,
+    measured from the real `QTensor.nbytes`, not the analytic formula."""
+    return tree_nbytes(qparams)
 
 
 def _report_bytes(rt, quant: str) -> None:

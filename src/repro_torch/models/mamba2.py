@@ -256,3 +256,6 @@ def state_init(cfg, batch: int, dtype=torch.float32, *,
     return SSMState(h=z((batch, H, N, P), torch.float32),  # fp32 core
                     conv=z((batch, cfg.ssm_conv - 1, conv_dim), dtype),
                     pos=z((batch,) if per_slot else (), torch.int32))
+
+
+ssm_state_init = state_init  # JAX's historical name

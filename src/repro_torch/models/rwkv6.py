@@ -292,3 +292,6 @@ def state_init(cfg, batch: int, dtype=torch.float32, *,
                      tm_shift=z((batch, d), dtype),
                      cm_shift=z((batch, d), dtype),
                      pos=z((batch,) if per_slot else (), torch.int32))
+
+
+rwkv_state_init = state_init  # JAX's historical name

@@ -108,6 +108,35 @@ def slot_axis(pool_shape, sub_shape) -> Optional[int]:
                      f"{tuple(sub_shape)}")
 
 
+def cache_bytes(c: AttnCache) -> int:
+    """The bytes of a cache's k and v."""
+    return c.k.numel() * c.k.element_size() * 2
+
+
+def write_row(p: torch.Tensor, s: torch.Tensor, slot: int) -> torch.Tensor:
+    """Copy batch-1 leaf `s` into row `slot` of pool leaf `p` along the
+    recovered slot axis, IN PLACE, and return `p` (JAX's returns a new
+    array); equal shapes replace the whole leaf (a 1-slot pool)."""
+    ax = slot_axis(p.shape, s.shape)
+    if ax is None:
+        return s.to(p.dtype)
+    row = p.narrow(ax, slot, 1)
+    if not same_bytes(row, s):
+        row.copy_(s)
+    return p
+
+
+def read_row(p: torch.Tensor, ref_shape, slot: int) -> torch.Tensor:
+    """Row `slot` of pool leaf `p` as a batch-1 leaf shaped like
+    `ref_shape` (a batch-1 template shape: how the slot axis is recovered),
+    a VIEW of the pool where JAX's is a copy; `write_row(p, read_row(p, r,
+    s), s)` leaves `p` as it was."""
+    ax = slot_axis(p.shape, ref_shape)
+    if ax is None:
+        return p
+    return p.narrow(ax, slot, 1)
+
+
 def cache_init(batch: int, cap: int, heads: int, hd: int, dtype, *,
                ring: bool = False, per_slot: bool = False,
                lead: tuple = (), device=None) -> AttnCache:

@@ -334,7 +334,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "data/loader.py", "launch/train.py", "convert.py",
             "configs/base.py", "core/qlinear.py", "models/layers.py",
             "models/transformer.py", "serve/kvcache.py", "models/moe.py",
-            "models/rwkv6.py"} <= names
+            "models/rwkv6.py", "experiments/common.py",
+            "experiments/tables.py", "experiments/run.py"} <= names
     files += [ROOT / "chip_smoke.py", ROOT / "time_kernels.py"]
     for f in files:
         for mod in _imports(f):
